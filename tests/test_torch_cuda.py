@@ -1,0 +1,94 @@
+"""The hand-written CUDA kernel against its plain PyTorch version, on the card.
+
+These tests need an NVIDIA GPU with sm_90a (Hopper) and nvcc; they carry the
+``cuda`` marker and skip where there is no CUDA device. On a machine with
+the card (tests/conftest.py imports JAX, which the port's machines need not
+have, hence --noconftest):
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from textflux_torch.ops import flash_attention as FA, packing
+from textflux_torch.ops.rope import rope_tables_half
+
+pytestmark = pytest.mark.cuda
+
+BF16_TOL = 2e-2   # unit-scale inputs; q/k/p/out rounded to bf16
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _case(cuda, *, b, t_txt, lat_hw, h, d, axes, per_row):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ids = np.concatenate([packing.text_ids(t_txt), packing.latent_image_ids(*lat_hw)], 0)
+    s = len(ids)
+    cos, sin = (torch.as_tensor(x, device=cuda) for x in rope_tables_half(ids, axes))
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+
+    def scale():
+        return 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
+
+    def scales():
+        if per_row:   # double-block tables: txt rows and img rows differ
+            return torch.cat([scale().expand(t_txt, d), scale().expand(s - t_txt, d)])
+        return scale()
+
+    return q, k, v, cos, sin, scales(), scales()
+
+
+@pytest.mark.parametrize("case", [
+    dict(b=1, t_txt=512, lat_hw=(56, 64), h=24, d=128, axes=(16, 56, 56), per_row=True,
+         kv_len=None),
+    dict(b=1, t_txt=512, lat_hw=(56, 64), h=24, d=128, axes=(16, 56, 56), per_row=True,
+         kv_len=1300),
+    dict(b=1, t_txt=104, lat_hw=(56, 64), h=24, d=128, axes=(16, 56, 56), per_row=False,
+         kv_len=None),
+    dict(b=2, t_txt=64, lat_hw=(32, 32), h=8, d=64, axes=(16, 24, 24), per_row=False,
+         kv_len=None),
+], ids=["serving", "serving_kv_len", "ragged_s1000", "d64"])
+def test_kernel_matches_plain_version(case, cuda):
+    kv_len = case.pop("kv_len")
+    q, k, v, cos, sin, qs, ks = _case(cuda, **case)
+    before = FA.flash_attention_qk_norm_rope.launches
+    out = FA.flash_attention_qk_norm_rope(q, k, v, cos, sin, qs, ks, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_qk_norm_rope.launches == before + 1
+    ref = FA.flash_attention_qk_norm_rope_reference(q, k, v, cos, sin, qs, ks, kv_len=kv_len)
+    rows = slice(None) if kv_len is None else slice(0, kv_len)
+    err = (out[:, rows].float() - ref[:, rows].float()).abs().max().item()
+    assert err <= BF16_TOL
+
+
+def test_kernel_takes_strided_rows(cuda):
+    """Single blocks hand over q/k/v as strided views of the fused
+    projection; the kernel reads them in place."""
+    q, k, v, cos, sin, qs, ks = _case(cuda, b=1, t_txt=16, lat_hw=(16, 16), h=4, d=128,
+                                      axes=(16, 56, 56), per_row=False)
+    fused = torch.cat([q, k, v, q], dim=-2)           # (B, S, 4H, D): rows carry an extra block
+    qv, kv, vv = fused[:, :, :4], fused[:, :, 4:8], fused[:, :, 8:12]
+    out = FA.flash_attention_qk_norm_rope(qv, kv, vv, cos, sin, qs, ks)
+    ref = FA.flash_attention_qk_norm_rope_reference(q, k, v, cos, sin, qs, ks)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v, cos, sin, qs, ks = _case(cuda, b=1, t_txt=8, lat_hw=(8, 8), h=2, d=64,
+                                      axes=(16, 24, 24), per_row=False)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FA.flash_attention_qk_norm_rope(q.float(), k.float(), v.float(), cos, sin, qs, ks)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention_qk_norm_rope(q[..., :32], k[..., :32], v[..., :32], cos[:, :32],
+                                        sin[:, :32], qs[:32], ks[:32])
+    with pytest.raises(ValueError, match="stride"):
+        FA.flash_attention_qk_norm_rope(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                                        cos, sin, qs, ks)

@@ -1,0 +1,45 @@
+"""The port stands alone: importing textflux_torch and every submodule pulls
+in neither JAX nor the JAX package, and no port source (nor chip_smoke.py)
+imports either."""
+
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import textflux_torch
+names = [m.name for m in pkgutil.walk_packages(textflux_torch.__path__, "textflux_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "textflux_tpu")))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|textflux_tpu)\b", re.MULTILINE)
+
+
+def test_import_pulls_in_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 20, proc.stdout      # every subpackage was walked
+
+
+def test_no_source_imports_jax():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "textflux_torch")):
+        files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
+    offenders = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            if _IMPORT.search(f.read()):
+                offenders.append(os.path.relpath(path, ROOT))
+    assert len(files) > 20 and not offenders, offenders

@@ -1,0 +1,230 @@
+"""FLUX KL autoencoder (16 latent channels, 8x spatial).
+
+The port of ``textflux_tpu/models/vae.py``. The public functions keep the JAX
+package's NHWC image/latent layout; inside, the convolutions run as
+``nn.Conv2d`` in PyTorch's NCHW. GroupNorm computes in float32; the mid-block
+spatial attention is one single-head attention. FLUX's VAE has no quant convs.
+The tiled encode/decode pair (canvases above a 160x160 latent area) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from textflux_torch.config import VAEConfig
+from textflux_torch.device import resolve_device
+from textflux_torch.models.layers import dense, make_linear, silu
+
+
+# ---------------------------------------------------------------------------
+# Primitives
+# ---------------------------------------------------------------------------
+
+def make_conv(k: int, c_in: int, c_out: int, *, stride: int = 1, padding: int = 0,
+              device=None, dtype=None, generator=None) -> nn.Conv2d:
+    """nn.Conv2d with the JAX package's conv_init distribution: weights
+    uniform in [-1/sqrt(c_in*k*k), +], zero bias."""
+    conv = torch.nn.utils.skip_init(nn.Conv2d, c_in, c_out, k, stride=stride,
+                                    padding=padding, device=device, dtype=dtype)
+    bound = 1.0 / math.sqrt(c_in * k * k)
+    with torch.no_grad():
+        conv.weight.uniform_(-bound, bound, generator=generator)
+        conv.bias.zero_()
+    return conv
+
+
+def conv(c: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """Convolution in x's dtype (NCHW)."""
+    return F.conv2d(x, c.weight.to(x.dtype), c.bias.to(x.dtype), stride=c.stride,
+                    padding=c.padding)
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, c: int, *, device=None, dtype=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(c, device=device, dtype=dtype))
+
+
+def group_norm(p: GroupNorm, x: torch.Tensor, groups: int, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over NCHW in float32, cast back to x's dtype."""
+    return F.group_norm(x.float(), groups, p.scale.float(), p.bias.float(), eps).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+class ResnetBlock(nn.Module):
+    def __init__(self, c_in: int, c_out: int, **kw):
+        super().__init__()
+        nkw = {k: kw[k] for k in ("device", "dtype")}
+        self.norm1 = GroupNorm(c_in, **nkw)
+        self.conv1 = make_conv(3, c_in, c_out, padding=1, **kw)
+        self.norm2 = GroupNorm(c_out, **nkw)
+        self.conv2 = make_conv(3, c_out, c_out, padding=1, **kw)
+        self.skip = make_conv(1, c_in, c_out, **kw) if c_in != c_out else None
+
+
+def _resnet(p: ResnetBlock, x: torch.Tensor, groups: int) -> torch.Tensor:
+    h = conv(p.conv1, silu(group_norm(p.norm1, x, groups)))
+    h = conv(p.conv2, silu(group_norm(p.norm2, h, groups)))
+    skip = conv(p.skip, x) if p.skip is not None else x
+    return skip + h
+
+
+class AttnBlock(nn.Module):
+    def __init__(self, c: int, **kw):
+        super().__init__()
+        self.norm = GroupNorm(c, device=kw["device"], dtype=kw["dtype"])
+        self.q = make_linear(c, c, **kw)
+        self.k = make_linear(c, c, **kw)
+        self.v = make_linear(c, c, **kw)
+        self.out = make_linear(c, c, **kw)
+
+
+def _attn(p: AttnBlock, x: torch.Tensor, groups: int) -> torch.Tensor:
+    b, c, h, w = x.shape
+    y = group_norm(p.norm, x, groups).reshape(b, c, h * w).transpose(1, 2)  # (b, hw, c)
+    q, k, v = dense(p.q, y), dense(p.k, y), dense(p.v, y)
+    logits = torch.matmul(q.float(), k.float().transpose(1, 2))
+    probs = torch.softmax(logits / math.sqrt(c), dim=-1).to(v.dtype)
+    o = torch.matmul(probs.float(), v.float()).to(x.dtype)
+    return x + dense(p.out, o).transpose(1, 2).reshape(b, c, h, w)
+
+
+class MidBlock(nn.Module):
+    def __init__(self, c: int, **kw):
+        super().__init__()
+        self.res1 = ResnetBlock(c, c, **kw)
+        self.attn = AttnBlock(c, **kw)
+        self.res2 = ResnetBlock(c, c, **kw)
+
+
+def _mid(p: MidBlock, x: torch.Tensor, groups: int) -> torch.Tensor:
+    x = _resnet(p.res1, x, groups)
+    x = _attn(p.attn, x, groups)
+    return _resnet(p.res2, x, groups)
+
+
+class DownBlock(nn.Module):
+    def __init__(self, c_in: int, c: int, n: int, downsample: bool, **kw):
+        super().__init__()
+        self.resnets = nn.ModuleList(ResnetBlock(c_in if j == 0 else c, c, **kw)
+                                     for j in range(n))
+        # stride-2 VALID conv after an asymmetric (0, 1) pad (diffusers Downsample2D)
+        self.down = make_conv(3, c, c, stride=2, **kw) if downsample else None
+
+
+class UpBlock(nn.Module):
+    def __init__(self, c_in: int, c: int, n: int, upsample: bool, **kw):
+        super().__init__()
+        self.resnets = nn.ModuleList(ResnetBlock(c_in if j == 0 else c, c, **kw)
+                                     for j in range(n))
+        self.up = make_conv(3, c, c, padding=1, **kw) if upsample else None
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, **kw):
+        super().__init__()
+        chans = cfg.block_out_channels
+        self.conv_in = make_conv(3, cfg.in_channels, chans[0], padding=1, **kw)
+        self.down = nn.ModuleList(
+            DownBlock(chans[max(i - 1, 0)], c, cfg.layers_per_block, i < len(chans) - 1, **kw)
+            for i, c in enumerate(chans))
+        self.mid = MidBlock(chans[-1], **kw)
+        self.norm_out = GroupNorm(chans[-1], device=kw["device"], dtype=kw["dtype"])
+        self.conv_out = make_conv(3, chans[-1], 2 * cfg.latent_channels, padding=1, **kw)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, **kw):
+        super().__init__()
+        rev = list(reversed(cfg.block_out_channels))
+        self.conv_in = make_conv(3, cfg.latent_channels, rev[0], padding=1, **kw)
+        self.mid = MidBlock(rev[0], **kw)
+        self.up = nn.ModuleList(
+            UpBlock(rev[max(i - 1, 0)], c, cfg.layers_per_block + 1, i < len(rev) - 1, **kw)
+            for i, c in enumerate(rev))
+        self.norm_out = GroupNorm(rev[-1], device=kw["device"], dtype=kw["dtype"])
+        self.conv_out = make_conv(3, rev[-1], cfg.out_channels, padding=1, **kw)
+
+
+class FluxVAE(nn.Module):
+    """KL autoencoder parameters (the JAX package's init_vae_params
+    distributions), initialised from `generator` (default: seed 0)."""
+
+    def __init__(self, cfg: VAEConfig, *, device="cuda", dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.cfg = cfg
+        self.encoder = Encoder(cfg, **kw)
+        self.decoder = Decoder(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Public functions (NHWC)
+# ---------------------------------------------------------------------------
+
+def vae_encode_moments(vae: FluxVAE, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode NHWC images in [-1, 1] to posterior (mean, logvar), each (B,h,w,C)."""
+    g = vae.cfg.norm_num_groups
+    p = vae.encoder
+    x = conv(p.conv_in, images.permute(0, 3, 1, 2))
+    for block in p.down:
+        for r in block.resnets:
+            x = _resnet(r, x, g)
+        if block.down is not None:
+            x = conv(block.down, F.pad(x, (0, 1, 0, 1)))
+    x = _mid(p.mid, x, g)
+    x = conv(p.conv_out, silu(group_norm(p.norm_out, x, g)))
+    x = x.permute(0, 2, 3, 1)
+    mean, logvar = x.chunk(2, dim=-1)
+    return mean, torch.clamp(logvar, -30.0, 20.0)
+
+
+def vae_encode(vae: FluxVAE, images: torch.Tensor, *, noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None, scale: bool = True) -> torch.Tensor:
+    """Encode to latents: a posterior sample when `noise` (a standard normal
+    draw shaped like the latents) or a `generator` to draw it from is given,
+    else the mode; then (z - shift_factor) * scaling_factor when scale=True."""
+    cfg = vae.cfg
+    mean, logvar = vae_encode_moments(vae, images)
+    z = mean
+    if noise is None and generator is not None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=torch.float32)
+    if noise is not None:
+        std = torch.exp(0.5 * logvar.float())
+        z = mean + (std * noise.to(device=mean.device, dtype=torch.float32)).to(mean.dtype)
+    if scale:
+        z = (z - cfg.shift_factor) * cfg.scaling_factor
+    return z
+
+
+def vae_decode(vae: FluxVAE, latents: torch.Tensor, *, scale: bool = True) -> torch.Tensor:
+    """Decode (scaled) NHWC latents to NHWC images in [-1, 1]."""
+    cfg = vae.cfg
+    g = cfg.norm_num_groups
+    if scale:
+        latents = latents / cfg.scaling_factor + cfg.shift_factor
+    p = vae.decoder
+    x = conv(p.conv_in, latents.permute(0, 3, 1, 2))
+    x = _mid(p.mid, x, g)
+    for block in p.up:
+        for r in block.resnets:
+            x = _resnet(r, x, g)
+        if block.up is not None:
+            x = conv(block.up, F.interpolate(x, scale_factor=2, mode="nearest"))
+    x = conv(p.conv_out, silu(group_norm(p.norm_out, x, g)))
+    return x.permute(0, 2, 3, 1)
