@@ -13,9 +13,16 @@ Phases, in order; any failure exits non-zero:
      textflux_torch.cli.run_inference.run on resource/example (euler, then
      overshoot), with the kernel launch counts checked;
   5. profile: one more denoise step timed unprofiled, then traced with
-     torch.profiler: device time by kernel and the device's idle share.
-The line before the last holds the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+     torch.profiler: device time by kernel and the device's idle share (and
+     the same for one train step when the train phase runs);
+  6. train: the serving models freed, full-width models built anew from the
+     seed, then 3 LoRA optimizer steps (rank 128) through
+     textflux_torch.cli.train.train_lora on one 1024-px sample composed
+     from resource/example, with the flash kernels' launch counts per step,
+     the factors' movement and the frozen base checked.
+Phase 3 also holds the four training kernels (flash forward, LSE, dQ,
+dK/dV) against their plain versions. The line before the last holds the
+kernel table as JSON; the last line is {"ok": true, "device": {...}}.
 
 `--phases` picks a subset (default: all of them).
 """
@@ -37,7 +44,7 @@ EXAMPLE = os.path.join(REPO, "resource", "example")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BF16_TOL = 2e-2              # unit-scale inputs, bf16 rounding of q/k/p/out
-PHASES = ("device", "build", "kernels", "main", "profile")
+PHASES = ("device", "build", "kernels", "main", "profile", "train")
 
 
 def log(msg: str) -> None:
@@ -195,6 +202,165 @@ def phase_kernels() -> list:
     return rows
 
 
+FLASH_KERNELS = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
+                 "flash_attention_dkv")
+LSE_TOL = 1e-3     # fp32 output: only the summation order differs
+REL_TOL = 2e-2     # bf16 outputs, relative to the largest |value| of the plain version
+
+
+def _flash_case(name, b, s, h, d, *, kv_len=None, strided=False, gen):
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    if strided:  # q/k/v as views of a fused [q | k | v | mlp] row, as linear1 gives them
+        fused = randn(b, s, 7 * h * d)
+        q, k, v = (fused[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+                   for i in range(3))
+    else:
+        q, k, v = (randn(b, s, h, d) for _ in range(3))
+    return dict(name=name, q=q, k=k, v=v, do=randn(b, s, h, d),
+                kv_len=s if kv_len is None else kv_len)
+
+
+def _flash_bounds(b, s, h, d, kv) -> dict:
+    """(bound_ms, bound_by) of each flash kernel: its products' FLOPs over the
+    bf16 peak against each input read once and each output written once (k/v
+    rows up to kv_len, q/dO/outputs at every row; L and Dvec fp32)."""
+    row_q, row_kv, row_f32 = b * s * h * d * 2, b * kv * h * d * 2, b * h * s * 4
+    work = {
+        "flash_attention": (4, 2 * row_q + 2 * row_kv),                         # q, o; k, v
+        "flash_attention_lse": (2, row_q + row_kv + row_f32),                   # q; k; L
+        "flash_attention_dq": (6, 3 * row_q + 2 * row_kv + 2 * row_f32),        # q, dO, dq; k, v
+        "flash_attention_dkv": (8, 4 * row_q + 2 * row_kv + 2 * row_f32),       # q, dO, dk, dv
+    }
+    out = {}
+    for name, (mult, nbytes) in work.items():
+        t_ops = mult * b * h * s * kv * d / PEAK_BF16_FLOPS
+        t_bytes = nbytes / PEAK_BYTES
+        out[name] = (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def _rel_err(out, ref) -> tuple:
+    ref = ref.float()
+    err = (out.float() - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-30), bool(torch.isfinite(out.float()).all())
+
+
+def phase_flash_kernels() -> dict:
+    """The four training kernels against their plain versions, per case; the
+    autograd function's gradients against the same function on the plain
+    versions at the training shape; SDPA forward and backward as yardsticks."""
+    import torch.nn.functional as F
+
+    from textflux_torch.ops import flash_attention as FA
+    from textflux_torch.ops.attention import FlashAttention
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    specs = [
+        ("train", 1, 4224, 24, 128, None, False),
+        ("train_kv_len", 1, 4224, 24, 128, 4100, False),
+        ("train_single_block", 1, 4224, 24, 128, None, True),
+        ("s1408", 1, 1408, 24, 128, None, False),
+        ("ragged_s1000", 1, 1000, 24, 128, None, False),
+        ("d64", 2, 320, 8, 64, None, False),
+    ]
+    rows, failed = [], []
+    for name, b, s, h, d, kv_len, strided in specs:
+        c = _flash_case(name, b, s, h, d, kv_len=kv_len, strided=strided, gen=gen)
+        q, k, v, do, n = c["q"], c["k"], c["v"], c["do"], c["kv_len"]
+        o = FA.flash_attention(q, k, v, kv_len=n)
+        lse = FA.flash_attention_lse(q, k, kv_len=n)
+        dvec = FA.attention_dvec(o, do)
+        dq = FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=n)
+        dk, dv = FA.flash_attention_dkv(q, k, v, do, lse, dvec, kv_len=n)
+        torch.cuda.synchronize()
+        ref_o = FA.flash_attention_reference(q, k, v, kv_len=n)
+        ref_lse = FA.flash_attention_lse_reference(q, k, kv_len=n)
+        ref_dq = FA.flash_attention_dq_reference(q, k, v, do, lse, dvec, kv_len=n)
+        ref_dk, ref_dv = FA.flash_attention_dkv_reference(q, k, v, do, lse, dvec, kv_len=n)
+        lse_err = (lse - ref_lse).abs().max().item()
+        errs = {
+            "flash_attention": _rel_err(o, ref_o),
+            "flash_attention_lse": (lse_err, lse_err, bool(torch.isfinite(lse).all())),
+            "flash_attention_dq": _rel_err(dq, ref_dq),
+            "flash_attention_dkv": tuple(max(x, y) for x, y in zip(_rel_err(dk, ref_dk),
+                                                                  _rel_err(dv, ref_dv))),
+        }
+        del ref_o, ref_lse, ref_dq, ref_dk, ref_dv
+        # key rows >= kv_len get exactly zero gradients
+        masked_rows_zero = bool((dk[:, n:] == 0).all() and (dv[:, n:] == 0).all())
+        calls = {
+            "flash_attention": (lambda: FA.flash_attention(q, k, v, kv_len=n),
+                                lambda: FA.flash_attention_reference(q, k, v, kv_len=n)),
+            "flash_attention_lse": (lambda: FA.flash_attention_lse(q, k, kv_len=n),
+                                    lambda: FA.flash_attention_lse_reference(q, k, kv_len=n)),
+            "flash_attention_dq": (
+                lambda: FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=n),
+                lambda: FA.flash_attention_dq_reference(q, k, v, do, lse, dvec, kv_len=n)),
+            "flash_attention_dkv": (
+                lambda: FA.flash_attention_dkv(q, k, v, do, lse, dvec, kv_len=n),
+                lambda: FA.flash_attention_dkv_reference(q, k, v, do, lse, dvec, kv_len=n)),
+        }
+        bounds = _flash_bounds(b, s, h, d, n)
+        per_kernel = {}
+        for kname, (kernel_fn, plain_fn) in calls.items():
+            err, rel, finite = errs[kname]
+            tol = LSE_TOL if kname == "flash_attention_lse" else REL_TOL
+            per_kernel[kname] = dict(
+                max_err=err, rel_err=rel, tol=tol, finite=finite,
+                kernel_ms=cuda_ms(kernel_fn), plain_ms=cuda_ms(plain_fn, iters=3, warmup=1),
+                bound_ms=bounds[kname][0], bound_by=bounds[kname][1])
+            if not (finite and (err if kname == "flash_attention_lse" else rel) <= tol):
+                failed.append(f"{name}/{kname}")
+        if not masked_rows_zero:
+            failed.append(f"{name}/masked_rows")
+        dvec_ms = cuda_ms(lambda: FA.attention_dvec(o, do))
+
+        # yardsticks: SDPA forward, and one SDPA backward with the same dO
+        mask = None
+        if n < s:
+            mask = (torch.arange(s, device="cuda") < n)[None, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        do_t = do.transpose(1, 2)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                                          retain_graph=True))
+        del sdpa_out
+        bwd_total = sum(per_kernel[x]["kernel_ms"] for x in FLASH_KERNELS[1:]) + dvec_ms
+        row = dict(case=name, shape=[b, s, h, d], kv_len=n, strided=strided,
+                   kernels=per_kernel, masked_rows_zero=masked_rows_zero, dvec_ms=dvec_ms,
+                   bwd_total_ms=bwd_total, sdpa_ms=sdpa_ms, sdpa_bwd_ms=sdpa_bwd_ms)
+        log("kernel case " + json.dumps(row))
+        rows.append(row)
+
+        if name == "train":
+            # the autograd function on the card against the same function
+            # composed from the plain versions
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            out = FlashAttention.apply(qg, kg, vg, n)
+            grads = torch.autograd.grad(out, (qg, kg, vg), do)
+            ref_out = FA.flash_attention_reference(q, k, v, kv_len=n)
+            ref_lse = FA.flash_attention_lse_reference(q, k, kv_len=n)
+            ref_dvec = FA.attention_dvec(ref_out, do)
+            ref_grads = (FA.flash_attention_dq_reference(q, k, v, do, ref_lse, ref_dvec, kv_len=n),
+                         *FA.flash_attention_dkv_reference(q, k, v, do, ref_lse, ref_dvec,
+                                                           kv_len=n))
+            grad_rel = [_rel_err(g_, r_)[1] for g_, r_ in zip(grads, ref_grads)]
+            grad_row = dict(case="train_autograd", out_rel_err=_rel_err(out, ref_out)[1],
+                            grad_rel_err=grad_rel, tol=REL_TOL)
+            log("kernel case " + json.dumps(grad_row))
+            if max(grad_rel + [grad_row["out_rel_err"]]) > REL_TOL:
+                failed.append("train_autograd")
+            del out, grads, ref_out, ref_grads
+        del c, q, k, v, do, o, lse, dvec, dq, dk, dv, qt, kt, vt
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"flash kernels disagree with their plain versions: {failed}")
+    return {r["case"]: r for r in rows}
+
+
 # ---------------------------------------------------------------------------
 # 4. main path
 # ---------------------------------------------------------------------------
@@ -222,28 +388,32 @@ def _image_stats(img) -> dict:
                 std=float(arr.std()), min=float(arr.min()), max=float(arr.max()))
 
 
-def profile_step(step, call, top: int = 12) -> None:
-    """Device time of one denoise step by kernel (torch.profiler), and the
-    device's idle share: 1 - traced device time / host wall time of the same
-    step run unprofiled (the profiler's own overhead stretches the host side
-    of the traced step)."""
+def profile_step(run, *, what: str = "denoise step", inference: bool = True,
+                 top: int = 12) -> None:
+    """Device time of one `run()` (a denoise step or a train step) by kernel
+    (torch.profiler), and the device's idle share: 1 - traced device time /
+    host wall time of the same work run unprofiled (the profiler's own
+    overhead stretches the host side of the traced run)."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        step(*call["args"], **call["kwargs"])   # warm
+    with torch.inference_mode() if inference else contextlib.nullcontext():
+        run()   # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(*call["args"], **call["kwargs"])
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(*call["args"], **call["kwargs"])
+            run()
             torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     rows = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     log("profile " + json.dumps(dict(
-        step_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        what=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
+        launches=sum(e.count for e in kernels),
         # None: the profiler saw no device time, so the share is not measured
         idle_share=max(0.0, 1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
         top=[dict(name=e.key[:90], calls=e.count, ms=e.self_device_time_total / 1e3)
@@ -329,8 +499,221 @@ def phase_main(profile: bool = False) -> dict:
     peak = torch.cuda.max_memory_allocated()
     log(f"max_memory_allocated: {peak / 2**30:.2f} GiB")
     if profile:
-        profile_step(inner_step, last_call)
+        profile_step(lambda: inner_step(*last_call["args"], **last_call["kwargs"]))
     return dict(runs=runs, max_memory_allocated=peak)
+
+
+# ---------------------------------------------------------------------------
+# 6. train: LoRA steps at full width through cli.train.train_lora
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 3
+TRAIN_RESOLUTION = 1024   # the largest of the JAX dataset's PREFERRED_RESOLUTIONS
+
+
+def training_sample(resolution: int = TRAIN_RESOLUTION) -> dict:
+    """One collated batch (grad_accum 1, batch 1) from resource/example,
+    composed as the JAX dataset's single-line sample: the dataset-style glyph
+    strip above the scene, resized so the long side is `resolution`, snapped
+    down to a multiple of 32, pixels in [-1, 1]. The example's mask PNG
+    stands in for the polygon fill (no mask augmentation)."""
+    from PIL import Image
+
+    from textflux_torch.pipeline.prompts import GENERIC_TEMPLATE, read_words, words_prompt
+    from textflux_torch.rendering import draw_glyph_strip, load_font
+
+    img = Image.open(os.path.join(EXAMPLE, "ori", "ori_0001.png")).convert("RGB")
+    mask = np.asarray(Image.open(os.path.join(EXAMPLE, "mask", "mask_0001.png")).convert("L"))
+    text = " ".join(read_words(os.path.join(EXAMPLE, "txt", "words_0001.txt")))
+    w, h = img.size
+    strip = draw_glyph_strip(load_font(size=60), text, w, h).convert("RGB")
+    combined = Image.fromarray(np.vstack((np.asarray(strip), np.asarray(img))))
+    combined_mask = Image.fromarray(np.vstack((np.zeros((strip.height, w), np.uint8), mask)))
+    cw, ch = combined.size   # image_resize: long side to `resolution`
+    size = ((resolution, int(resolution / cw * ch)) if cw >= ch
+            else (int(resolution / ch * cw), resolution))
+    combined = combined.resize(size)
+    combined = combined.resize(((combined.size[0] // 32) * 32, (combined.size[1] // 32) * 32))
+    combined_mask = combined_mask.resize(combined.size)
+    pixels = np.asarray(combined, np.float32) / 127.5 - 1.0
+    mask_np = np.asarray(combined_mask, np.float32) / 255.0
+    return {"pixel_values": pixels[None, None], "mask": mask_np[None, None],
+            "prompts": [words_prompt([text])], "clip_prompts": [GENERIC_TEMPLATE]}
+
+
+def phase_train(profile: bool = False) -> dict:
+    """3 LoRA optimizer steps of full-width FLUX.1-Fill-dev (random bf16
+    weights from seed 0) on the example sample through train_lora, with the
+    launch counts, the factors' movement and the frozen base checked."""
+    import gc
+
+    from textflux_torch.cli.train import encode_batch_text, train_lora
+    from textflux_torch.config import clip_l_config, flux_fill_config, flux_vae_config, t5_xxl_config
+    from textflux_torch.models.clip import CLIPTextModel
+    from textflux_torch.models.t5 import T5Encoder
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.models.vae import FluxVAE
+    from textflux_torch.ops import flash_attention as FA
+    from textflux_torch.training import train as TR
+
+    gc.collect()
+    torch.cuda.empty_cache()   # the serving phase's models are gone
+    dev, dt = "cuda", torch.bfloat16
+    flux_cfg = flux_fill_config()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    flux = FluxTransformer(flux_cfg, device=dev, dtype=dt, generator=gen)
+    vae = FluxVAE(flux_vae_config(), device=dev, dtype=dt, generator=gen)
+    clip = CLIPTextModel(clip_l_config(), device=dev, dtype=dt, generator=gen)
+    t5 = T5Encoder(t5_xxl_config(), device=dev, dtype=dt, generator=gen)
+    torch.cuda.synchronize()
+    log(f"train init: {time.perf_counter() - t0:.1f} s, "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    sample = training_sample()
+    _, _, hp, wp, _ = sample["pixel_values"].shape
+    joint_seq = 512 + (hp // 16) * (wp // 16)
+    tc = TR.TrainConfig()   # the CLI's defaults; the batch carries grad_accum 1
+    per_step = {"flash_attention": 2 * (flux_cfg.num_double_layers + flux_cfg.num_single_layers)}
+    for name in FLASH_KERNELS[1:]:
+        per_step[name] = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    checksum0 = TR.base_checksum(flux)
+
+    starts, ends, counts, snaps = [], [], [], []
+
+    def batches():
+        while True:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            yield sample
+
+    def on_step(step, metrics, lora):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        counts.append({k: getattr(FA, k).launches for k in FLASH_KERNELS})
+        if step <= 2:   # the factors after steps 1 and 2
+            snaps.append({p: {k: f[k].detach().clone() for k in ("a", "b")}
+                          for p, f in lora.items()})
+
+    for k in FLASH_KERNELS:
+        getattr(FA, k).launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lora, history = train_lora(flux, vae, clip, t5, batches(), tc=tc,
+                               clip_tokenize=clip_byte_tokenize, t5_tokenize=t5_byte_tokenize,
+                               steps=TRAIN_STEPS, seed=0, log_every=1, on_step=on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: getattr(FA, k).launches for k in FLASH_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in zip(starts, ends)]
+    prev = {k: 0 for k in FLASH_KERNELS}
+    by_step = []
+    for c in counts:
+        by_step.append({k: c[k] - prev[k] for k in FLASH_KERNELS})
+        prev = c
+
+    after1, after2 = snaps
+    b_moved = min(after1[p]["b"].abs().max().item() for p in after1)
+    # step 2 moves a by ~lr; weight decay alone moves it by lr*wd*|a|
+    decay_bound = 10 * tc.learning_rate * tc.weight_decay
+    a_moved = [((after2[p]["a"] - after1[p]["a"]).abs().max().item()
+                / max(after1[p]["a"].abs().max().item() * decay_bound, 1e-30)) for p in after2]
+    checksum1 = TR.base_checksum(flux)
+    rec = dict(steps=TRAIN_STEPS, joint_seq=joint_seq, image_hw=[hp, wp], seconds=seconds,
+               step_ms=step_ms, history=history, launches=launches,
+               launches_per_step=by_step, expected_per_step=per_step,
+               max_memory_allocated=peak, lora_params=sum(p.numel() for p in
+                                                         TR.lora_parameters(lora)),
+               min_b_after_step1=b_moved, a_targets=len(a_moved),
+               a_targets_moved_past_decay=sum(m > 1.0 for m in a_moved),
+               base_checksum=[checksum0, checksum1])
+    log("train " + json.dumps(rec))
+    log(f"max_memory_allocated (train): {peak / 2**30:.2f} GiB")
+    problems = []
+    for e in history:
+        if not (np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"]) and e["grad_norm"] > 0):
+            problems.append(f"step {e['step']}: loss {e['loss']} grad_norm {e['grad_norm']}")
+    if b_moved <= 0:
+        problems.append("a b factor is still zero after step 1")
+    if rec["a_targets_moved_past_decay"] != len(a_moved):
+        problems.append(f"only {rec['a_targets_moved_past_decay']}/{len(a_moved)} a factors "
+                        "moved past weight decay in step 2")
+    if checksum1 != checksum0:
+        problems.append(f"base weights changed: {checksum0} -> {checksum1}")
+    for i, c in enumerate(by_step):
+        if c != per_step:
+            problems.append(f"step {i + 1} launched {c}, expected {per_step}")
+    if problems:
+        raise AssertionError("train phase: " + "; ".join(problems))
+
+    if profile:
+        pooled, txt = encode_batch_text(clip, t5, sample, clip_tokenize=clip_byte_tokenize,
+                                        t5_tokenize=t5_byte_tokenize)
+        batch = {"pixel_values": torch.as_tensor(sample["pixel_values"], device=dev).to(dt),
+                 "mask": torch.as_tensor(sample["mask"], device=dev).to(dt),
+                 "txt": txt, "pooled": pooled}
+        opt = TR.make_optimizer(tc, TR.lora_parameters(lora))
+        step_fn = TR.make_lora_train_step(tc)
+        profile_step(lambda: step_fn(flux, vae, opt, batch, generator=gen),
+                     what="train step", inference=False)
+    del flux, vae, clip, t5, lora
+    return rec
+
+
+def _fused_entry(kernel_rows, main_rec) -> dict:
+    serving = next((r for r in kernel_rows if r["case"] == "serving"), None)
+    entry = dict(
+        name="flash_attention_qk_norm_rope", route="cuda",
+        source="textflux_torch/csrc/fused_attention.cu",
+        replaces="textflux_tpu/ops/flash_attention.py:577",
+        launches=(sum(r["launches"] for r in main_rec["runs"].values())
+                  if main_rec else None),
+        launches_by_run=({k: v["launches"] for k, v in main_rec["runs"].items()}
+                         if main_rec else None),
+    )
+    if serving:
+        entry.update(max_abs_err=max(r["max_err"] for r in kernel_rows), tol=BF16_TOL,
+                     ms=serving["kernel_ms"], plain_ms=serving["plain_ms"],
+                     bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
+                     library_ms=serving["library_ms"])
+    return entry
+
+
+# line of each Pallas kernel body in textflux_tpu/ops/flash_attention.py
+FLASH_REPLACES = {"flash_attention": 33, "flash_attention_lse": 234,
+                  "flash_attention_dq": 281, "flash_attention_dkv": 327}
+
+
+def _flash_entries(flash_rows, train_rec) -> list:
+    """One JSON entry per training kernel: times at the `train` case,
+    launches from the train phase (all steps, and per step)."""
+    train = flash_rows.get("train")
+    out = []
+    for name in FLASH_KERNELS:
+        entry = dict(name=name, route="cuda", source="textflux_torch/csrc/flash_attention.cu",
+                     replaces=f"textflux_tpu/ops/flash_attention.py:{FLASH_REPLACES[name]}",
+                     launches=train_rec["launches"][name] if train_rec else None,
+                     launches_per_step=([c[name] for c in train_rec["launches_per_step"]]
+                                        if train_rec else None))
+        if train:
+            k = train["kernels"][name]
+            entry.update(
+                max_abs_err=max(r["kernels"][name]["max_err"] for r in flash_rows.values()),
+                max_rel_err=max(r["kernels"][name]["rel_err"] for r in flash_rows.values()),
+                tol=k["tol"], ms=k["kernel_ms"], plain_ms=k["plain_ms"],
+                bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+                # one library call computes the forward; none computes one
+                # backward pass alone: SDPA's whole backward is beside the
+                # sum of lse + Dvec + dq + dkv instead
+                library_ms=train["sdpa_ms"] if name == "flash_attention" else None)
+            if name != "flash_attention":
+                entry.update(sdpa_bwd_ms=train["sdpa_bwd_ms"], bwd_total_ms=train["bwd_total_ms"])
+        out.append(entry)
+    return out
 
 
 def main() -> int:
@@ -347,30 +730,17 @@ def main() -> int:
     sys.path.insert(0, REPO)
     phases = args.phases.split(",")
     dev = phase_device()
-    if "build" in phases or "kernels" in phases or "main" in phases:
+    if {"build", "kernels", "main", "train"} & set(phases):
         phase_build()
     kernel_rows = phase_kernels() if "kernels" in phases else []
+    flash_rows = phase_flash_kernels() if "kernels" in phases else {}
     main_rec = phase_main("profile" in phases) if "main" in phases else None
+    train_rec = phase_train("profile" in phases) if "train" in phases else None
 
-    serving = next((r for r in kernel_rows if r["case"] == "serving"), None)
-    launches = (sum(r["launches"] for r in main_rec["runs"].values())
-                if main_rec else None)
-    entry = dict(
-        name="flash_attention_qk_norm_rope", route="cuda",
-        source="textflux_torch/csrc/fused_attention.cu",
-        replaces="textflux_tpu/ops/flash_attention.py:577",
-        launches=launches,
-        launches_by_run=({k: v["launches"] for k, v in main_rec["runs"].items()}
-                         if main_rec else None),
-    )
-    if serving:
-        entry.update(max_abs_err=max(r["max_err"] for r in kernel_rows),
-                     max_err=max(r["max_err"] for r in kernel_rows), tol=BF16_TOL,
-                     ms=serving["kernel_ms"], kernel_ms=serving["kernel_ms"],
-                     plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
-                     bound_by=serving["bound_by"], library_ms=serving["library_ms"])
+    kernel_entries = [_fused_entry(kernel_rows, main_rec)]
+    kernel_entries += _flash_entries(flash_rows, train_rec)
     log(dev["nvidia_smi"])
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": kernel_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU with sm_90a (Hopper) and nvcc; they carry the
 ``cuda`` marker and skip where there is no CUDA device. On a machine with
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from textflux_torch.ops import flash_attention as FA, packing
+from textflux_torch.ops.attention import FlashAttention
 from textflux_torch.ops.rope import rope_tables_half
 
 pytestmark = pytest.mark.cuda
@@ -92,3 +93,91 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="stride"):
         FA.flash_attention_qk_norm_rope(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
                                         cos, sin, qs, ks)
+
+
+# ---------------------------------------------------------------------------
+# the training kernels: flash forward, LSE, dQ, dK/dV
+# ---------------------------------------------------------------------------
+
+LSE_TOL = 1e-3    # fp32 output, only the summation order differs
+
+
+def _rel(out, ref):
+    ref = ref.float()
+    return float((out.float() - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def _flash_inputs(cuda, b, s, h, d, strided):
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    if strided:   # views of a fused [q | k | v | mlp] row, as linear1 gives them
+        fused = randn(b, s, 7 * h * d)
+        q, k, v = (fused[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d)) for i in range(3))
+    else:
+        q, k, v = (randn(b, s, h, d) for _ in range(3))
+    return q, k, v, randn(b, s, h, d)
+
+
+@pytest.mark.parametrize("b,s,h,d,kv_len,strided", [
+    (1, 1408, 24, 128, None, False),
+    (1, 1408, 24, 128, 1300, False),
+    (1, 1000, 8, 128, None, False),
+    (1, 1408, 8, 128, None, True),
+    (2, 320, 8, 64, 250, False),
+], ids=["s1408", "kv_len1300", "ragged_s1000", "strided", "d64_kv_len"])
+def test_flash_kernels_match_plain_versions(b, s, h, d, kv_len, strided, cuda):
+    q, k, v, do = _flash_inputs(cuda, b, s, h, d, strided)
+    n = s if kv_len is None else kv_len
+    names = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
+             "flash_attention_dkv")
+    before = [getattr(FA, x).launches for x in names]
+    o = FA.flash_attention(q, k, v, kv_len=kv_len)
+    lse = FA.flash_attention_lse(q, k, kv_len=kv_len)
+    dvec = FA.attention_dvec(o, do)
+    dq = FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=kv_len)
+    dk, dv = FA.flash_attention_dkv(q, k, v, do, lse, dvec, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert [getattr(FA, x).launches for x in names] == [x + 1 for x in before]
+    assert _rel(o, FA.flash_attention_reference(q, k, v, kv_len=kv_len)) <= BF16_TOL
+    assert float((lse - FA.flash_attention_lse_reference(q, k, kv_len=kv_len)).abs().max()) \
+        <= LSE_TOL
+    assert _rel(dq, FA.flash_attention_dq_reference(q, k, v, do, lse, dvec, kv_len=kv_len)) \
+        <= BF16_TOL
+    ref_dk, ref_dv = FA.flash_attention_dkv_reference(q, k, v, do, lse, dvec, kv_len=kv_len)
+    assert _rel(dk, ref_dk) <= BF16_TOL and _rel(dv, ref_dv) <= BF16_TOL
+    assert not dk[:, n:].any() and not dv[:, n:].any()
+
+
+def test_flash_function_gradients_on_the_card(cuda):
+    """The autograd function on CUDA tensors (kernels) against the same
+    function on the plain versions' composition."""
+    q, k, v, do = _flash_inputs(cuda, 1, 1024, 8, 128, strided=False)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = FlashAttention.apply(qg, kg, vg, 1000)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    ref = FA.flash_attention_reference(q, k, v, kv_len=1000)
+    lse = FA.flash_attention_lse_reference(q, k, kv_len=1000)
+    dvec = FA.attention_dvec(ref, do)
+    ref_grads = (FA.flash_attention_dq_reference(q, k, v, do, lse, dvec, kv_len=1000),
+                 *FA.flash_attention_dkv_reference(q, k, v, do, lse, dvec, kv_len=1000))
+    assert _rel(out, ref) <= BF16_TOL
+    for g_, r_ in zip(grads, ref_grads):
+        assert _rel(g_, r_) <= BF16_TOL
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v, do = _flash_inputs(cuda, 1, 64, 2, 64, strided=False)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FA.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="stride"):
+        FA.flash_attention_lse(q.transpose(1, 2).contiguous().transpose(1, 2), k)
+    lse = FA.flash_attention_lse(q, k)
+    with pytest.raises(ValueError, match="float32"):
+        FA.flash_attention_dq(q, k, v, do, lse.to(torch.bfloat16), lse)
+    with pytest.raises(ValueError, match="kv_len"):
+        FA.flash_attention_dkv(q, k, v, do, lse, lse, kv_len=65)

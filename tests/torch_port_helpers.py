@@ -59,6 +59,36 @@ def jax_pipeline_noise(seed, *, height, width, vae_cfg, steps, b=1):
     }
 
 
+def jax_loss_noise(key, *, b, height, width, vae_cfg, scheme="none", accum=None):
+    """The draws ``textflux_tpu.training.train.flow_matching_loss`` makes
+    from `key` (split five ways as its train.py:412 does): both VAE posterior
+    eps, the raw timestep-density draw "u" and the flow-matching "noise", as
+    numpy arrays for the port's ``noise=``. With `accum`, one dict per
+    microbatch from ``jax.random.split(key, accum)``, as the JAX step's
+    accumulation scan splits it."""
+    if accum is not None:
+        return [jax_loss_noise(k, b=b, height=height, width=width, vae_cfg=vae_cfg,
+                               scheme=scheme) for k in jax.random.split(key, accum)]
+    f = vae_cfg.spatial_factor
+    lat = (b, height // f, width // f, vae_cfg.latent_channels)
+    k_vae, k_cond, k_t, k_noise, _ = jax.random.split(key, 5)
+    raw = jax.random.normal if scheme == "logit_normal" else jax.random.uniform
+    return {
+        "vae": np.array(jax.random.normal(k_vae, lat, jnp.float32)),
+        "cond_vae": np.array(jax.random.normal(k_cond, lat, jnp.float32)),
+        "u": np.array(raw(k_t, (b,))),
+        "noise": np.array(jax.random.normal(k_noise, lat, jnp.float32)),
+    }
+
+
+def port_train_config(tc):
+    """The port's TrainConfig with the values of a JAX one (the port's
+    fields are a subset)."""
+    from textflux_torch.training.train import TrainConfig
+
+    return TrainConfig(**{f.name: getattr(tc, f.name) for f in dataclasses.fields(TrainConfig)})
+
+
 def t(x, dtype=torch.float32):
     """numpy / JAX array -> CPU torch tensor (a copy)."""
     return torch.tensor(np.asarray(x), dtype=dtype)

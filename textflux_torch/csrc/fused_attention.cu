@@ -37,41 +37,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
+
+using textflux::cp_async_16;
+using textflux::cp_async_commit;
+using textflux::cp_async_wait;
+using textflux::mma_16816;
+using textflux::pack_bf16;
 
 constexpr int kBlockM = 64;   // query rows per thread block
 constexpr int kBlockN = 64;   // key/value rows per tile (== kBlockM: tiles share a loader)
 constexpr int kWarps = 4;     // each warp owns 16 query rows
 constexpr int kThreads = kWarps * 32;
 constexpr int kPrepWarps = 8; // rows per block of the prep kernel
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 -> one register of two bf16 (round to nearest even); `lo` goes to
-// the low half, which the mma fragments hold for the lower column index
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 writes zeros (ragged tail rows)
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // One warp prepares one row of D features held EPL = D/32 per lane:
 //   dst = (xn*cos2 + xn_partner*sin2) * mul,  xn = x * rsqrt(mean(x^2) + eps)

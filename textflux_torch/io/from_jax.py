@@ -14,6 +14,11 @@ read works. The layout changes, each written out below:
 The trees hold the checkpoint's q/k feature order: the modules come back in
 the "interleaved" rope layout, and a pipeline on the fused path permutes
 them as the JAX pipeline does.
+
+``load_jax_lora(tree, model)`` carries a JAX LoRA factor tree
+(``training.train.lora_init``'s: stacked (L, ...) factors per target name)
+across as the port's per-layer factors, in the same (in, r) / (r, out)
+layout, ready for ``textflux_torch.training.train.lora_insert``.
 """
 
 from __future__ import annotations
@@ -151,6 +156,24 @@ def _load_t5(model, tree) -> None:
         for name in ("q", "k", "v", "o", "wi_0", "wi_1", "wo"):
             _dense(getattr(layer, name), p[name], f"layers[{i}].{name}")
     _set(model.final_norm, _t(tree["final_norm"]), "final_norm")
+
+
+def load_jax_lora(tree: Mapping, model) -> dict:
+    """{"double": {name: {"a", "b"}}, "single": {...}} with stacked (L, ...)
+    leaves -> {"double_blocks.<i>.<name>": {"a": Parameter, "b": Parameter}},
+    fp32 on the model's device."""
+    device = next(model.parameters()).device
+    out = {}
+    for group, blocks in (("double", "double_blocks"), ("single", "single_blocks")):
+        for name, f in tree.get(group, {}).items():
+            a, b = np.asarray(f["a"]), np.asarray(f["b"])
+            n_layers = len(getattr(model, blocks))
+            if a.shape[0] != n_layers or b.shape[0] != n_layers:
+                raise ValueError(f"{group}.{name}: {a.shape[0]} layers, the model has {n_layers}")
+            for i in range(n_layers):
+                out[f"{blocks}.{i}.{name}"] = {
+                    k: nn.Parameter(_t(x[i]).to(device)) for k, x in (("a", a), ("b", b))}
+    return out
 
 
 def load_jax_params(tree: Mapping, cfg, *, device="cuda", dtype=torch.float32) -> nn.Module:

@@ -1,8 +1,9 @@
 """Shared building blocks.
 
 Linears are ``nn.Linear`` (weights stored (out, in)); ``dense`` applies one in
-the input's dtype, as the JAX package's ``x @ w + b`` does. Norms compute in
-float32 and cast back to the activation dtype.
+the input's dtype, as the JAX package's ``x @ w + b`` does, plus the LoRA
+branch that ``training.train.lora_insert`` attaches. Norms compute in float32
+and cast back to the activation dtype.
 """
 
 from __future__ import annotations
@@ -46,10 +47,29 @@ def ones_param(n: int, *, device=None, dtype=None) -> nn.Parameter:
 
 
 def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ w + b in x's dtype (the plain w/b path; LoRA and quantised weights
-    are not ported yet)."""
+    """x @ w + b in x's dtype, plus the LoRA branch when one is attached
+    (quantised weights are not ported yet):
+
+    * ``lora_a`` (in, r) / ``lora_b`` (r, out): the parallel low-rank branch
+      y += (x @ A*s) @ B, with s = ``lora_scale`` (alpha/rank) folded into A;
+    * ``lora_ga`` (M, in, r) / ``lora_gb`` (M, r, d): M grouped per-module
+      branches (q, k, v) whose deltas land on the leading M*d output columns;
+      the rest (single-block linear1's MLP tail) gets none.
+
+    The factors are fp32 parameters cast to x's dtype for the products, and
+    the frozen base is never merged with them."""
     bias = None if lin.bias is None else lin.bias.to(x.dtype)
-    return F.linear(x, lin.weight.to(x.dtype), bias)
+    y = F.linear(x, lin.weight.to(x.dtype), bias)
+    a = getattr(lin, "lora_a", None)
+    if a is not None:
+        y = y + (x @ (a * lin.lora_scale).to(x.dtype)) @ lin.lora_b.to(x.dtype)
+    ga = getattr(lin, "lora_ga", None)
+    if ga is not None:
+        t = torch.einsum("...i,mir->...mr", x, (ga * lin.lora_scale).to(x.dtype))
+        delta = torch.einsum("...mr,mrd->...md", t, lin.lora_gb.to(x.dtype)).flatten(-2)
+        n = delta.shape[-1]
+        y = delta + y if n == y.shape[-1] else torch.cat([y[..., :n] + delta, y[..., n:]], -1)
+    return y
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

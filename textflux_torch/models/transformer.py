@@ -11,9 +11,14 @@ matmuls in the activation dtype.
 Attention paths (``attn_impl``):
   "plain": interleaved RoPE and ``ops.attention.plain_attention`` on the
            checkpoint's q/k feature order (the JAX package's "xla");
+  "flash": the same RMSNorm and interleaved RoPE, then
+           ``ops.attention.dot_product_attention(impl="flash")``: the Hopper
+           flash kernels with their hand-written backward (the JAX
+           package's "pallas"; the training path);
   "fused": q/k weights half-permuted once at load
            (``half_permute_flux_params``), rotate-half tables, and
-           ``flash_attention_qk_norm_rope`` (the Hopper kernel on CUDA).
+           ``flash_attention_qk_norm_rope`` (the Hopper kernel on CUDA; the
+           serving path, which has no backward).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from textflux_torch.config import FluxConfig
 from textflux_torch.device import resolve_device
@@ -37,11 +43,11 @@ from textflux_torch.models.layers import (
     silu,
     timestep_embedding,
 )
-from textflux_torch.ops.attention import plain_attention
+from textflux_torch.ops.attention import dot_product_attention
 from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
 from textflux_torch.ops.rope import apply_rope_bshd, half_permutation
 
-ATTN_IMPLS = ("plain", "fused")
+ATTN_IMPLS = ("plain", "flash", "fused")
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +165,7 @@ def double_block(blk: DoubleBlock, cfg: FluxConfig, txt, img, mods, rope_cos, ro
         q = apply_rope_bshd(torch.cat([tq, iq], dim=1), rope_cos, rope_sin)
         k = apply_rope_bshd(torch.cat([tk, ik], dim=1), rope_cos, rope_sin)
         v = torch.cat([_heads(tv, h), _heads(iv, h)], dim=1)
-        out = plain_attention(q, k, v, kv_len=kv_len)
+        out = dot_product_attention(q, k, v, impl=attn_impl, kv_len=kv_len)
 
     out = out.reshape(out.shape[0], out.shape[1], -1)
     txt_attn, img_attn = out[:, :n_txt], out[:, n_txt:]
@@ -195,7 +201,7 @@ def single_block(blk: SingleBlock, cfg: FluxConfig, x, mod, rope_cos, rope_sin,
     else:
         q = apply_rope_bshd(rms_norm(q, blk.q_scale), rope_cos, rope_sin)
         k = apply_rope_bshd(rms_norm(k, blk.k_scale), rope_cos, rope_sin)
-        attn = plain_attention(q, k, v, kv_len=kv_len)
+        attn = dot_product_attention(q, k, v, impl=attn_impl, kv_len=kv_len)
     attn = attn.reshape(attn.shape[0], attn.shape[1], -1)
     out = dense(blk.linear2, torch.cat([attn, gelu_tanh(mlp)], dim=-1))
     return x + gate[:, None] * out
@@ -252,10 +258,15 @@ def flux_apply(
     rope_sin: torch.Tensor,
     *,
     attn_impl: str = "plain",
+    remat: bool = False,
     kv_len: Optional[int] = None,
     mods=None,                     # optional precomputed flux_mods(...) output
 ) -> torch.Tensor:
-    """Predict the flow velocity for packed image tokens. Returns (B, T_img, out_channels)."""
+    """Predict the flow velocity for packed image tokens. Returns (B, T_img, out_channels).
+
+    remat: checkpoint every block (``torch.utils.checkpoint``, non-reentrant),
+    as the JAX package's ``jax.checkpoint`` of its scan bodies: a block keeps
+    only its inputs for the backward and runs its forward again there."""
     cfg = model.cfg
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
@@ -278,11 +289,18 @@ def flux_apply(
     img = dense(model.img_in, img_tokens)
     txt = dense(model.txt_in, txt_tokens.to(dtype))
     rope_cos, rope_sin = rope_cos.float(), rope_sin.float()
+
+    def call(fn, *args):
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     for blk, m in zip(model.double_blocks, double_mods):
-        txt, img = double_block(blk, cfg, txt, img, m, rope_cos, rope_sin, attn_impl, kv_len)
+        txt, img = call(double_block, blk, cfg, txt, img, m, rope_cos, rope_sin, attn_impl,
+                        kv_len)
     x = torch.cat([txt, img], dim=1)
     for blk, m in zip(model.single_blocks, single_mods):
-        x = single_block(blk, cfg, x, m, rope_cos, rope_sin, attn_impl, kv_len)
+        x = call(single_block, blk, cfg, x, m, rope_cos, rope_sin, attn_impl, kv_len)
     x = x[:, n_txt:]
 
     # AdaLN-continuous output head: chunk order is (scale, shift)

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources in ``textflux_torch/csrc/`` compile with ``nvcc`` for sm_90a
-(Hopper) into one shared library with a plain C interface, under ``build/`` at
+(Hopper), one ``nvcc`` process per ``.cu`` file, all started together, and
+link into one shared library with a plain C interface, under ``build/`` at
 the repository root, on first use. The library name carries a hash of the
-sources, so an edited source never loads a stale build. It is loaded with
-ctypes; nothing here runs at import time.
+sources and headers, so an edited source never loads a stale build. It is
+loaded with ctypes; nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,11 +23,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def _sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def _hashed_files():
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
 
 
 def _nvcc() -> str:
@@ -43,7 +48,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in _hashed_files():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -52,27 +57,43 @@ def library_path() -> Path:
 
 def build(verbose: bool = False) -> tuple[Path, float]:
     """Compile the kernels if this source hash has no library yet. Returns
-    (library path, seconds spent compiling; 0.0 when it was already built).
-    Writes to a temporary name and renames, so a concurrent or interrupted
-    build never leaves a half-written library behind."""
+    (library path, seconds spent compiling and linking; 0.0 when it was
+    already built). Each source compiles in its own nvcc process, all at
+    once; the objects and the library go to temporary names first, so a
+    concurrent or interrupted build never leaves a half-written library."""
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
-    return out, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", obj, str(src)]
+            procs.append((src.name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"--- {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        lib = os.path.join(tmpdir, out.name)
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        if verbose:
+            print("\n".join(logs), flush=True)
+        os.replace(lib, out)
+    return out, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,7 +103,15 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    fn = lib.textflux_fused_norm_rope_attention
-    fn.argtypes = [ptr] * 10 + [i32] * 5 + [i64] * 6 + [f32, f32, ptr]
-    fn.restype = i32
+    signatures = {
+        "textflux_fused_norm_rope_attention": [ptr] * 10 + [i32] * 5 + [i64] * 6 + [f32, f32, ptr],
+        "textflux_flash_fwd": [ptr] * 4 + [i32] * 5 + [i64] * 6 + [f32, ptr],
+        "textflux_flash_lse": [ptr] * 3 + [i32] * 5 + [i64] * 4 + [f32, ptr],
+        "textflux_flash_dq": [ptr] * 7 + [i32] * 5 + [i64] * 8 + [f32, f32, ptr],
+        "textflux_flash_dkv": [ptr] * 8 + [i32] * 5 + [i64] * 8 + [f32, f32, ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i32
     return lib

@@ -1,4 +1,5 @@
-"""Flow-matching samplers: Euler and AMO stochastic overshoot.
+"""Flow-matching samplers (Euler, AMO stochastic overshoot) and the
+training-time timestep density, sigma lookup and loss weighting.
 
 Step functions over a precomputed sigma schedule. Scalars (sigma, c) are
 taken as float32 0-d tensors so the step arithmetic runs in float32, as in
@@ -140,3 +141,60 @@ def overshoot_step_spatial(
 def scale_noise(x: torch.Tensor, sigma, noise: torch.Tensor) -> torch.Tensor:
     """Flow-matching forward process: x_sigma = (1 - sigma) * x + sigma * noise."""
     return (1.0 - sigma) * x + sigma * noise
+
+
+# ---------------------------------------------------------------------------
+# Training-time timestep sampling / loss weighting
+# ---------------------------------------------------------------------------
+
+DENSITY_SCHEMES = ("none", "logit_normal", "mode")
+
+
+def sample_timestep_density(
+    batch_size: int,
+    scheme: str = "none",
+    logit_mean: float = 0.0,
+    logit_std: float = 1.0,
+    mode_scale: float = 1.29,
+    *,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sample u in (0, 1) controlling the noise level (SD3 density schemes).
+
+    The raw draw (standard normal for "logit_normal", uniform otherwise) is
+    `u` when given (to hold the port against another implementation's
+    random stream), else drawn from `generator`; the scheme's transform runs
+    on it in float32."""
+    if u is None:
+        if generator is None:
+            raise ValueError("sample_timestep_density needs u or a generator")
+        draw = torch.randn if scheme == "logit_normal" else torch.rand
+        u = draw((batch_size,), generator=generator, device=generator.device,
+                 dtype=torch.float32)
+    u = u.float()
+    if scheme == "logit_normal":
+        return torch.sigmoid(u * logit_std + logit_mean)
+    if scheme == "mode":
+        return 1.0 - u - mode_scale * (torch.cos(math.pi * u / 2.0) ** 2 - 1.0 + u)
+    return u
+
+
+def train_sigmas(u: torch.Tensor, num_train_timesteps: int = 1000,
+                 shift: float = 3.0) -> torch.Tensor:
+    """Map density samples u to schedule sigmas, as the JAX trainer indexes
+    its shifted schedule: sigmas[i] = shifted((1000 - i) / 1000) with
+    i = floor(u * 1000), float32."""
+    indices = torch.clamp((u.float() * num_train_timesteps).to(torch.int32), 0,
+                          num_train_timesteps - 1)
+    base = (num_train_timesteps - indices).float() / num_train_timesteps
+    return shift * base / (1.0 + (shift - 1.0) * base)
+
+
+def loss_weighting(scheme: str, sigmas: torch.Tensor) -> torch.Tensor:
+    """Per-sample loss weights for flow-matching training."""
+    if scheme == "sigma_sqrt":
+        return sigmas ** -2.0
+    if scheme == "cosmap":
+        return 2.0 / (math.pi * (1.0 - 2.0 * sigmas + 2.0 * sigmas ** 2))
+    return torch.ones_like(sigmas)
