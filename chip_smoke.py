@@ -21,8 +21,10 @@ Phases, in order; any failure exits non-zero:
      from resource/example, with the flash kernels' launch counts per step,
      the factors' movement and the frozen base checked.
 Phase 3 also holds the four training kernels (flash forward, LSE, dQ,
-dK/dV) against their plain versions. The line before the last holds the
-kernel table as JSON; the last line is {"ok": true, "device": {...}}.
+dK/dV) against their plain versions, and checks that a second launch of dQ
+and dK/dV on the same inputs gives bitwise the same gradients. The line
+before the last holds the kernel table as JSON; the last line is
+{"ok": true, "device": {...}}.
 
 `--phases` picks a subset (default: all of them).
 """
@@ -263,6 +265,8 @@ def phase_flash_kernels() -> dict:
         ("train_single_block", 1, 4224, 24, 128, None, True),
         ("s1408", 1, 1408, 24, 128, None, False),
         ("ragged_s1000", 1, 1000, 24, 128, None, False),
+        # ragged query and key tiles, a batch stride in the tensor maps
+        ("batch2_ragged_kv900", 2, 1000, 24, 128, 900, False),
         ("d64", 2, 320, 8, 64, None, False),
     ]
     rows, failed = [], []
@@ -290,6 +294,12 @@ def phase_flash_kernels() -> dict:
         del ref_o, ref_lse, ref_dq, ref_dk, ref_dv
         # key rows >= kv_len get exactly zero gradients
         masked_rows_zero = bool((dk[:, n:] == 0).all() and (dv[:, n:] == 0).all())
+        # no atomics: a second launch on the same inputs gives the same bits
+        dq2 = FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=n)
+        dk2, dv2 = FA.flash_attention_dkv(q, k, v, do, lse, dvec, kv_len=n)
+        deterministic = bool(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                             and torch.equal(dv, dv2))
+        del dq2, dk2, dv2
         calls = {
             "flash_attention": (lambda: FA.flash_attention(q, k, v, kv_len=n),
                                 lambda: FA.flash_attention_reference(q, k, v, kv_len=n)),
@@ -315,6 +325,8 @@ def phase_flash_kernels() -> dict:
                 failed.append(f"{name}/{kname}")
         if not masked_rows_zero:
             failed.append(f"{name}/masked_rows")
+        if not deterministic:
+            failed.append(f"{name}/deterministic")
         dvec_ms = cuda_ms(lambda: FA.attention_dvec(o, do))
 
         # yardsticks: SDPA forward, and one SDPA backward with the same dO
@@ -330,7 +342,8 @@ def phase_flash_kernels() -> dict:
         del sdpa_out
         bwd_total = sum(per_kernel[x]["kernel_ms"] for x in FLASH_KERNELS[1:]) + dvec_ms
         row = dict(case=name, shape=[b, s, h, d], kv_len=n, strided=strided,
-                   kernels=per_kernel, masked_rows_zero=masked_rows_zero, dvec_ms=dvec_ms,
+                   kernels=per_kernel, masked_rows_zero=masked_rows_zero,
+                   deterministic=deterministic, dvec_ms=dvec_ms,
                    bwd_total_ms=bwd_total, sdpa_ms=sdpa_ms, sdpa_bwd_ms=sdpa_bwd_ms)
         log("kernel case " + json.dumps(row))
         rows.append(row)
@@ -686,6 +699,11 @@ def _fused_entry(kernel_rows, main_rec) -> dict:
 # line of each Pallas kernel body in textflux_tpu/ops/flash_attention.py
 FLASH_REPLACES = {"flash_attention": 33, "flash_attention_lse": 234,
                   "flash_attention_dq": 281, "flash_attention_dkv": 327}
+# the CUDA source of each training kernel
+FLASH_SOURCES = {"flash_attention": "textflux_torch/csrc/flash_attention.cu",
+                 "flash_attention_lse": "textflux_torch/csrc/flash_attention.cu",
+                 "flash_attention_dq": "textflux_torch/csrc/flash_bwd_sm90.cu",
+                 "flash_attention_dkv": "textflux_torch/csrc/flash_bwd_sm90.cu"}
 
 
 def _flash_entries(flash_rows, train_rec) -> list:
@@ -694,7 +712,7 @@ def _flash_entries(flash_rows, train_rec) -> list:
     train = flash_rows.get("train")
     out = []
     for name in FLASH_KERNELS:
-        entry = dict(name=name, route="cuda", source="textflux_torch/csrc/flash_attention.cu",
+        entry = dict(name=name, route="cuda", source=FLASH_SOURCES[name],
                      replaces=f"textflux_tpu/ops/flash_attention.py:{FLASH_REPLACES[name]}",
                      launches=train_rec["launches"][name] if train_rec else None,
                      launches_per_step=([c[name] for c in train_rec["launches_per_step"]]

@@ -127,7 +127,8 @@ def _flash_inputs(cuda, b, s, h, d, strided):
     (1, 1000, 8, 128, None, False),
     (1, 1408, 8, 128, None, True),
     (2, 320, 8, 64, 250, False),
-], ids=["s1408", "kv_len1300", "ragged_s1000", "strided", "d64_kv_len"])
+    (2, 1000, 24, 128, 900, False),
+], ids=["s1408", "kv_len1300", "ragged_s1000", "strided", "d64_kv_len", "batch2_ragged_kv900"])
 def test_flash_kernels_match_plain_versions(b, s, h, d, kv_len, strided, cuda):
     q, k, v, do = _flash_inputs(cuda, b, s, h, d, strided)
     n = s if kv_len is None else kv_len
@@ -149,6 +150,26 @@ def test_flash_kernels_match_plain_versions(b, s, h, d, kv_len, strided, cuda):
     ref_dk, ref_dv = FA.flash_attention_dkv_reference(q, k, v, do, lse, dvec, kv_len=kv_len)
     assert _rel(dk, ref_dk) <= BF16_TOL and _rel(dv, ref_dv) <= BF16_TOL
     assert not dk[:, n:].any() and not dv[:, n:].any()
+
+
+@pytest.mark.parametrize("b,s,h,d,kv_len,strided", [
+    (2, 1000, 24, 128, 900, False),
+    (1, 1408, 8, 128, None, True),
+    (2, 320, 8, 64, 250, False),
+], ids=["batch2_ragged_kv900", "strided", "d64_kv_len"])
+def test_flash_backward_is_deterministic(b, s, h, d, kv_len, strided, cuda):
+    """No atomics: each dQ block owns its query rows and each dK/dV block its
+    key rows, so a second launch on the same inputs gives the same bits."""
+    q, k, v, do = _flash_inputs(cuda, b, s, h, d, strided)
+    lse = FA.flash_attention_lse(q, k, kv_len=kv_len)
+    dvec = FA.attention_dvec(FA.flash_attention(q, k, v, kv_len=kv_len), do)
+    first = (FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=kv_len),
+             *FA.flash_attention_dkv(q, k, v, do, lse, dvec, kv_len=kv_len))
+    second = (FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=kv_len),
+              *FA.flash_attention_dkv(q, k, v, do, lse, dvec, kv_len=kv_len))
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_flash_function_gradients_on_the_card(cuda):

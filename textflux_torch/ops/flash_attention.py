@@ -16,14 +16,25 @@ double-buffered with cp.async, Q fragments held in registers, P passed to
 the P*V product in registers, scores never written to memory.
 
 ``flash_attention`` and the backward passes ``flash_attention_lse``,
-``flash_attention_dq`` and ``flash_attention_dkv`` (``csrc/flash_attention.cu``)
-are the training path's attention, composed into a gradient by
-``flash_attention_bwd`` and ``ops.attention.FlashAttention``. They replace
-the Pallas kernels ``_flash_kernel``, ``_lse_kernel``, ``_dq_kernel`` and
-``_dkv_kernel`` of the same JAX module. At the training shape (B=1, S=4224,
-H=24, D=128) each is bound by tensor-core operations (4, 2, 6 and 8 x
-B*H*S*kv*D FLOPs: 0.22 to 0.44 ms at the bf16 peak, against 0.016 to 0.046 ms
-of memory traffic); the design is at the top of that CUDA source.
+``flash_attention_dq`` and ``flash_attention_dkv`` are the training path's
+attention, composed into a gradient by ``flash_attention_bwd`` and
+``ops.attention.FlashAttention``. They replace the Pallas kernels
+``_flash_kernel``, ``_lse_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` of the
+same JAX module. At the training shape (B=1, S=4224, H=24, D=128) each is
+bound by tensor-core operations (4, 2, 6 and 8 x B*H*S*kv*D FLOPs: 0.22 to
+0.44 ms at the bf16 peak, against 0.016 to 0.046 ms of memory traffic), and
+on Hopper only wgmma reaches that peak:
+
+- the forward and LSE kernels (``csrc/flash_attention.cu``) still run on
+  ``mma.sync`` with fragments loaded from shared memory by each thread;
+- the dQ and dK/dV kernels (``csrc/flash_bwd_sm90.cu``, helpers in
+  ``csrc/sm90_common.cuh``) run every product on wgmma: a producer
+  warpgroup streams 128-byte swizzled tiles in by TMA through an mbarrier
+  ring, two consumer warpgroups of 64 rows each keep P and dS in registers
+  as the A operand of the gradient products. No atomics: the gradients are
+  bitwise the same from run to run.
+
+The design of each is at the top of its CUDA source.
 """
 
 from __future__ import annotations
