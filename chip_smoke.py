@@ -4,7 +4,9 @@
 
 Phases, in order; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), CUDA version, TF32 flags;
-  2. build: compile the CUDA kernels from textflux_torch/csrc/ (timed);
+  2. build: compile the CUDA kernels from textflux_torch/csrc/ (timed), with
+     each kernel's registers and spills from ptxas (-Xptxas -v); a wgmma
+     kernel that spills, or any wgmma serialisation warning, fails;
   3. kernels: each kernel against its plain PyTorch version on the card, in
      bf16, with times for the kernel, the plain version and one PyTorch
      library call computing the same function (yardstick only);
@@ -21,10 +23,13 @@ Phases, in order; any failure exits non-zero:
      from resource/example, with the flash kernels' launch counts per step,
      the factors' movement and the frozen base checked.
 Phase 3 also holds the four training kernels (flash forward, LSE, dQ,
-dK/dV) against their plain versions, and checks that a second launch of dQ
-and dK/dV on the same inputs gives bitwise the same gradients. The line
-before the last holds the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+dK/dV) against their plain versions, the L that the forward writes against
+the plain LSE, and the fused kernel's norm+rope pass (timed alone) against
+its plain version; it checks that a second launch of the forward, dQ and
+dK/dV on the same inputs gives bitwise the same outputs. The train phase
+expects 114 / 0 / 57 / 57 launches of forward / LSE / dQ / dK/dV per step:
+the forward hands its L to the backward. The line before the last holds the
+kernel table as JSON; the last line is {"ok": true, "device": {...}}.
 
 `--phases` picks a subset (default: all of them).
 """
@@ -34,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -90,14 +96,55 @@ def phase_device() -> dict:
 # 2. build
 # ---------------------------------------------------------------------------
 
-def phase_build() -> None:
+KERNEL_NAMES = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel",
+                "flash_lse_kernel", "norm_rope_kernel")
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes of each kernel instantiation (name<D>) from
+    an -Xptxas -v build log, and ptxas's wgmma serialisation warnings."""
+    kernels, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+        if m:
+            name = next((k for k in KERNEL_NAMES if k in m.group(1)), None)
+            d = re.search(r"ILi(\d+)E", m.group(1))
+            cur = f"{name}<{d.group(1) if d else ''}>" if name else None
+            if cur:
+                kernels.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            kernels[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            kernels[cur]["registers"] = int(m.group(1))
+    warnings = [x.strip() for x in text.splitlines()
+                if "C7512" in x or ("wgmma" in x and "serializ" in x)]
+    return dict(kernels=kernels, wgmma_warnings=warnings)
+
+
+def phase_build() -> dict:
     from textflux_torch.ops.cuda_build import build, load_library
 
     t0 = time.perf_counter()
-    path, nvcc_s = build(verbose=True)
+    path, nvcc_s, text = build()
     load_library()
+    log(text)
     log(f"build: {os.path.relpath(path, REPO)} nvcc {nvcc_s:.1f} s, "
         f"total {time.perf_counter() - t0:.1f} s")
+    report = ptxas_report(text)
+    if not report["kernels"]:
+        raise AssertionError(f"no ptxas report for {path.name}: delete it to rebuild")
+    log("build kernels " + json.dumps(report))
+    spilled = [k for k, v in report["kernels"].items()
+               if "sm90" in k and (v.get("spill_stores", 0) or v.get("spill_loads", 0))]
+    if spilled or report["wgmma_warnings"]:
+        raise AssertionError(f"wgmma kernels spill ({spilled}) or serialise "
+                             f"({report['wgmma_warnings']})")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +224,14 @@ def phase_kernels() -> list:
         err = (out[:, :n].float() - ref[:, :n].float()).abs().max().item()
         finite = bool(torch.isfinite(out[:, :n].float()).all())
         kernel_ms = cuda_ms(lambda: FA.launch_folded(*args, kv_len=c["kv_len"]))
+        # the first of its two launches alone, against its plain version
+        prep_args = (c["q"], c["k"], *tables)
+        qn_k, kn_k = FA.norm_rope_prep(*prep_args)
+        qn_ref, kn_ref = FA._prep_reference(*prep_args, 1e-6, torch.bfloat16)
+        prep_err = max((qn_k.float() - qn_ref.transpose(1, 2).float()).abs().max().item(),
+                       (kn_k.float() - kn_ref.transpose(1, 2).float()).abs().max().item())
+        del qn_k, kn_k, qn_ref, kn_ref
+        prep_ms = cuda_ms(lambda: FA.norm_rope_prep(*prep_args))
         plain_ms = cuda_ms(lambda: FA._reference_folded(*args, kv_len=c["kv_len"], eps=1e-6),
                            iters=5)
         # library yardstick: SDPA on q/k normed and roped outside the timing
@@ -191,11 +246,13 @@ def phase_kernels() -> list:
             mask = (torch.arange(c["q"].shape[1], device="cuda") < n)[None, None, None, :]
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qn, kn, vh, attn_mask=mask))
         bound_ms, bound_by = _bound_ms(c)
+        # the prep is inside kernel_ms; SDPA is beside the attention alone
         row = dict(case=c["name"], shape=list(c["q"].shape), kv_len=n, max_err=err,
-                   tol=BF16_TOL, finite=finite, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                   tol=BF16_TOL, finite=finite, prep_err=prep_err, kernel_ms=kernel_ms,
+                   prep_ms=prep_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
         log("kernel case " + json.dumps(row))
-        if not (finite and err <= BF16_TOL):
+        if not (finite and err <= BF16_TOL and prep_err <= BF16_TOL):
             failed.append(c["name"])
         rows.append(row)
         del qn, kn, c
@@ -230,7 +287,7 @@ def _flash_bounds(b, s, h, d, kv) -> dict:
     rows up to kv_len, q/dO/outputs at every row; L and Dvec fp32)."""
     row_q, row_kv, row_f32 = b * s * h * d * 2, b * kv * h * d * 2, b * h * s * 4
     work = {
-        "flash_attention": (4, 2 * row_q + 2 * row_kv),                         # q, o; k, v
+        "flash_attention": (4, 2 * row_q + 2 * row_kv + row_f32),               # q, o; k, v; L
         "flash_attention_lse": (2, row_q + row_kv + row_f32),                   # q; k; L
         "flash_attention_dq": (6, 3 * row_q + 2 * row_kv + 2 * row_f32),        # q, dO, dq; k, v
         "flash_attention_dkv": (8, 4 * row_q + 2 * row_kv + 2 * row_f32),       # q, dO, dk, dv
@@ -273,7 +330,7 @@ def phase_flash_kernels() -> dict:
     for name, b, s, h, d, kv_len, strided in specs:
         c = _flash_case(name, b, s, h, d, kv_len=kv_len, strided=strided, gen=gen)
         q, k, v, do, n = c["q"], c["k"], c["v"], c["do"], c["kv_len"]
-        o = FA.flash_attention(q, k, v, kv_len=n)
+        o, lse_fwd = FA.flash_attention_fwd(q, k, v, kv_len=n)
         lse = FA.flash_attention_lse(q, k, kv_len=n)
         dvec = FA.attention_dvec(o, do)
         dq = FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=n)
@@ -284,6 +341,7 @@ def phase_flash_kernels() -> dict:
         ref_dq = FA.flash_attention_dq_reference(q, k, v, do, lse, dvec, kv_len=n)
         ref_dk, ref_dv = FA.flash_attention_dkv_reference(q, k, v, do, lse, dvec, kv_len=n)
         lse_err = (lse - ref_lse).abs().max().item()
+        lse_from_fwd_err = (lse_fwd - ref_lse).abs().max().item()
         errs = {
             "flash_attention": _rel_err(o, ref_o),
             "flash_attention_lse": (lse_err, lse_err, bool(torch.isfinite(lse).all())),
@@ -295,14 +353,20 @@ def phase_flash_kernels() -> dict:
         # key rows >= kv_len get exactly zero gradients
         masked_rows_zero = bool((dk[:, n:] == 0).all() and (dv[:, n:] == 0).all())
         # no atomics: a second launch on the same inputs gives the same bits
+        # (the forward without L too: the same kernel, O from the same sums)
+        o2, lse_fwd2 = FA.flash_attention_fwd(q, k, v, kv_len=n)
+        fwd_deterministic = bool(torch.equal(o, o2) and torch.equal(lse_fwd, lse_fwd2)
+                                 and torch.equal(o, FA.flash_attention(q, k, v, kv_len=n)))
+        del o2, lse_fwd2
         dq2 = FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=n)
         dk2, dv2 = FA.flash_attention_dkv(q, k, v, do, lse, dvec, kv_len=n)
         deterministic = bool(torch.equal(dq, dq2) and torch.equal(dk, dk2)
                              and torch.equal(dv, dv2))
         del dq2, dk2, dv2
         calls = {
-            "flash_attention": (lambda: FA.flash_attention(q, k, v, kv_len=n),
-                                lambda: FA.flash_attention_reference(q, k, v, kv_len=n)),
+            "flash_attention": (lambda: FA.flash_attention_fwd(q, k, v, kv_len=n),
+                                lambda: (FA.flash_attention_reference(q, k, v, kv_len=n),
+                                         FA.flash_attention_lse_reference(q, k, kv_len=n))),
             "flash_attention_lse": (lambda: FA.flash_attention_lse(q, k, kv_len=n),
                                     lambda: FA.flash_attention_lse_reference(q, k, kv_len=n)),
             "flash_attention_dq": (
@@ -323,6 +387,10 @@ def phase_flash_kernels() -> dict:
                 bound_ms=bounds[kname][0], bound_by=bounds[kname][1])
             if not (finite and (err if kname == "flash_attention_lse" else rel) <= tol):
                 failed.append(f"{name}/{kname}")
+        if not (bool(torch.isfinite(lse_fwd).all()) and lse_from_fwd_err <= LSE_TOL):
+            failed.append(f"{name}/lse_from_fwd")
+        if not fwd_deterministic:
+            failed.append(f"{name}/fwd_deterministic")
         if not masked_rows_zero:
             failed.append(f"{name}/masked_rows")
         if not deterministic:
@@ -342,7 +410,8 @@ def phase_flash_kernels() -> dict:
         del sdpa_out
         bwd_total = sum(per_kernel[x]["kernel_ms"] for x in FLASH_KERNELS[1:]) + dvec_ms
         row = dict(case=name, shape=[b, s, h, d], kv_len=n, strided=strided,
-                   kernels=per_kernel, masked_rows_zero=masked_rows_zero,
+                   kernels=per_kernel, lse_from_fwd_err=lse_from_fwd_err,
+                   fwd_deterministic=fwd_deterministic, masked_rows_zero=masked_rows_zero,
                    deterministic=deterministic, dvec_ms=dvec_ms,
                    bwd_total_ms=bwd_total, sdpa_ms=sdpa_ms, sdpa_bwd_ms=sdpa_bwd_ms)
         log("kernel case " + json.dumps(row))
@@ -350,10 +419,13 @@ def phase_flash_kernels() -> dict:
 
         if name == "train":
             # the autograd function on the card against the same function
-            # composed from the plain versions
+            # composed from the plain versions; its backward takes the
+            # forward's L and launches no LSE pass
+            lse_before = FA.flash_attention_lse.launches
             qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
             out = FlashAttention.apply(qg, kg, vg, n)
             grads = torch.autograd.grad(out, (qg, kg, vg), do)
+            lse_launches = FA.flash_attention_lse.launches - lse_before
             ref_out = FA.flash_attention_reference(q, k, v, kv_len=n)
             ref_lse = FA.flash_attention_lse_reference(q, k, kv_len=n)
             ref_dvec = FA.attention_dvec(ref_out, do)
@@ -362,12 +434,12 @@ def phase_flash_kernels() -> dict:
                                                            kv_len=n))
             grad_rel = [_rel_err(g_, r_)[1] for g_, r_ in zip(grads, ref_grads)]
             grad_row = dict(case="train_autograd", out_rel_err=_rel_err(out, ref_out)[1],
-                            grad_rel_err=grad_rel, tol=REL_TOL)
+                            grad_rel_err=grad_rel, tol=REL_TOL, lse_launches=lse_launches)
             log("kernel case " + json.dumps(grad_row))
-            if max(grad_rel + [grad_row["out_rel_err"]]) > REL_TOL:
+            if max(grad_rel + [grad_row["out_rel_err"]]) > REL_TOL or lse_launches:
                 failed.append("train_autograd")
             del out, grads, ref_out, ref_grads
-        del c, q, k, v, do, o, lse, dvec, dq, dk, dv, qt, kt, vt
+        del c, q, k, v, do, o, lse, lse_fwd, dvec, dq, dk, dv, qt, kt, vt
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"flash kernels disagree with their plain versions: {failed}")
@@ -424,11 +496,16 @@ def profile_step(run, *, what: str = "denoise step", inference: bool = True,
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     rows = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    # the port's hand-written kernels, whether or not they are in the top
+    port = {k: dict(calls=sum(e.count for e in kernels if k in e.key),
+                    ms=sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3)
+            for k in KERNEL_NAMES}
     log("profile " + json.dumps(dict(
         what=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
         launches=sum(e.count for e in kernels),
         # None: the profiler saw no device time, so the share is not measured
         idle_share=max(0.0, 1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
+        port_kernels=port,
         top=[dict(name=e.key[:90], calls=e.count, ms=e.self_device_time_total / 1e3)
              for e in rows])))
 
@@ -587,9 +664,10 @@ def phase_train(profile: bool = False) -> dict:
     _, _, hp, wp, _ = sample["pixel_values"].shape
     joint_seq = 512 + (hp // 16) * (wp // 16)
     tc = TR.TrainConfig()   # the CLI's defaults; the batch carries grad_accum 1
-    per_step = {"flash_attention": 2 * (flux_cfg.num_double_layers + flux_cfg.num_single_layers)}
-    for name in FLASH_KERNELS[1:]:
-        per_step[name] = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    # forward + remat recompute per block; no LSE pass (the forward gives L)
+    blocks = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    per_step = {"flash_attention": 2 * blocks, "flash_attention_lse": 0,
+                "flash_attention_dq": blocks, "flash_attention_dkv": blocks}
     checksum0 = TR.base_checksum(flux)
 
     starts, ends, counts, snaps = [], [], [], []
@@ -677,11 +755,15 @@ def phase_train(profile: bool = False) -> dict:
     return rec
 
 
-def _fused_entry(kernel_rows, main_rec) -> dict:
+def _fused_entry(kernel_rows, main_rec, build_rec) -> dict:
     serving = next((r for r in kernel_rows if r["case"] == "serving"), None)
     entry = dict(
         name="flash_attention_qk_norm_rope", route="cuda",
         source="textflux_torch/csrc/fused_attention.cu",
+        # the prep pass is in `source`, the attention mainloop here
+        mainloop_source="textflux_torch/csrc/flash_fwd_sm90.cu",
+        build={k: v for k, v in build_rec.get("kernels", {}).items()
+               if k.startswith(("norm_rope_kernel", "flash_fwd_sm90_kernel"))},
         replaces="textflux_tpu/ops/flash_attention.py:577",
         launches=(sum(r["launches"] for r in main_rec["runs"].values())
                   if main_rec else None),
@@ -690,9 +772,9 @@ def _fused_entry(kernel_rows, main_rec) -> dict:
     )
     if serving:
         entry.update(max_abs_err=max(r["max_err"] for r in kernel_rows), tol=BF16_TOL,
-                     ms=serving["kernel_ms"], plain_ms=serving["plain_ms"],
-                     bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
-                     library_ms=serving["library_ms"])
+                     ms=serving["kernel_ms"], prep_ms=serving["prep_ms"],
+                     plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
+                     bound_by=serving["bound_by"], library_ms=serving["library_ms"])
     return entry
 
 
@@ -700,19 +782,28 @@ def _fused_entry(kernel_rows, main_rec) -> dict:
 FLASH_REPLACES = {"flash_attention": 33, "flash_attention_lse": 234,
                   "flash_attention_dq": 281, "flash_attention_dkv": 327}
 # the CUDA source of each training kernel
-FLASH_SOURCES = {"flash_attention": "textflux_torch/csrc/flash_attention.cu",
+FLASH_SOURCES = {"flash_attention": "textflux_torch/csrc/flash_fwd_sm90.cu",
                  "flash_attention_lse": "textflux_torch/csrc/flash_attention.cu",
                  "flash_attention_dq": "textflux_torch/csrc/flash_bwd_sm90.cu",
                  "flash_attention_dkv": "textflux_torch/csrc/flash_bwd_sm90.cu"}
 
 
-def _flash_entries(flash_rows, train_rec) -> list:
+# the kernel function behind each training wrapper
+FLASH_FUNCTIONS = {"flash_attention": "flash_fwd_sm90_kernel",
+                   "flash_attention_lse": "flash_lse_kernel",
+                   "flash_attention_dq": "flash_dq_sm90_kernel",
+                   "flash_attention_dkv": "flash_dkv_sm90_kernel"}
+
+
+def _flash_entries(flash_rows, train_rec, build_rec) -> list:
     """One JSON entry per training kernel: times at the `train` case,
     launches from the train phase (all steps, and per step)."""
     train = flash_rows.get("train")
     out = []
     for name in FLASH_KERNELS:
         entry = dict(name=name, route="cuda", source=FLASH_SOURCES[name],
+                     build={k: v for k, v in build_rec.get("kernels", {}).items()
+                            if k.startswith(FLASH_FUNCTIONS[name])},
                      replaces=f"textflux_tpu/ops/flash_attention.py:{FLASH_REPLACES[name]}",
                      launches=train_rec["launches"][name] if train_rec else None,
                      launches_per_step=([c[name] for c in train_rec["launches_per_step"]]
@@ -748,15 +839,16 @@ def main() -> int:
     sys.path.insert(0, REPO)
     phases = args.phases.split(",")
     dev = phase_device()
+    build_rec = {}
     if {"build", "kernels", "main", "train"} & set(phases):
-        phase_build()
+        build_rec = phase_build()
     kernel_rows = phase_kernels() if "kernels" in phases else []
     flash_rows = phase_flash_kernels() if "kernels" in phases else {}
     main_rec = phase_main("profile" in phases) if "main" in phases else None
     train_rec = phase_train("profile" in phases) if "train" in phases else None
 
-    kernel_entries = [_fused_entry(kernel_rows, main_rec)]
-    kernel_entries += _flash_entries(flash_rows, train_rec)
+    kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec)]
+    kernel_entries += _flash_entries(flash_rows, train_rec, build_rec)
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -82,6 +82,18 @@ def test_kernel_takes_strided_rows(cuda):
     assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
 
 
+def test_prep_pass_matches_plain_version(cuda):
+    """The fused kernel's first launch alone: q' and k' against the plain
+    fp32 norm+rope rounded to bf16 (one bf16 rounding apart at most)."""
+    q, k, v, cos, sin, qs, ks = _case(cuda, b=1, t_txt=512, lat_hw=(56, 64), h=24, d=128,
+                                      axes=(16, 56, 56), per_row=True)
+    tables = FA.fold_tables(cos, sin, qs, ks)
+    qn, kn = FA.norm_rope_prep(q, k, *tables)
+    ref_q, ref_k = FA._prep_reference(q, k, *tables, 1e-6, torch.bfloat16)
+    assert (qn.float() - ref_q.transpose(1, 2).float()).abs().max().item() <= BF16_TOL
+    assert (kn.float() - ref_k.transpose(1, 2).float()).abs().max().item() <= BF16_TOL
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v, cos, sin, qs, ks = _case(cuda, b=1, t_txt=8, lat_hw=(8, 8), h=2, d=64,
                                       axes=(16, 24, 24), per_row=False)
@@ -135,7 +147,7 @@ def test_flash_kernels_match_plain_versions(b, s, h, d, kv_len, strided, cuda):
     names = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
              "flash_attention_dkv")
     before = [getattr(FA, x).launches for x in names]
-    o = FA.flash_attention(q, k, v, kv_len=kv_len)
+    o, lse_fwd = FA.flash_attention_fwd(q, k, v, kv_len=kv_len)
     lse = FA.flash_attention_lse(q, k, kv_len=kv_len)
     dvec = FA.attention_dvec(o, do)
     dq = FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=kv_len)
@@ -143,8 +155,9 @@ def test_flash_kernels_match_plain_versions(b, s, h, d, kv_len, strided, cuda):
     torch.cuda.synchronize()
     assert [getattr(FA, x).launches for x in names] == [x + 1 for x in before]
     assert _rel(o, FA.flash_attention_reference(q, k, v, kv_len=kv_len)) <= BF16_TOL
-    assert float((lse - FA.flash_attention_lse_reference(q, k, kv_len=kv_len)).abs().max()) \
-        <= LSE_TOL
+    ref_lse = FA.flash_attention_lse_reference(q, k, kv_len=kv_len)
+    assert float((lse - ref_lse).abs().max()) <= LSE_TOL
+    assert float((lse_fwd - ref_lse).abs().max()) <= LSE_TOL   # the forward's L
     assert _rel(dq, FA.flash_attention_dq_reference(q, k, v, do, lse, dvec, kv_len=kv_len)) \
         <= BF16_TOL
     ref_dk, ref_dv = FA.flash_attention_dkv_reference(q, k, v, do, lse, dvec, kv_len=kv_len)
@@ -158,27 +171,36 @@ def test_flash_kernels_match_plain_versions(b, s, h, d, kv_len, strided, cuda):
     (2, 320, 8, 64, 250, False),
 ], ids=["batch2_ragged_kv900", "strided", "d64_kv_len"])
 def test_flash_backward_is_deterministic(b, s, h, d, kv_len, strided, cuda):
-    """No atomics: each dQ block owns its query rows and each dK/dV block its
-    key rows, so a second launch on the same inputs gives the same bits."""
+    """No atomics: each forward and dQ block owns its query rows and each
+    dK/dV block its key rows, so a second launch on the same inputs gives the
+    same bits (O and L of the forward, dQ, dK and dV); the forward without
+    L gives the same O."""
     q, k, v, do = _flash_inputs(cuda, b, s, h, d, strided)
     lse = FA.flash_attention_lse(q, k, kv_len=kv_len)
     dvec = FA.attention_dvec(FA.flash_attention(q, k, v, kv_len=kv_len), do)
-    first = (FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=kv_len),
+    first = (*FA.flash_attention_fwd(q, k, v, kv_len=kv_len),
+             FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=kv_len),
              *FA.flash_attention_dkv(q, k, v, do, lse, dvec, kv_len=kv_len))
-    second = (FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=kv_len),
+    second = (*FA.flash_attention_fwd(q, k, v, kv_len=kv_len),
+              FA.flash_attention_dq(q, k, v, do, lse, dvec, kv_len=kv_len),
               *FA.flash_attention_dkv(q, k, v, do, lse, dvec, kv_len=kv_len))
+    without_lse = FA.flash_attention(q, k, v, kv_len=kv_len)
     torch.cuda.synchronize()
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+    assert torch.equal(first[0], without_lse)
 
 
 def test_flash_function_gradients_on_the_card(cuda):
     """The autograd function on CUDA tensors (kernels) against the same
-    function on the plain versions' composition."""
+    function on the plain versions' composition; its backward takes the
+    forward's L and launches no LSE pass."""
     q, k, v, do = _flash_inputs(cuda, 1, 1024, 8, 128, strided=False)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    lse_before = FA.flash_attention_lse.launches
     out = FlashAttention.apply(qg, kg, vg, 1000)
     grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    assert FA.flash_attention_lse.launches == lse_before
     ref = FA.flash_attention_reference(q, k, v, kv_len=1000)
     lse = FA.flash_attention_lse_reference(q, k, kv_len=1000)
     dvec = FA.attention_dvec(ref, do)

@@ -1,8 +1,8 @@
 """The port's flash attention (the plain versions of the four training
-kernels, and the autograd function over them) held against the JAX
-package's Pallas flash attention and backward, run in interpret mode on the
-CPU as tests/test_flash_attention.py runs them, and against autodiff through
-the plain attention on both sides. CPU, float32, inputs from numpy."""
+kernels, the forward's L, and the autograd function over them) held against
+the JAX package's Pallas flash attention and backward, run in interpret mode
+on the CPU as tests/test_flash_attention.py runs them, and against autodiff
+through the plain attention on both sides. CPU, float32, inputs from numpy."""
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +37,31 @@ def test_forward_matches_pallas(shape, kv_len, rng):
     np.testing.assert_allclose(n(got), np.asarray(want), atol=2e-5)
 
 
+def _jax_lse(q, k, kv_len):
+    """JAX's logsumexp of the scaled logits, keys >= kv_len masked."""
+    s, d = q.shape[1], q.shape[-1]
+    logits = jnp.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(float(d))
+    logits = jnp.where(jnp.arange(s) < (s if kv_len is None else kv_len), logits, -1e30)
+    return np.asarray(jax.nn.logsumexp(logits, axis=-1))
+
+
+@pytest.mark.parametrize("shape,kv_len", [
+    ((1, 256, 2, 128), None),
+    ((2, 300, 3, 64), None),
+    ((1, 200, 2, 64), 150),
+], ids=["s256_d128", "ragged_s300_d64", "kv_len150"])
+def test_forward_with_lse_matches_pallas(shape, kv_len, rng):
+    """flash_attention_fwd: O against the Pallas forward, and the L it hands
+    the backward against JAX's logsumexp of the masked, scaled logits."""
+    q, k, v = _qkv(rng, *shape)
+    o, lse = FA.flash_attention_fwd(t(q), t(k), t(v), kv_len=kv_len)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len=kv_len,
+                     interpret=True)
+    np.testing.assert_allclose(n(o), np.asarray(want), atol=2e-5)
+    assert lse.shape == (shape[0], shape[2], shape[1]) and lse.dtype == torch.float32
+    np.testing.assert_allclose(n(lse), _jax_lse(q, k, kv_len), atol=1e-5)
+
+
 def test_lse_matches_logsumexp(rng):
     """Pass 1 (natural-log L, keys >= kv_len masked) against JAX's
     logsumexp of the masked, scaled logits."""
@@ -63,6 +88,31 @@ def test_backward_matches_pallas(shape, kv_len, rng):
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_allclose(n(g)[:, :real], np.asarray(w)[:, :real], atol=2e-4)
         assert not n(g)[:, real:].any()
+
+
+@pytest.mark.parametrize("kv_len", [None, 150])
+def test_backward_takes_the_forward_lse(kv_len, rng):
+    """flash_attention_bwd with the forward's L gives what its own LSE pass
+    gives."""
+    q, k, v, do = (t(x) for x in _qkv(rng, 1, 200, 2, 64, extra=1))
+    o, lse = FA.flash_attention_fwd(q, k, v, kv_len=kv_len)
+    got = FA.flash_attention_bwd(q, k, v, o, do, kv_len=kv_len, lse=lse)
+    want = FA.flash_attention_bwd(q, k, v, o, do, kv_len=kv_len)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(n(g), n(w), atol=1e-6)
+
+
+def test_autograd_function_runs_no_lse_pass(rng, monkeypatch):
+    """FlashAttention saves the forward's L, so its backward never calls the
+    LSE pass."""
+    def no_lse(*args, **kwargs):
+        raise AssertionError("the LSE pass ran")
+
+    monkeypatch.setattr(FA, "flash_attention_lse", no_lse)
+    q, k, v, do = _qkv(rng, 1, 48, 2, 16, extra=1)
+    qt, kt, vt = (t(x).requires_grad_() for x in (q, k, v))
+    grads = torch.autograd.grad(FlashAttention.apply(qt, kt, vt, 40), (qt, kt, vt), t(do))
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 @pytest.mark.parametrize("kv_len", [None, 120])

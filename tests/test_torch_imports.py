@@ -1,6 +1,6 @@
 """The port stands alone: importing textflux_torch and every submodule pulls
-in neither JAX nor the JAX package, and no port source (nor chip_smoke.py)
-imports either."""
+in neither JAX nor the JAX package, and no port source (nor chip_smoke.py
+or the port's tools/) imports either."""
 
 import os
 import re
@@ -35,8 +35,9 @@ def test_import_pulls_in_no_jax():
 
 def test_no_source_imports_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
-    for dirpath, _, names in os.walk(os.path.join(ROOT, "textflux_torch")):
-        files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
+    for top in ("textflux_torch", "tools"):
+        for dirpath, _, names in os.walk(os.path.join(ROOT, top)):
+            files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     offenders = []
     for path in files:
         with open(path, encoding="utf-8") as f:

@@ -7,7 +7,9 @@
 // Replaces the Pallas TPU kernels of textflux_tpu/ops/flash_attention.py:
 //   flash_dq_sm90_kernel   <- _dq_kernel  (flash_attention_bwd, pass 2)
 //   flash_dkv_sm90_kernel  <- _dkv_kernel (flash_attention_bwd, pass 3)
-// (pass 1, the LSE, and the forward are in flash_attention.cu.)
+// (pass 1, the LSE, is in flash_attention.cu and the forward, which also
+// writes L, in flash_fwd_sm90.cu; the pieces all three wgmma kernels share
+// are in sm90_common.cuh.)
 //
 // What they compute, per (batch, head), with s = q k^T and keys at index >=
 // kv_len masked out, exactly as the plain versions do:
@@ -52,83 +54,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_common.cuh"
 #include "sm90_common.cuh"
 
 namespace {
 
 using namespace textflux::sm90;
-using textflux::pack_bf16;
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;                         // rows of a tile: wgmma's M, one stage
-constexpr int kConsumers = 2;                     // consumer warpgroups per block
-constexpr int kBlockRows = kRows * kConsumers;    // rows a block owns
-constexpr int kThreads = 128 * (1 + kConsumers);  // producer warpgroup + consumers
 constexpr int kStages = 3;                        // depth of the streamed ring
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;                // 24 + 2 x 240 = 3 x 168
-constexpr int kHalfBytes = kRows * 128;           // 64 rows x 64 bf16, swizzled
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-constexpr int kTileBytes = kRows * D * 2;         // 64 rows x D, as D / 64 column halves
-
-// K-major operand, k-step ks of 16 head-dim columns
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
-  return desc_sw128(tile + (ks >> 2) * kHalfBytes + (ks & 3) * 32, 16, 1024);
-}
-// MN-major operand (head dim along N), k-step kk of 16 rows
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + kk * 16 * 128, kHalfBytes, 1024);
-}
-
-// one 64-row tile (all D / 64 column halves) of a (B, S, H, D) map
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                          int row0, int h, int b) {
-#pragma unroll
-  for (int half = 0; half < D / 64; ++half) {
-    tma_load_4d(dst + half * kHalfBytes, map, bar, half * 64, h, row0, b);
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A operand of k-step kk (columns 16kk..16kk+15) from an m64n64 accumulator
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[32], int kk) {
-  a[0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
-  a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
-  a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
-  a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
-}
-
-// a warp's rows r0 and r0 + 8 of an m64nD accumulator, times `mul`, as bf16
-// into a contiguous (B, S, H, D) output at `base` (row pitch H*D)
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* base, long long pitch, int r0, int seq,
-                                          const float (&acc)[D / 2], float mul, int t) {
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (r0 < seq) {
-      *reinterpret_cast<uint32_t*>(base + r0 * pitch + c) =
-          pack_bf16(acc[4 * n] * mul, acc[4 * n + 1] * mul);
-    }
-    if (r0 + 8 < seq) {
-      *reinterpret_cast<uint32_t*>(base + (r0 + 8) * pitch + c) =
-          pack_bf16(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
-    }
-  }
-}
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-}
 
 // ---------------------------------------------------------------------------
 // dQ: one block per 128 query rows, K/V streamed
@@ -515,9 +448,8 @@ cudaError_t launch_dq(const Maps& m, const void* lse, const void* dvec, void* dq
                       int seq, int heads, int kv_len, float scale_log2, float scale,
                       cudaStream_t st) {
   const int smem = dq_smem_bytes<D>();
-  // per device, so set on every launch (cheap) rather than cached once
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_sm90_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static SmemLimitOnce limit;
+  const cudaError_t err = limit.set(flash_dq_sm90_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   flash_dq_sm90_kernel<D><<<grid_of(batch, seq, heads), kThreads, smem, st>>>(
       m.q, m.k, m.v, m.dout, static_cast<const float*>(lse), static_cast<const float*>(dvec),
@@ -530,8 +462,8 @@ cudaError_t launch_dkv(const Maps& m, const void* lse, const void* dvec, void* d
                        int batch, int seq, int heads, int kv_len, float scale_log2, float scale,
                        cudaStream_t st) {
   const int smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_sm90_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static SmemLimitOnce limit;
+  const cudaError_t err = limit.set(flash_dkv_sm90_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   flash_dkv_sm90_kernel<D><<<grid_of(batch, seq, heads), kThreads, smem, st>>>(
       m.q, m.k, m.v, m.dout, static_cast<const float*>(lse), static_cast<const float*>(dvec),

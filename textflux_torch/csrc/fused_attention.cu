@@ -1,6 +1,7 @@
 // Fused per-head RMSNorm + rotate-half RoPE + softmax attention, forward,
-// for Hopper (sm_90a). Bound to Python through the plain C entry point at the
-// bottom (ctypes); see textflux_torch/ops/flash_attention.py for the wrapper.
+// for Hopper (sm_90a). Bound to Python through the plain C entry points at
+// the bottom (ctypes); see textflux_torch/ops/flash_attention.py for the
+// wrapper.
 //
 // Replaces the Pallas TPU kernel textflux_tpu/ops/flash_attention.py::
 // _fused_kernel (+ _norm_rope), reached through flash_attention_qk_norm_rope.
@@ -19,38 +20,25 @@
 // so it is bound by tensor-core operations, not memory.
 //
 // Design against that bound, in two launches on one stream:
-//   1. norm_rope_kernel: one warp per (b, s, h) row of q and k does the fp32
-//      norm + rope once and writes bf16 q', k' to scratch (the TPU kernel, and
-//      this kernel's first version, redid the K prep in every query tile;
-//      that and its dependent per-row loads were the first version's
-//      bottleneck). Costs one extra write + read of q and k (~35 MB, ~10 us).
-//   2. attention_kernel: one block of 4 warps per (b, h, 64-row query tile).
-//      Both products run on the tensor cores (mma.sync m16n8k16, bf16 in,
-//      fp32 accumulate); each warp owns 16 query rows whose A fragments stay
-//      in registers for the whole K/V loop; K'/V tiles stream through shared
-//      memory with cp.async, double-buffered so tile i+1 loads while tile i
-//      is multiplied; the probability tile goes from the S accumulator
-//      straight into the A fragments of P*V; scores never leave registers.
-// wgmma, TMA and warp specialisation are later work.
+//   1. norm_rope_kernel (here): one warp per (b, s, h) row of q and k does
+//      the fp32 norm + rope once and writes bf16 q', k' to scratch (the TPU
+//      kernel, and this kernel's first version, redid the K prep in every
+//      query tile; that and its dependent per-row loads were the first
+//      version's bottleneck). Costs one extra write + read of q and k (~35
+//      MB, ~10 us).
+//   2. flash_fwd_sm90_kernel (flash_fwd_sm90.cu) on q', k' and v with score
+//      multiplier 1 and no L: the training forward's wgmma / TMA mainloop,
+//      which reads the contiguous scratch and v's strided rows by TMA.
+// textflux_norm_rope_prep launches pass 1 alone, so that it can be timed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_common.cuh"
+#include "sm90_common.cuh"  // textflux::sm90::flash_fwd
 
 namespace {
 
-using textflux::cp_async_16;
-using textflux::cp_async_commit;
-using textflux::cp_async_wait;
-using textflux::mma_16816;
-using textflux::pack_bf16;
-
-constexpr int kBlockM = 64;   // query rows per thread block
-constexpr int kBlockN = 64;   // key/value rows per tile (== kBlockM: tiles share a loader)
-constexpr int kWarps = 4;     // each warp owns 16 query rows
-constexpr int kThreads = kWarps * 32;
 constexpr int kPrepWarps = 8; // rows per block of the prep kernel
 
 // One warp prepares one row of D features held EPL = D/32 per lane:
@@ -120,211 +108,11 @@ norm_rope_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
                    sin_k + static_cast<long long>(s) * D, eps, 1.f, kn + o, lane);
 }
 
-// Stage a 64-row x D tile (rows row0.. of `src`, `row_stride` elements apart)
-// into shared memory with row pitch LD; rows >= limit are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* __restrict__ src,
-                                                long long row_stride, int row0, int limit,
-                                                int tid) {
-  constexpr int LD = D + 8;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  constexpr int ITERS = kBlockN * CPR / kThreads;
-#pragma unroll
-  for (int i = 0; i < ITERS; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c / CPR;
-    const int col = (c % CPR) * 8;
-    const int s = row0 + r;
-    const bool valid = s < limit;
-    cp_async_16(dst + r * LD + col, src + (valid ? s : 0) * row_stride + col, valid ? 16 : 0);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_kernel(const __nv_bfloat16* __restrict__ qn, const __nv_bfloat16* __restrict__ kn,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                 int seq, int heads, int kv_len, long long v_sb, long long v_ss) {
-  constexpr int LD = D + 8;          // padded smem row: conflict-free fragment loads
-  constexpr int KSTEPS = D / 16;     // k-steps of the Q*K^T product
-  constexpr int NT_S = kBlockN / 8;  // n-tiles of one score tile
-  constexpr int NT_O = D / 8;        // n-tiles of the output
-  constexpr int TILE = kBlockN * LD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  // [K stage 0 | K stage 1 | V stage 0 | V stage 1]; the Q tile passes through
-  // K stage 1 before the loop starts
-  __nv_bfloat16* sK0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV0 = sK0 + 2 * TILE;
-  __nv_bfloat16* sQ = sK0 + TILE;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long qk_ss = static_cast<long long>(heads) * D;  // q'/k'/out row stride
-  const long long qk_base = static_cast<long long>(b) * seq * qk_ss + h * D;
-  const __nv_bfloat16* qb = qn + qk_base;
-  const __nv_bfloat16* kb = kn + qk_base;
-  const __nv_bfloat16* vb = v + b * v_sb + h * D;
-
-  load_tile_async<D>(sQ, qb, qk_ss, q0, seq, tid);
-  load_tile_async<D>(sK0, kb, qk_ss, 0, seq, tid);
-  load_tile_async<D>(sV0, vb, v_ss, 0, seq, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int m0 = warp * 16;
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const __nv_bfloat16* p0 = sQ + (m0 + g) * LD + ks * 16 + 2 * t;
-    const __nv_bfloat16* p1 = p0 + 8 * LD;
-    qa[ks][0] = *reinterpret_cast<const uint32_t*>(p0);
-    qa[ks][1] = *reinterpret_cast<const uint32_t*>(p1);
-    qa[ks][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    qa[ks][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-  }
-  __syncthreads();  // every warp holds its Q fragments: K stage 1 is free
-
-  float o[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-1e30f, -1e30f};  // rows g and g + 8 of this warp
-  float l_run[2] = {0.f, 0.f};        // this thread's share of the row sums
-
-  const int n_tiles = (kv_len + kBlockN - 1) / kBlockN;  // tiles past kv_len add exactly 0
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      const int nxt = (it + 1) * kBlockN;
-      load_tile_async<D>(sK0 + (stage ^ 1) * TILE, kb, qk_ss, nxt, seq, tid);
-      load_tile_async<D>(sV0 + (stage ^ 1) * TILE, vb, v_ss, nxt, seq, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this stage's tile is visible to every warp
-    const __nv_bfloat16* sK = sK0 + stage * TILE;
-    const unsigned short* sVu = reinterpret_cast<const unsigned short*>(sV0 + stage * TILE);
-    const int kv0 = it * kBlockN;
-
-    // S = Q K^T (already in log2 units)
-    float sc_[NT_S][4];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-      sc_[j][0] = sc_[j][1] = sc_[j][2] = sc_[j][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        const __nv_bfloat16* kp = sK + (j * 8 + g) * LD + ks * 16 + 2 * t;
-        mma_16816(sc_[j], qa[ks], *reinterpret_cast<const uint32_t*>(kp),
-                  *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-    if (kv0 + kBlockN > kv_len) {
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (kv0 + j * 8 + 2 * t + (e & 1) >= kv_len) sc_[j][e] = -1e30f;
-        }
-      }
-    }
-
-    // online softmax (exp2), rows g (elements 0,1) and g + 8 (elements 2,3)
-    float mx0 = m_run[0], mx1 = m_run[1];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(sc_[j][0], sc_[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc_[j][2], sc_[j][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float alpha0 = exp2f(m_run[0] - mx0);
-    const float alpha1 = exp2f(m_run[1] - mx1);
-    m_run[0] = mx0;
-    m_run[1] = mx1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-      sc_[j][0] = exp2f(sc_[j][0] - mx0);
-      sc_[j][1] = exp2f(sc_[j][1] - mx0);
-      sc_[j][2] = exp2f(sc_[j][2] - mx1);
-      sc_[j][3] = exp2f(sc_[j][3] - mx1);
-      rs0 += sc_[j][0] + sc_[j][1];
-      rs1 += sc_[j][2] + sc_[j][3];
-    }
-    l_run[0] = l_run[0] * alpha0 + rs0;
-    l_run[1] = l_run[1] * alpha1 + rs1;
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      o[n][0] *= alpha0;
-      o[n][1] *= alpha0;
-      o[n][2] *= alpha1;
-      o[n][3] *= alpha1;
-    }
-
-    // O += P V: the score accumulators of n-tiles 2kk, 2kk+1 are exactly the
-    // A fragment of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sc_[2 * kk][0], sc_[2 * kk][1]);
-      pa[1] = pack_bf16(sc_[2 * kk][2], sc_[2 * kk][3]);
-      pa[2] = pack_bf16(sc_[2 * kk + 1][0], sc_[2 * kk + 1][1]);
-      pa[3] = pack_bf16(sc_[2 * kk + 1][2], sc_[2 * kk + 1][3]);
-      const int kr = kk * 16 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NT_O; ++n) {
-        const int c = n * 8 + g;
-        const uint32_t b0 = static_cast<uint32_t>(sVu[kr * LD + c]) |
-                            (static_cast<uint32_t>(sVu[(kr + 1) * LD + c]) << 16);
-        const uint32_t b1 = static_cast<uint32_t>(sVu[(kr + 8) * LD + c]) |
-                            (static_cast<uint32_t>(sVu[(kr + 9) * LD + c]) << 16);
-        mma_16816(o[n], pa, b0, b1);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  // ---- finish: full row sums, normalise, bf16 out in (B, S, H, D) ----
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-  }
-  const float l0 = fmaxf(l_run[0], 1e-30f);
-  const float l1 = fmaxf(l_run[1], 1e-30f);
-  const int r0 = q0 + m0 + g;
-  const int r1 = r0 + 8;
-  __nv_bfloat16* ob = out + qk_base;
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (r0 < seq) {
-      *reinterpret_cast<uint32_t*>(ob + r0 * qk_ss + c) = pack_bf16(o[n][0] / l0, o[n][1] / l0);
-    }
-    if (r1 < seq) {
-      *reinterpret_cast<uint32_t*>(ob + r1 * qk_ss + c) = pack_bf16(o[n][2] / l1, o[n][3] / l1);
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* cos_q,
-                   const void* sin_q, const void* cos_k, const void* sin_k, void* qn,
-                   void* kn, void* out, int batch, int seq, int heads, int kv_len,
-                   long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-                   long long v_sb, long long v_ss, float eps, float q_mul,
-                   cudaStream_t stream) {
+cudaError_t launch_prep(const void* q, const void* k, const void* cos_q, const void* sin_q,
+                        const void* cos_k, const void* sin_k, void* qn, void* kn, int batch,
+                        int seq, int heads, long long q_sb, long long q_ss, long long k_sb,
+                        long long k_ss, float eps, float q_mul, cudaStream_t stream) {
   const long long rows = static_cast<long long>(batch) * seq * heads;
   const unsigned prep_blocks = static_cast<unsigned>((rows + kPrepWarps - 1) / kPrepWarps);
   norm_rope_kernel<D><<<prep_blocks, kPrepWarps * 32, 0, stream>>>(
@@ -333,43 +121,59 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* cos_
       static_cast<const float*>(cos_k), static_cast<const float*>(sin_k),
       static_cast<__nv_bfloat16*>(qn), static_cast<__nv_bfloat16*>(kn), batch, seq, heads,
       q_sb, q_ss, k_sb, k_ss, eps, q_mul);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr int smem = 4 * kBlockN * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16));
-  // per device, so set on every launch (cheap) rather than cached once
-  err = cudaFuncSetAttribute(attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  attention_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qn), static_cast<const __nv_bfloat16*>(kn),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), seq, heads,
-      kv_len, v_sb, v_ss);
   return cudaGetLastError();
+}
+
+cudaError_t prep(const void* q, const void* k, const void* cos_q, const void* sin_q,
+                 const void* cos_k, const void* sin_k, void* qn, void* kn, int batch, int seq,
+                 int heads, int head_dim, long long q_sb, long long q_ss, long long k_sb,
+                 long long k_ss, float eps, float q_mul, cudaStream_t st) {
+  switch (head_dim) {
+    case 64:
+      return launch_prep<64>(q, k, cos_q, sin_q, cos_k, sin_k, qn, kn, batch, seq, heads, q_sb,
+                             q_ss, k_sb, k_ss, eps, q_mul, st);
+    case 128:
+      return launch_prep<128>(q, k, cos_q, sin_q, cos_k, sin_k, qn, kn, batch, seq, heads,
+                              q_sb, q_ss, k_sb, k_ss, eps, q_mul, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q, k, v: bf16 (B, S, H, D) with unit feature stride and head stride D; the
-// batch and sequence strides (in elements) are passed; v's rows must be
-// 16-byte aligned. Tables: fp32 (S, D), contiguous. qn, kn: bf16 scratch
-// (B, S, H, D), contiguous, written here. out: bf16 (B, S, H, D), contiguous.
-// Returns a cudaError_t.
+// q, k: bf16 (B, S, H, D) with unit feature stride and head stride D; the
+// batch and sequence strides (in elements) are passed. Tables: fp32 (S, D),
+// contiguous. qn, kn: bf16 scratch (B, S, H, D), contiguous, written here.
+// head_dim is 64 or 128. Returns a cudaError_t.
+extern "C" int textflux_norm_rope_prep(const void* q, const void* k, const void* cos_q,
+                                       const void* sin_q, const void* cos_k, const void* sin_k,
+                                       void* qn, void* kn, int batch, int seq, int heads,
+                                       int head_dim, long long q_sb, long long q_ss,
+                                       long long k_sb, long long k_ss, float eps, float q_mul,
+                                       void* stream) {
+  return static_cast<int>(prep(q, k, cos_q, sin_q, cos_k, sin_k, qn, kn, batch, seq, heads,
+                               head_dim, q_sb, q_ss, k_sb, k_ss, eps, q_mul,
+                               static_cast<cudaStream_t>(stream)));
+}
+
+// As textflux_norm_rope_prep, then the attention over q', k' and v: v is bf16
+// (B, S, H, D) with unit feature stride, head stride D and batch / sequence
+// strides that are multiples of 8 elements, 16-byte aligned (TMA reads it).
+// out: bf16 (B, S, H, D), contiguous. 1 <= kv_len <= seq. Returns a
+// cudaError_t.
 extern "C" int textflux_fused_norm_rope_attention(
     const void* q, const void* k, const void* v, const void* cos_q, const void* sin_q,
     const void* cos_k, const void* sin_k, void* qn, void* kn, void* out, int batch, int seq,
     int heads, int head_dim, int kv_len, long long q_sb, long long q_ss, long long k_sb,
     long long k_ss, long long v_sb, long long v_ss, float eps, float q_mul, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return launch<64>(q, k, v, cos_q, sin_q, cos_k, sin_k, qn, kn, out, batch, seq, heads,
-                        kv_len, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, eps, q_mul, st);
-    case 128:
-      return launch<128>(q, k, v, cos_q, sin_q, cos_k, sin_k, qn, kn, out, batch, seq, heads,
-                         kv_len, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, eps, q_mul, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  cudaError_t err = prep(q, k, cos_q, sin_q, cos_k, sin_k, qn, kn, batch, seq, heads, head_dim,
+                         q_sb, q_ss, k_sb, k_ss, eps, q_mul, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long row = static_cast<long long>(heads) * head_dim;  // q'/k' sequence stride
+  const long long sd[6] = {seq * row, row, seq * row, row, v_sb, v_ss};
+  err = textflux::sm90::flash_fwd(qn, kn, v, out, nullptr, batch, seq, heads, head_dim, kv_len,
+                                  sd, 1.f, st);
+  return static_cast<int>(err);
 }

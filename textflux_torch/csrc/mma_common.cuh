@@ -1,7 +1,7 @@
-// Device helpers shared by the attention kernels (fused_attention.cu,
-// flash_attention.cu; flash_bwd_sm90.cu takes pack_bf16): the mma.sync bf16
-// tensor-core product, bf16 packing and the cp.async copies. The Hopper
-// building blocks (wgmma, TMA, mbarrier) are in sm90_common.cuh.
+// Device helpers of the attention kernels: the mma.sync bf16 tensor-core
+// product and the cp.async copies (flash_attention.cu's LSE pass), and bf16
+// packing (also taken by sm90_common.cuh). The Hopper building blocks
+// (wgmma, TMA, mbarrier) are in sm90_common.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

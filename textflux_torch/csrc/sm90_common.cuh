@@ -6,6 +6,13 @@
 // bf16 view, encoded by cuTensorMapEncodeTiled as cudaGetDriverEntryPoint
 // finds it at run time (so the library needs no -lcuda).
 //
+// On top of those, what the attention kernels built on them share
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): the block layout (a producer
+// warpgroup and two consumer warpgroups of 64 rows), the K- and MN-major
+// descriptor steps, the tile load, the accumulator -> A-operand and
+// accumulator -> global moves, and the forward's host launcher, which
+// fused_attention.cu calls too.
+//
 // Shared-memory tiles: rows of 64 bf16 (128 bytes), written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B (16-byte chunk c of row r lands at chunk
 // c ^ (r % 8)), every tile 1024-byte aligned. A head dim of 128 is two such
@@ -13,11 +20,28 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "mma_common.cuh"  // pack_bf16
+
 namespace textflux {
 namespace sm90 {
+
+constexpr int kRows = 64;                         // rows of a tile: wgmma's M, one stage
+constexpr int kConsumers = 2;                     // consumer warpgroups per block
+constexpr int kBlockRows = kRows * kConsumers;    // rows a block owns
+constexpr int kThreads = 128 * (1 + kConsumers);  // producer warpgroup + consumers
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;                // 24 + 2 x 240 = 3 x 168
+constexpr int kHalfBytes = kRows * 128;           // 64 rows x 64 bf16, swizzled
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr int kTileBytes = kRows * D * 2;         // 64 rows x D, as D / 64 column halves
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -270,6 +294,66 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 }
 
 // ---------------------------------------------------------------------------
+// the attention kernels' tiles and accumulators
+// ---------------------------------------------------------------------------
+
+// K-major operand, k-step ks of 16 head-dim columns
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+  return desc_sw128(tile + (ks >> 2) * kHalfBytes + (ks & 3) * 32, 16, 1024);
+}
+// MN-major operand (head dim along N), k-step kk of 16 rows
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + kk * 16 * 128, kHalfBytes, 1024);
+}
+
+// one 64-row tile (all D / 64 column halves) of a (B, S, H, D) map
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int row0, int h, int b) {
+#pragma unroll
+  for (int half = 0; half < D / 64; ++half) {
+    tma_load_4d(dst + half * kHalfBytes, map, bar, half * 64, h, row0, b);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A operand of k-step kk (columns 16kk..16kk+15) from an m64n64 accumulator
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[32], int kk) {
+  a[0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+  a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+}
+
+// a warp's rows r0 and r0 + 8 of an m64nD accumulator, times `mul`, as bf16
+// into a contiguous (B, S, H, D) output at `base` (row pitch H*D)
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* base, long long pitch, int r0, int seq,
+                                          const float (&acc)[D / 2], float mul, int t) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (r0 < seq) {
+      *reinterpret_cast<uint32_t*>(base + r0 * pitch + c) =
+          pack_bf16(acc[4 * n] * mul, acc[4 * n + 1] * mul);
+    }
+    if (r0 + 8 < seq) {
+      *reinterpret_cast<uint32_t*>(base + (r0 + 8) * pitch + c) =
+          pack_bf16(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// ---------------------------------------------------------------------------
 // host: the TMA tensor map of a bf16 (B, S, H, D) view
 // ---------------------------------------------------------------------------
 
@@ -320,6 +404,40 @@ inline cudaError_t make_bshd_map(CUtensorMap* map, const void* ptr, int batch, i
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
+
+// Raises a kernel's dynamic shared-memory limit to `bytes`, once per device:
+// the attribute is per device, and a driver call on every launch would
+// lengthen the host's launch path, which bounds the serving step. One
+// instance per kernel, as a static in its launcher.
+class SmemLimitOnce {
+ public:
+  template <typename Kernel>
+  cudaError_t set(Kernel kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;  // devices >= 64: every launch
+    if (bit != 0 && (done_.load(std::memory_order_acquire) & bit) != 0) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) done_.fetch_or(bit, std::memory_order_release);
+    return err;
+  }
+
+ private:
+  std::atomic<uint64_t> done_{0};  // bit d: set on device d
+};
+
+// Launch flash_fwd_sm90_kernel (defined in flash_fwd_sm90.cu) on the
+// stream: out = softmax(score_mul * q k^T in log2 units) v over keys <
+// kv_len, and, when lse is not null, L = natural-log row LSE of the same
+// scores into lse, fp32 (B, H, S). q, k, v: bf16 (B, S, H, D) views with unit
+// feature stride and head stride D; sd = their (batch, sequence) strides in
+// elements, in the order q, k, v (multiples of 8: TMA wants 16-byte
+// strides). out: contiguous bf16 (B, S, H, D). head_dim is 64 or 128;
+// 1 <= kv_len <= seq. Returns the launch's error (cudaSuccess when it ran).
+cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+                      int batch, int seq, int heads, int head_dim, int kv_len,
+                      const long long* sd, float score_mul, cudaStream_t st);
 
 }  // namespace sm90
 }  // namespace textflux

@@ -49,24 +49,27 @@ def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
 class FlashAttention(torch.autograd.Function):
     """Flash attention with the hand-written backward.
 
-    Forward: the forward kernel; q, k, v and O are saved. Backward: the LSE
-    kernel, Dvec = rowsum(dO o O) in plain torch, then the dQ and the dK/dV
-    kernels (``ops.flash_attention.flash_attention_bwd``). On CPU tensors
-    each kernel's plain version runs instead. Under
-    ``torch.utils.checkpoint`` the forward runs again in the recompute, so a
-    checkpointed block launches the forward kernel twice per step."""
+    Forward: the forward kernel, which writes O and the row log-sum-exp L in
+    one launch; q, k, v, O and L are saved. Backward: Dvec = rowsum(dO o O)
+    in plain torch, then the dQ and the dK/dV kernels on the saved L
+    (``ops.flash_attention.flash_attention_bwd`` with ``lse=L``), so no LSE
+    pass runs. On CPU tensors each kernel's plain version runs instead.
+    Under ``torch.utils.checkpoint`` the forward runs again in the
+    recompute, which supplies L then, so a checkpointed block launches the
+    forward kernel twice per step."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len):
-        o = FA.flash_attention(q, k, v, kv_len=kv_len)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = FA.flash_attention_fwd(q, k, v, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.kv_len = kv_len
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = FA.flash_attention_bwd(q, k, v, o, _kernel_layout(do), kv_len=ctx.kv_len)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = FA.flash_attention_bwd(q, k, v, o, _kernel_layout(do), kv_len=ctx.kv_len,
+                                            lse=lse)
         return dq, dk, dv, None
 
 

@@ -55,15 +55,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtextflux_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> tuple[Path, float]:
+def build() -> tuple[Path, float, str]:
     """Compile the kernels if this source hash has no library yet. Returns
-    (library path, seconds spent compiling and linking; 0.0 when it was
-    already built). Each source compiles in its own nvcc process, all at
-    once; the objects and the library go to temporary names first, so a
-    concurrent or interrupted build never leaves a half-written library."""
+    (library path, seconds spent compiling and linking (0.0 when it was
+    already built), the compilers' output). ptxas reports each kernel's
+    registers, shared memory and spills into that output (-Xptxas -v), which
+    is kept beside the library (same name, ``.log``) and read back when the
+    library was already built ("" if that file is gone). Each source
+    compiles in its own nvcc process, all at once; the objects, the log and
+    the library go to temporary names first, so a concurrent or interrupted
+    build never leaves a half-written library."""
     out = library_path()
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return out, 0.0
+        return out, 0.0, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -72,8 +77,7 @@ def build(verbose: bool = False) -> tuple[Path, float]:
         for src in _sources():
             obj = os.path.join(tmpdir, src.stem + ".o")
             objs.append(obj)
-            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-                   "-c", "-o", obj, str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, str(src)]
             procs.append((src.name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                      stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
@@ -90,22 +94,25 @@ def build(verbose: bool = False) -> tuple[Path, float]:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stdout}\n{link.stderr}")
-        if verbose:
-            print("\n".join(logs), flush=True)
+        text = "\n".join(logs)
+        tmp_log = os.path.join(tmpdir, log_path.name)
+        Path(tmp_log).write_text(text)
+        os.replace(tmp_log, log_path)
         os.replace(lib, out)
-    return out, time.perf_counter() - t0
+    return out, time.perf_counter() - t0, text
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's argument and result types declared."""
-    path, _ = build()
+    path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     signatures = {
         "textflux_fused_norm_rope_attention": [ptr] * 10 + [i32] * 5 + [i64] * 6 + [f32, f32, ptr],
-        "textflux_flash_fwd": [ptr] * 4 + [i32] * 5 + [i64] * 6 + [f32, ptr],
+        "textflux_norm_rope_prep": [ptr] * 8 + [i32] * 4 + [i64] * 4 + [f32, f32, ptr],
+        "textflux_flash_fwd": [ptr] * 5 + [i32] * 5 + [i64] * 6 + [f32, ptr],
         "textflux_flash_lse": [ptr] * 3 + [i32] * 5 + [i64] * 4 + [f32, ptr],
         "textflux_flash_dq": [ptr] * 7 + [i32] * 5 + [i64] * 8 + [f32, f32, ptr],
         "textflux_flash_dkv": [ptr] * 8 + [i32] * 5 + [i64] * 8 + [f32, f32, ptr],

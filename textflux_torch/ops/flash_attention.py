@@ -2,20 +2,22 @@
 
 Two families, each wrapper launching its kernel on CUDA tensors (or raising)
 and running its plain version on CPU tensors, with an integer launch count
-on the wrapper (``<wrapper>.launches``):
+on the wrapper (``<wrapper>.launches``). One wgmma / TMA attention mainloop
+(``csrc/flash_fwd_sm90.cu``, ``flash_fwd_sm90_kernel``) serves both
+families' forward.
 
-``flash_attention_qk_norm_rope`` (``csrc/fused_attention.cu``) is the
-attention of every MM-DiT block on the fused serving path. It replaces the
-Pallas TPU kernel ``textflux_tpu/ops/flash_attention.py::_fused_kernel``. At
-the serving shape (B=1, S=1408, H=24, D=128) its work is 4*S*S*D*H ~ 24.4
-GFLOP (~25 us at the H100's 989 TFLOP/s bf16) against ~37.5 MB of q/k/v/o
-and tables (~11 us at 3.35 TB/s): it is bound by tensor-core operations. Its
-design against that bound is described at the top of the CUDA source: q/k
-normed and roped once per row, both products on the tensor cores, K/V tiles
-double-buffered with cp.async, Q fragments held in registers, P passed to
-the P*V product in registers, scores never written to memory.
+``flash_attention_qk_norm_rope`` is the attention of every MM-DiT block on
+the fused serving path. It replaces the Pallas TPU kernel
+``textflux_tpu/ops/flash_attention.py::_fused_kernel``, in two launches: a
+norm+rope pass (``csrc/fused_attention.cu``) that writes q', k' once per row
+into bf16 scratch (``norm_rope_prep`` launches it alone, for timing), then
+the forward mainloop on q', k' and v. At the serving shape (B=1, S=1408,
+H=24, D=128) its work is 4*S*S*D*H ~ 24.4 GFLOP (~25 us at the H100's 989
+TFLOP/s bf16) against ~37.5 MB of q/k/v/o and tables (~11 us at 3.35 TB/s):
+it is bound by tensor-core operations.
 
-``flash_attention`` and the backward passes ``flash_attention_lse``,
+``flash_attention_fwd`` (O and the row log-sum-exp L in one launch),
+``flash_attention`` (O alone) and the backward passes ``flash_attention_lse``,
 ``flash_attention_dq`` and ``flash_attention_dkv`` are the training path's
 attention, composed into a gradient by ``flash_attention_bwd`` and
 ``ops.attention.FlashAttention``. They replace the Pallas kernels
@@ -25,14 +27,15 @@ bound by tensor-core operations (4, 2, 6 and 8 x B*H*S*kv*D FLOPs: 0.22 to
 0.44 ms at the bf16 peak, against 0.016 to 0.046 ms of memory traffic), and
 on Hopper only wgmma reaches that peak:
 
-- the forward and LSE kernels (``csrc/flash_attention.cu``) still run on
-  ``mma.sync`` with fragments loaded from shared memory by each thread;
-- the dQ and dK/dV kernels (``csrc/flash_bwd_sm90.cu``, helpers in
-  ``csrc/sm90_common.cuh``) run every product on wgmma: a producer
-  warpgroup streams 128-byte swizzled tiles in by TMA through an mbarrier
-  ring, two consumer warpgroups of 64 rows each keep P and dS in registers
-  as the A operand of the gradient products. No atomics: the gradients are
-  bitwise the same from run to run.
+- the forward, dQ and dK/dV kernels (``csrc/flash_fwd_sm90.cu``,
+  ``csrc/flash_bwd_sm90.cu``, helpers in ``csrc/sm90_common.cuh``) run
+  every product on wgmma: a producer warpgroup streams 128-byte swizzled
+  tiles in by TMA through an mbarrier ring, two consumer warpgroups of 64
+  rows each keep P (and dS) in registers as the A operand of the next
+  product. No atomics: outputs are bitwise the same from run to run;
+- the forward writes L beside O, so the autograd function hands L to the
+  backward and the LSE kernel (``csrc/flash_attention.cu``, still on
+  ``mma.sync``) runs only when ``flash_attention_bwd`` is given no L.
 
 The design of each is at the top of its CUDA source.
 """
@@ -76,14 +79,20 @@ def _norm_rope(x: torch.Tensor, cos2: torch.Tensor, sin2: torch.Tensor,
     return xn * cos2 + torch.roll(xn, x.shape[-1] // 2, dims=-1) * sin2
 
 
-def _reference_folded(q, k, v, cos_q, sin_q, cos_k, sin_k, kv_len: int,
-                      eps: float) -> torch.Tensor:
+def _prep_reference(q, k, cos_q, sin_q, cos_k, sin_k, eps: float, dtype):
+    """q' (times log2(e)/sqrt(D)) and k', normed and roped in fp32 and
+    rounded to `dtype`, as (B, H, S, D)."""
     d = q.shape[-1]
     # (B, S, H, D) -> (B, H, S, D)
-    qf = q.float().transpose(1, 2)
-    kf = k.float().transpose(1, 2)
-    qn = (_norm_rope(qf, cos_q, sin_q, eps) * (LOG2_E / math.sqrt(d))).to(v.dtype)
-    kn = _norm_rope(kf, cos_k, sin_k, eps).to(v.dtype)
+    qn = (_norm_rope(q.float().transpose(1, 2), cos_q, sin_q, eps)
+          * (LOG2_E / math.sqrt(d))).to(dtype)
+    kn = _norm_rope(k.float().transpose(1, 2), cos_k, sin_k, eps).to(dtype)
+    return qn, kn
+
+
+def _reference_folded(q, k, v, cos_q, sin_q, cos_k, sin_k, kv_len: int,
+                      eps: float) -> torch.Tensor:
+    qn, kn = _prep_reference(q, k, cos_q, sin_q, cos_k, sin_k, eps, v.dtype)
     s = torch.matmul(qn.float(), kn.float().transpose(-1, -2))   # log2 units
     if kv_len < k.shape[1]:
         col = torch.arange(k.shape[1], device=q.device)
@@ -130,28 +139,36 @@ def _check_bshd(name: str, x: torch.Tensor, shape, d: int, align: int) -> None:
         raise ValueError(f"{name} must be {2 * align}-byte aligned")
 
 
-def launch_folded(q, k, v, cos_q, sin_q, cos_k, sin_k, *, kv_len: int,
-                  eps: float = 1e-6) -> torch.Tensor:
-    """Launch the CUDA kernel on already-folded tables (see fold_tables): a
-    norm+rope pass into bf16 scratch, then the attention pass, on the
-    current stream, without synchronising. Validates every argument and
-    raises on what the kernel does not take."""
-    from textflux_torch.ops.cuda_build import load_library
-
+def _check_folded(q, k, v, cos_q, sin_q, cos_k, sin_k) -> None:
+    """What the fused kernel's launches take: q, k read in 4-byte pieces by
+    the prep, v (when given) read by TMA in 16-byte pieces, fp32 tables."""
     b, s, h, d = q.shape
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"the CUDA kernel supports head_dim in {SUPPORTED_HEAD_DIMS}, got {d}")
     for name, x, align in (("q", q, 2), ("k", k, 2), ("v", v, 8)):
-        _check_bshd(name, x, (b, s, h, d), d, align)
+        if x is not None:
+            _check_bshd(name, x, (b, s, h, d), d, align)
     for name, t in (("cos_q", cos_q), ("sin_q", sin_q), ("cos_k", cos_k), ("sin_k", sin_k)):
         if (t.device != q.device or t.dtype != torch.float32
                 or tuple(t.shape) != (s, d) or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 ({s}, {d}) tensor "
                              f"on {q.device}")
+    if k.device != q.device or (v is not None and v.device != q.device):
+        raise ValueError("q, k and v must be on one device")
+
+
+def launch_folded(q, k, v, cos_q, sin_q, cos_k, sin_k, *, kv_len: int,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Launch the CUDA kernel on already-folded tables (see fold_tables): a
+    norm+rope pass into bf16 scratch, then the attention mainloop, on the
+    current stream, without synchronising. Validates every argument and
+    raises on what the kernel does not take."""
+    from textflux_torch.ops.cuda_build import load_library
+
+    b, s, h, d = q.shape
+    _check_folded(q, k, v, cos_q, sin_q, cos_k, sin_k)
     if not 1 <= kv_len <= s:
         raise ValueError(f"kv_len must be in [1, {s}], got {kv_len}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k and v must be on one device")
     # scratch for the normed, roped q'/k' rows, and the output
     qn, kn, out = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
                    for _ in range(3))
@@ -168,6 +185,31 @@ def launch_folded(q, k, v, cos_q, sin_q, cos_k, sin_k, *, kv_len: int,
         raise RuntimeError(f"fused attention kernel launch failed: CUDA error {err}")
     flash_attention_qk_norm_rope.launches += 1
     return out
+
+
+def norm_rope_prep(q, k, cos_q, sin_q, cos_k, sin_k, *, eps: float = 1e-6):
+    """The fused kernel's first pass alone, on folded tables: (q', k') as
+    (B, S, H, D) in q's dtype, q' times log2(e)/sqrt(D). On the serving path
+    ``launch_folded`` runs this pass inside its one call; this entry exists
+    so that the pass can be timed and checked on its own, and counts no
+    launch. CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        qn, kn = _prep_reference(q, k, cos_q, sin_q, cos_k, sin_k, eps, q.dtype)
+        return qn.transpose(1, 2).contiguous(), kn.transpose(1, 2).contiguous()
+    from textflux_torch.ops.cuda_build import load_library
+
+    b, s, h, d = q.shape
+    _check_folded(q, k, None, cos_q, sin_q, cos_k, sin_k)
+    qn, kn = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(2))
+    with torch.cuda.device(q.device):
+        err = load_library().textflux_norm_rope_prep(
+            q.data_ptr(), k.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(), cos_k.data_ptr(),
+            sin_k.data_ptr(), qn.data_ptr(), kn.data_ptr(), b, s, h, d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), float(eps),
+            LOG2_E / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"norm+rope prep launch failed: CUDA error {err}")
+    return qn, kn
 
 
 def flash_attention_qk_norm_rope(
@@ -332,23 +374,41 @@ def _strides(*xs) -> tuple:
     return tuple(s for x in xs for s in (x.stride(0), x.stride(1)))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    *, kv_len: Optional[int] = None) -> torch.Tensor:
-    """Softmax attention over BSHD q/k/v (keys >= kv_len masked), output in
-    q's dtype. CUDA tensors launch the forward kernel (counted in
-    ``flash_attention.launches``); CPU tensors run the plain version."""
+def _forward(q, k, v, kv_len: Optional[int], with_lse: bool):
     b, s, h, d = q.shape
     kv_len = _check_kv_len(kv_len, s)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, kv_len=kv_len)
+        o = flash_attention_reference(q, k, v, kv_len=kv_len)
+        return o, (flash_attention_lse_reference(q, k, kv_len=kv_len) if with_lse else None)
     _check_inputs((("q", q), ("k", k), ("v", v)), q.shape)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
         _launch("textflux_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, h, d, kv_len, *_strides(q, k, v), LOG2_E / math.sqrt(d),
+                None if lse is None else lse.data_ptr(), b, s, h, d, kv_len,
+                *_strides(q, k, v), LOG2_E / math.sqrt(d),
                 torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, kv_len: Optional[int] = None):
+    """(O, L): softmax attention over BSHD q/k/v (keys >= kv_len masked),
+    O in q's dtype, and the natural-log row log-sum-exp L of the scaled,
+    masked scores, fp32 (B, H, S), which the backward takes. CUDA tensors
+    launch the forward kernel once, writing both (counted in
+    ``flash_attention.launches``); CPU tensors run the plain forward and
+    the plain LSE."""
+    return _forward(q, k, v, kv_len, with_lse=True)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    *, kv_len: Optional[int] = None) -> torch.Tensor:
+    """Softmax attention over BSHD q/k/v (keys >= kv_len masked), output in
+    q's dtype. CUDA tensors launch the forward kernel without L (counted in
+    ``flash_attention.launches``); CPU tensors run the plain version."""
+    return _forward(q, k, v, kv_len, with_lse=False)[0]
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
@@ -411,13 +471,15 @@ def flash_attention_dkv(q, k, v, do, lse, dvec, *, kv_len: Optional[int] = None)
     return dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, do, *, kv_len: Optional[int] = None):
+def flash_attention_bwd(q, k, v, o, do, *, kv_len: Optional[int] = None, lse=None):
     """(dq, dk, dv) of softmax attention, as the JAX package's
-    ``flash_attention_bwd`` computes them: the LSE pass, Dvec = rowsum(dO o O)
-    in plain torch, then the dQ pass and the dK/dV pass. `o` is the forward
-    output (the JAX version recomputes it). On CUDA tensors the three passes
-    are kernels; on CPU tensors, their plain versions."""
-    lse = flash_attention_lse(q, k, kv_len=kv_len)
+    ``flash_attention_bwd`` computes them: L (the LSE pass, unless the
+    forward's L is given), Dvec = rowsum(dO o O) in plain torch, then the dQ
+    pass and the dK/dV pass. `o` is the forward output (the JAX version
+    recomputes it). On CUDA tensors the passes are kernels; on CPU tensors,
+    their plain versions."""
+    if lse is None:
+        lse = flash_attention_lse(q, k, kv_len=kv_len)
     dvec = attention_dvec(o, do)
     dq = flash_attention_dq(q, k, v, do, lse, dvec, kv_len=kv_len)
     dk, dv = flash_attention_dkv(q, k, v, do, lse, dvec, kv_len=kv_len)
