@@ -21,7 +21,21 @@ Phases, in order; any failure exits non-zero:
      seed, then 3 LoRA optimizer steps (rank 128) through
      textflux_torch.cli.train.train_lora on one 1024-px sample composed
      from resource/example, with the flash kernels' launch counts per step,
-     the factors' movement and the frozen base checked.
+     the factors' movement and the frozen base checked;
+  7. checkpoint: a full-size checkpoint in the diffusers layout written to
+     build/checkpoint_smoke/ (the seed-0 DiT through the port's exporter in
+     3 shards; VAE, CLIP-L and T5-XXL at every key and full shape of
+     tests/golden/checkpoint_manifest.json with random bf16 values; a
+     rank-128 LoRA over the manifest's 684 LoRA keys), then served through
+     textflux_torch.cli.run_inference.main: without the LoRA (every DiT
+     parameter and the image held against the in-memory model's), with it
+     (three folded row blocks held against scale*(alpha/r)*B@A), then
+     generate_batch (B=2, padded) against the single-item call, and the
+     tiled VAE at 1536x1536 against the untiled one. Load seconds, GB/s and
+     peak device memory by component; the checkpoint is removed at the end.
+     The card has no tokenizer files (and no transformers package): the
+     phase patches textflux_torch.pipeline.tokenizers.load_tokenizers with
+     the byte stand-ins below, and says so.
 Phase 3 also holds the four training kernels (flash forward, LSE, dQ,
 dK/dV) against their plain versions, the L that the forward writes against
 the plain LSE, and the fused kernel's norm+rope pass (timed alone) against
@@ -52,7 +66,7 @@ EXAMPLE = os.path.join(REPO, "resource", "example")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BF16_TOL = 2e-2              # unit-scale inputs, bf16 rounding of q/k/p/out
-PHASES = ("device", "build", "kernels", "main", "profile", "train")
+PHASES = ("device", "build", "kernels", "main", "profile", "train", "checkpoint")
 
 
 def log(msg: str) -> None:
@@ -755,8 +769,430 @@ def phase_train(profile: bool = False) -> dict:
     return rec
 
 
-def _fused_entry(kernel_rows, main_rec, build_rec) -> dict:
+# ---------------------------------------------------------------------------
+# 7. checkpoint: write a full-size checkpoint, serve it through main()
+# ---------------------------------------------------------------------------
+
+CKPT_DIR = os.path.join(REPO, "build", "checkpoint_smoke")   # build/ is git-ignored
+MANIFEST = os.path.join(REPO, "tests", "golden", "checkpoint_manifest.json")
+LORA_RANK, LORA_ALPHA, LORA_SCALE = 128, 64.0, 1.0
+# the stock FLUX.1-Fill-dev configs of the three components written from the manifest
+HF_CONFIGS = {
+    "vae": {"_class_name": "AutoencoderKL", "in_channels": 3, "out_channels": 3,
+            "block_out_channels": [128, 256, 512, 512], "layers_per_block": 2,
+            "latent_channels": 16, "norm_num_groups": 32, "scaling_factor": 0.3611,
+            "shift_factor": 0.1159, "use_quant_conv": False, "use_post_quant_conv": False},
+    "text_encoder": {"architectures": ["CLIPTextModel"], "vocab_size": 49408,
+                     "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+                     "intermediate_size": 3072, "max_position_embeddings": 77,
+                     "layer_norm_eps": 1e-5, "hidden_act": "quick_gelu", "eos_token_id": 2},
+    "text_encoder_2": {"architectures": ["T5EncoderModel"], "vocab_size": 32128,
+                       "d_model": 4096, "d_kv": 64, "d_ff": 10240, "num_layers": 24,
+                       "num_heads": 64, "relative_attention_num_buckets": 32,
+                       "relative_attention_max_distance": 128,
+                       "feed_forward_proj": "gated-gelu"},
+}
+COMPONENTS = {"vae": "vae", "text_encoder": "clip", "text_encoder_2": "t5"}
+# generate_batch's sample 0 against the single-item call at its seed, in
+# uint8 levels (mean and largest |difference|): the kernels are the same,
+# cuBLAS may pick other GEMM kernels for twice the rows
+BATCH_MEAN_TOL, BATCH_MAX_TOL = 2.0, 32
+
+
+def _free_bytes(path: str) -> tuple:
+    import shutil
+
+    with open("/proc/meminfo") as f:
+        mem = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+    return shutil.disk_usage(path).free, mem.get("MemAvailable", 0)
+
+
+def manifest_tensors(shapes: dict, gen, dtype=torch.bfloat16) -> dict:
+    """Random tensors on the card for every key of a manifest component:
+    weights uniform in +-1/sqrt(fan_in), 1-D weights (norms) ones, biases
+    zero; T5's tied embed_tokens is the same tensor as shared."""
+    out = {}
+    for key, shape in shapes.items():
+        if key == "encoder.embed_tokens.weight":
+            continue
+        if key.endswith(".bias"):
+            out[key] = torch.zeros(shape, device="cuda", dtype=dtype)
+        elif len(shape) == 1:
+            out[key] = torch.ones(shape, device="cuda", dtype=dtype)
+        else:
+            bound = 1.0 / float(np.sqrt(np.prod(shape[1:])))
+            x = torch.rand(shape, generator=gen, device="cuda", dtype=torch.float32)
+            out[key] = ((2 * x - 1) * bound).to(dtype)
+    if "encoder.embed_tokens.weight" in shapes:
+        out["encoder.embed_tokens.weight"] = out["shared.weight"]
+    return out
+
+
+def lora_tensors(shapes: dict, gen) -> dict:
+    """A peft LoRA over every manifest LoRA key: fp32 A (r, in) and B
+    (out, r), both nonzero, and an alpha per module."""
+    out = {}
+    for key, shape in shapes.items():
+        x = torch.rand(shape, generator=gen, device="cuda", dtype=torch.float32)
+        out[key] = (2 * x - 1) / float(np.sqrt(shape[1]))
+        if key.endswith("lora_A.weight"):
+            out[key[: -len("lora_A.weight")] + "alpha"] = torch.tensor(LORA_ALPHA)
+    return out
+
+
+def param_checksum(p: torch.Tensor) -> int:
+    """A position-weighted sum of a parameter's float32 bit patterns (int64,
+    wrapping): equal values in equal places give equal sums, whatever the
+    stored dtype."""
+    bits = p.detach().float().reshape(-1).view(torch.int32).to(torch.int64)
+    weight = torch.arange(bits.numel(), device=p.device) % 1021 + 1
+    return int((bits * weight).sum().item())
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _models_bytes(pipe) -> int:
+    return sum(p.numel() * p.element_size() for m in (pipe.flux, pipe.vae, pipe.clip, pipe.t5)
+               if m is not None for p in m.parameters())
+
+
+class _Recorder:
+    """Wraps FillPipeline.from_pretrained for the runs of main(): resets the
+    device's peak before the load and reads it after (the peak of loading
+    alone, before any activation), and keeps the pipeline."""
+
+    def __init__(self):
+        from textflux_torch.pipeline.fill import FillPipeline
+
+        self.cls, self.orig = FillPipeline, FillPipeline.__dict__["from_pretrained"]
+        self.pipe, self.rec = None, {}
+
+    def __enter__(self):
+        orig = self.orig.__func__
+
+        def wrapped(cls, *a, **kw):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            pipe = orig(cls, *a, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            self.pipe = pipe
+            self.rec = dict(load=pipe.load_stats, load_peak_bytes=peak,
+                            models_bytes=_models_bytes(pipe))
+            return pipe
+
+        self.cls.from_pretrained = classmethod(wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.from_pretrained = self.orig
+
+
+def _run_main(argv, recorder, steps, expected_per_step):
+    import resource
+
+    from textflux_torch.cli.run_inference import main as cli_main
+    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
+
+    torch.cuda.synchronize()
+    flash_attention_qk_norm_rope.launches = 0
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    rec = dict(recorder.rec, seconds=time.perf_counter() - t0, steps=steps,
+               launches=flash_attention_qk_norm_rope.launches,
+               expected_launches=expected_per_step * steps,
+               ru_maxrss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+    rec["load_gb_per_s"] = {k: v["bytes"] / v["seconds"] / 1e9 for k, v in rec["load"].items()}
+    return rec
+
+
+def phase_checkpoint() -> dict:
+    import gc
+    import shutil
+    from functools import partial
+
+    from PIL import Image
+
+    import textflux_torch.pipeline.tokenizers as TK
+    from textflux_torch.cli.run_inference import render_conditioning, run
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.io.config_io import (clip_config_from, t5_config_from,
+                                             vae_config_from)
+    from textflux_torch.io.export import save_transformer_checkpoint
+    from textflux_torch.io.params import load_checkpoint_dir
+    from textflux_torch.io.safetensors import SafetensorsFile, save_file
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.models.vae import (vae_decode, vae_decode_tiled, vae_encode,
+                                           vae_encode_tiled)
+    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
+    from textflux_torch.ops.rope import half_permutation
+    from textflux_torch.pipeline.fill import FillPipeline
+    from textflux_torch.pipeline.prompts import read_words
+    from textflux_torch.rendering import load_font
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(MANIFEST) as f:
+        manifest = json.load(f)
+    flux_cfg = flux_fill_config()
+    per_step = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    dit_bytes = 2 * sum(int(np.prod(s)) for s in manifest["transformer"].values())
+    parts_bytes = {c: 2 * sum(int(np.prod(s)) for s in manifest[c].values())
+                   for c in ("vae", "clip", "t5")}
+    lora_bytes = 4 * sum(int(np.prod(s)) for s in manifest["lora"].values())
+    needed = dit_bytes + sum(parts_bytes.values()) + lora_bytes
+    os.makedirs(os.path.dirname(CKPT_DIR), exist_ok=True)
+    disk_free, mem_free = _free_bytes(os.path.dirname(CKPT_DIR))
+    log(f"checkpoint: needs {needed} bytes on disk (DiT {dit_bytes}, {parts_bytes}, "
+        f"LoRA {lora_bytes}); disk free {disk_free}, host MemAvailable {mem_free}")
+    if disk_free < needed * 1.02:
+        raise AssertionError(f"checkpoint phase needs {needed} bytes of disk under "
+                             f"{os.path.dirname(CKPT_DIR)}, {disk_free} are free")
+    log("checkpoint: textflux_torch.pipeline.tokenizers.load_tokenizers is patched with the "
+        "byte tokenizer stand-ins (no tokenizer files in the repo, no transformers on the card)")
+    orig_tokenizers = TK.load_tokenizers
+    TK.load_tokenizers = lambda base, max_clip_length=77, max_t5_length=512: (
+        partial(clip_byte_tokenize, length=max_clip_length),
+        partial(t5_byte_tokenize, length=max_t5_length))
+    paths = (os.path.join(EXAMPLE, "ori", "ori_0001.png"),
+             os.path.join(EXAMPLE, "mask", "mask_0001.png"),
+             os.path.join(EXAMPLE, "txt", "words_0001.txt"))
+    stages, problems, out = {}, [], {}
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        # 1. write the checkpoint
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        flux = FluxTransformer(flux_cfg, device="cuda", dtype=torch.bfloat16, generator=gen)
+        torch.cuda.synchronize()
+        stages["dit_init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        written = {"transformer": save_transformer_checkpoint(
+            flux, os.path.join(CKPT_DIR, "transformer"), shards=3)}
+        stages["write_transformer_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for sub, comp in COMPONENTS.items():
+            tensors = manifest_tensors(manifest[comp], gen)
+            written[comp] = save_file(tensors, os.path.join(CKPT_DIR, sub, "model.safetensors"))
+            with open(os.path.join(CKPT_DIR, sub, "config.json"), "w") as f:
+                json.dump(HF_CONFIGS[sub], f, indent=2)
+            del tensors
+        lora_path = os.path.join(CKPT_DIR, "lora", "pytorch_lora_weights.safetensors")
+        tensors = lora_tensors(manifest["lora"], gen)
+        written["lora"] = save_file(tensors, lora_path)
+        del tensors
+        torch.cuda.empty_cache()
+        stages["write_parts_s"] = time.perf_counter() - t0
+        out["written_bytes"] = written
+        log("checkpoint written " + json.dumps(dict(
+            bytes=written, seconds={k: stages[k] for k in ("write_transformer_s",
+                                                          "write_parts_s")},
+            files=sorted(os.path.relpath(os.path.join(d, f), CKPT_DIR)
+                         for d, _, fs in os.walk(CKPT_DIR) for f in fs))))
+
+        # 2. the reference: the in-memory DiT, the rest loaded from the files
+        t0 = time.perf_counter()
+        parts = {}
+        for sub, comp in COMPONENTS.items():
+            path = os.path.join(CKPT_DIR, sub)
+            cfg_from = {"vae": vae_config_from, "clip": clip_config_from,
+                        "t5": t5_config_from}[comp]
+            parts[comp] = load_checkpoint_dir(path, cfg_from(path), device="cuda")
+        ref_pipe = FillPipeline(flux=flux, **parts, clip_tokenize=clip_byte_tokenize,
+                                t5_tokenize=t5_byte_tokenize, device="cuda")
+        ref_img = run(ref_pipe, *paths, steps=2, seed=0, sampler="euler")[0]
+        # the pipeline half-permuted the DiT in place; main()'s is permuted too
+        ref_sums = {k: param_checksum(p) for k, p in flux.named_parameters()}
+        del ref_pipe, parts, flux
+        gc.collect()
+        torch.cuda.empty_cache()
+        stages["reference_s"] = time.perf_counter() - t0
+
+        # 3. main() without the LoRA
+        outdir = os.path.join(CKPT_DIR, "out")
+        argv = ["--model", CKPT_DIR, "--image", paths[0], "--mask", paths[1],
+                "--words", paths[2], "--seed", "0", "--output-dir", outdir]
+        with _Recorder() as recorder:
+            rec = _run_main(argv + ["--steps", "2"], recorder, 2, per_step)
+        pipe = recorder.pipe
+        sums = {k: param_checksum(p) for k, p in pipe.flux.named_parameters()}
+        rec["params_checked"] = len(sums)
+        rec["params_differing"] = sorted(k for k in ref_sums if sums.get(k) != ref_sums[k])
+        img = np.asarray(Image.open(os.path.join(outdir, "result_0001.png")), np.int32)
+        rec["image_max_abs_diff_vs_reference"] = int(np.abs(img - np.asarray(ref_img,
+                                                                             np.int32)).max())
+        rec["image"] = _image_stats(Image.open(os.path.join(outdir, "result_0001.png")))
+        log("checkpoint main " + json.dumps(rec))
+        out["main"] = rec
+        if rec["params_differing"] or len(sums) != len(ref_sums):
+            problems.append(f"loaded DiT differs from the written one in "
+                            f"{rec['params_differing'][:5]}")
+        if rec["image_max_abs_diff_vs_reference"] != 0:
+            problems.append("main() image differs from the in-memory reference by "
+                            f"{rec['image_max_abs_diff_vs_reference']}")
+        del pipe, recorder
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. main() with the LoRA folded in
+        with _Recorder() as recorder:
+            rec = _run_main(argv + ["--steps", "4", "--lora", os.path.dirname(lora_path)],
+                            recorder, 4, per_step)
+        pipe = recorder.pipe
+        d = flux_cfg.hidden_dim
+        per_head = np.concatenate([h * flux_cfg.head_dim + half_permutation(flux_cfg.head_dim)
+                                   for h in range(flux_cfg.num_heads)])
+        targets = [  # (label, loaded rows, diffusers module, permuted rows)
+            ("double_blocks.0.img_qkv[to_q]", pipe.flux.double_blocks[0].img_qkv.weight[:d],
+             "transformer_blocks.0.attn.to_q", per_head),
+            ("single_blocks.37.linear1[to_v]",
+             pipe.flux.single_blocks[37].linear1.weight[2 * d:3 * d],
+             "single_transformer_blocks.37.attn.to_v", None),
+            ("double_blocks.18.txt_mlp.fc2", pipe.flux.double_blocks[18].txt_mlp.fc2.weight,
+             "transformer_blocks.18.ff_context.net.2", None)]
+        shards = [SafetensorsFile(os.path.join(CKPT_DIR, "transformer", f)) for f in
+                  sorted(os.listdir(os.path.join(CKPT_DIR, "transformer")))
+                  if f.endswith(".safetensors")]
+        lora_file = SafetensorsFile(lora_path)
+        fold = {}
+        prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for label, loaded, mod, rows in targets:
+            base = next(s for s in shards if f"{mod}.weight" in s.keys()).get_tensor(
+                f"{mod}.weight").cuda().float()
+            a = lora_file.get_tensor(f"transformer.{mod}.lora_A.weight").cuda()
+            b = lora_file.get_tensor(f"transformer.{mod}.lora_B.weight").cuda()
+            alpha = float(lora_file.get_tensor(f"transformer.{mod}.alpha"))
+            delta = LORA_SCALE * (alpha / a.shape[0]) * (b @ a)
+            if rows is not None:
+                idx = torch.as_tensor(rows, device="cuda")
+                base, delta = base[idx], delta[idx]
+            err = ((loaded.float() - base) - delta).abs()
+            ulp = _bf16_ulp(loaded)
+            fold[label] = dict(max_abs_err=err.max().item(), max_err_in_ulps=(err / ulp).max().item(),
+                               max_abs_delta=delta.abs().max().item())
+            if bool((err > ulp).any()):
+                problems.append(f"LoRA fold of {label} is off by more than one bf16 ulp")
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        del shards, lora_file
+        rec["fold_check"] = fold
+        img = Image.open(os.path.join(outdir, "result_0002.png"))
+        rec["image"] = _image_stats(img)
+        log("checkpoint main+lora " + json.dumps(rec))
+        out["main_lora"] = rec
+        for key in ("main", "main_lora"):
+            r = out[key]
+            if r["launches"] != r["expected_launches"]:
+                problems.append(f"{key}: fused kernel launched {r['launches']} times, "
+                                f"expected {r['expected_launches']}")
+            if not r["image"]["finite"] or r["image"]["std"] <= 0:
+                problems.append(f"{key}: image not finite/non-constant {r['image']}")
+            # loading holds no full-size transient copy on the device
+            if r["load_peak_bytes"] > r["models_bytes"] + 2 ** 30:
+                problems.append(f"{key}: load peak {r['load_peak_bytes']} > models "
+                                f"{r['models_bytes']} + 1 GiB")
+
+        # 5. generate_batch: B=2, padded (kv_len), against the single-item call
+        original = Image.open(paths[0]).convert("RGB")
+        mask = Image.open(paths[1]).convert("RGB")
+        words = [read_words(paths[2]), ["TEXTFLUX"]]
+        canvases = [render_conditioning(original, mask, w, load_font(size=60))[:2]
+                    for w in words]
+        hw = dict(height=432, width=512)   # 27 x 32 = 864 image tokens, padded to 896
+        t0 = time.perf_counter()
+        flash_attention_qk_norm_rope.launches = 0
+        batch = pipe.generate_batch([c[0] for c in canvases], [c[1] for c in canvases], words,
+                                    num_inference_steps=2, seeds=[0, 1], seq_pad_multiple=64,
+                                    **hw)
+        torch.cuda.synchronize()
+        batch_launches = flash_attention_qk_norm_rope.launches
+        batch_s = time.perf_counter() - t0
+        joint = pipe.last_joint_seq
+        flash_attention_qk_norm_rope.launches = 0
+        single = pipe(image=canvases[0][0], mask_image=canvases[0][1], words=words[0],
+                      num_inference_steps=2, seed=0, seq_pad_multiple=64, **hw)[0]
+        single_launches = flash_attention_qk_norm_rope.launches
+        b0, b1, s0 = (np.asarray(x, np.int32) for x in (batch[0], batch[1], single))
+        rec = dict(batch=2, steps=2, joint_seq=joint, kv_len=512 + 864, seconds=batch_s,
+                   launches=batch_launches, single_launches=single_launches,
+                   expected_launches=per_step * 2,
+                   sample0_vs_single_max_abs_diff=int(np.abs(b0 - s0).max()),
+                   sample0_vs_single_mean_abs_diff=float(np.abs(b0 - s0).mean()),
+                   sample0_vs_sample1_mean_abs_diff=float(np.abs(b0 - b1).mean()),
+                   images=[_image_stats(x) for x in batch])
+        log("checkpoint generate_batch " + json.dumps(rec))
+        out["generate_batch"] = rec
+        if batch_launches != per_step * 2 or single_launches != per_step * 2:
+            problems.append(f"generate_batch launches {batch_launches}/{single_launches}, "
+                            f"expected {per_step * 2}")
+        if joint != 512 + 896:
+            problems.append(f"generate_batch ran a joint sequence of {joint}, expected 1408")
+        if (rec["sample0_vs_single_mean_abs_diff"] > BATCH_MEAN_TOL
+                or rec["sample0_vs_single_max_abs_diff"] > BATCH_MAX_TOL):
+            problems.append(f"batched sample 0 is {rec['sample0_vs_single_mean_abs_diff']} "
+                            f"(mean) / {rec['sample0_vs_single_max_abs_diff']} (largest) from "
+                            f"the single-item call, over {BATCH_MEAN_TOL} / {BATCH_MAX_TOL}")
+        if rec["sample0_vs_sample1_mean_abs_diff"] <= 1.0:
+            problems.append("the two batched samples are the same image")
+        if not all(st["finite"] and st["std"] > 0 for st in rec["images"]):
+            problems.append("generate_batch image not finite/non-constant")
+
+        # 6. tiled VAE at 1536 x 1536, full width, against the untiled pass
+        big = original.resize((1536, 1536))
+        x = torch.as_tensor(np.asarray(big, np.float32) / 127.5 - 1.0,
+                            device="cuda")[None].to(torch.bfloat16)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            z_tiled = vae_encode_tiled(pipe.vae, x, tile=128)
+            dec_tiled = vae_decode_tiled(pipe.vae, z_tiled, tile=128)
+            torch.cuda.synchronize()
+            tiled_s = time.perf_counter() - t0
+            z_full = vae_encode(pipe.vae, x)
+            dec_full = vae_decode(pipe.vae, z_tiled)
+        torch.cuda.synchronize()
+        rec = dict(canvas=[1536, 1536], latent=list(z_tiled.shape), tile=128, overlap=16,
+                   tiled_s=tiled_s,
+                   finite=bool(torch.isfinite(z_tiled).all() and torch.isfinite(dec_tiled).all()),
+                   encode_max_abs_diff_vs_untiled=(z_tiled.float() - z_full.float()).abs().max().item(),
+                   decode_max_abs_diff_vs_untiled=(dec_tiled.float() - dec_full.float()).abs().max().item(),
+                   encode_latent_max_abs=z_full.float().abs().max().item())
+        log("checkpoint tiled_vae " + json.dumps(rec))
+        out["tiled_vae"] = rec
+        if not rec["finite"]:
+            problems.append("tiled VAE output is not finite")
+        del pipe, x, z_tiled, dec_tiled, z_full, dec_full
+    finally:
+        TK.load_tokenizers = orig_tokenizers
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["stages"] = stages
+    log("checkpoint stages " + json.dumps(stages))
+    if problems:
+        raise AssertionError("checkpoint phase: " + "; ".join(problems))
+    return out
+
+
+def _ckpt_launches(ckpt_rec) -> dict:
+    if not ckpt_rec:
+        return {}
+    g = ckpt_rec["generate_batch"]
+    return {"checkpoint_main": ckpt_rec["main"]["launches"],
+            "checkpoint_main_lora": ckpt_rec["main_lora"]["launches"],
+            "checkpoint_generate_batch": g["launches"],
+            "checkpoint_single_item": g["single_launches"]}
+
+
+def _fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec=None) -> dict:
     serving = next((r for r in kernel_rows if r["case"] == "serving"), None)
+    by_run = {k: v["launches"] for k, v in main_rec["runs"].items()} if main_rec else {}
+    by_run.update(_ckpt_launches(ckpt_rec))
     entry = dict(
         name="flash_attention_qk_norm_rope", route="cuda",
         source="textflux_torch/csrc/fused_attention.cu",
@@ -765,10 +1201,8 @@ def _fused_entry(kernel_rows, main_rec, build_rec) -> dict:
         build={k: v for k, v in build_rec.get("kernels", {}).items()
                if k.startswith(("norm_rope_kernel", "flash_fwd_sm90_kernel"))},
         replaces="textflux_tpu/ops/flash_attention.py:577",
-        launches=(sum(r["launches"] for r in main_rec["runs"].values())
-                  if main_rec else None),
-        launches_by_run=({k: v["launches"] for k, v in main_rec["runs"].items()}
-                         if main_rec else None),
+        launches=sum(by_run.values()) if by_run else None,
+        launches_by_run=by_run or None,
     )
     if serving:
         entry.update(max_abs_err=max(r["max_err"] for r in kernel_rows), tol=BF16_TOL,
@@ -840,14 +1274,15 @@ def main() -> int:
     phases = args.phases.split(",")
     dev = phase_device()
     build_rec = {}
-    if {"build", "kernels", "main", "train"} & set(phases):
+    if {"build", "kernels", "main", "train", "checkpoint"} & set(phases):
         build_rec = phase_build()
     kernel_rows = phase_kernels() if "kernels" in phases else []
     flash_rows = phase_flash_kernels() if "kernels" in phases else {}
     main_rec = phase_main("profile" in phases) if "main" in phases else None
     train_rec = phase_train("profile" in phases) if "train" in phases else None
+    ckpt_rec = phase_checkpoint() if "checkpoint" in phases else None
 
-    kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec)]
+    kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec)]
     kernel_entries += _flash_entries(flash_rows, train_rec, build_rec)
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)

@@ -1,6 +1,8 @@
 """The port stands alone: importing textflux_torch and every submodule pulls
-in neither JAX nor the JAX package, and no port source (nor chip_smoke.py
-or the port's tools/) imports either."""
+in neither JAX nor the JAX package, nor the safetensors and transformers
+packages (the port reads and writes safetensors itself and imports
+transformers only inside load_tokenizers), and no port source (nor
+chip_smoke.py or the port's tools/) imports JAX or the JAX package."""
 
 import os
 import re
@@ -15,8 +17,13 @@ import textflux_torch
 names = [m.name for m in pkgutil.walk_packages(textflux_torch.__path__, "textflux_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("textflux_torch.io.params", "textflux_torch.io.lora", "textflux_torch.io.export",
+             "textflux_torch.io.safetensors", "textflux_torch.pipeline.tokenizers",
+             "textflux_torch.cli.run_inference"):
+    assert name in names, name
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "textflux_tpu")))
+             if m in ("jax", "safetensors", "transformers")
+             or m.startswith(("jax.", "jaxlib", "textflux_tpu", "safetensors.", "transformers.")))
 print(len(names), bad)
 assert not bad, bad
 """

@@ -1,14 +1,27 @@
-"""Single-image inference: render the glyph conditioning, fill, crop, save.
+"""Single-image inference CLI: render the glyph conditioning, fill, crop, save.
 
-The port of ``textflux_tpu/cli/run_inference.py`` (``render_conditioning``,
-``run``, ``save_results``). Auto-detects single-line (glyph strip stacked
-above) vs multi-line (per-region rotated glyphs) conditioning from the word
-list and mirrors the reference's //32 snap. The command-line ``main()`` needs
-checkpoint loading, which the port does not have yet.
+The port of ``textflux_tpu/cli/run_inference.py``:
+
+  python -m textflux_torch.cli.run_inference \
+      --model /path/to/FLUX.1-Fill-dev \
+      --transformer /path/to/textflux-beta/transformer \
+      --image ori.png --mask mask.png --words words.txt \
+      [--lora path] [--steps 30] [--guidance-scale 30] [--seed 42]
+      [--scheduler default|overshoot] [--staged-text] [--output-dir outputs]
+      [--device cuda|cpu]
+
+Loads a diffusers-layout checkpoint onto the device (a LoRA folded in at
+load), auto-detects single-line (glyph strip stacked above) vs multi-line
+(per-region rotated glyphs) conditioning from the word file, mirrors the
+reference's //32 snap and saves the same artifact set (full result, crop,
+mask, ori, rendered, txt). Runs on CUDA unless ``--device cpu`` is asked.
+The quantize flags are parsed as the JAX CLI parses them but fail: quantised
+serving is not ported yet (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import shutil
 
@@ -67,12 +80,20 @@ def run(pipe, image_path, mask_path, words_path, *, steps=30, guidance_scale=30.
     combined_mask = combined_mask.resize((new_w, new_h))
 
     prompt, prompt_2 = build_prompts(words)
+    text_embeds = None
+    if pipe.flux is None and hasattr(pipe, "_deferred_flux"):
+        # staged residency: encode now, free the encoders, then load the
+        # DiT, so the T5 encoder and the DiT never share the device
+        text_embeds = pipe.encode_prompts(prompt, prompt_2)
+        pipe.release_text_encoders()
+        pipe.load_transformer()
     result = pipe(
         image=combined, mask_image=combined_mask,
         prompt=prompt, prompt_2=prompt_2,
         height=new_h, width=new_w,
         num_inference_steps=steps, guidance_scale=guidance_scale,
         seed=seed, sampler=sampler, overshoot_c=overshoot_c,
+        text_embeds=text_embeds,
     )[0]
     return result, crop_fn(result), rendered, original, mask
 
@@ -92,3 +113,67 @@ def save_results(out_dir, result, cropped, mask, original, rendered, words_path)
     if os.path.exists(words_path):
         shutil.copy2(words_path, os.path.join(out_dir, "txt", f"words_{seq}.txt"))
     return seq
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="textflux single-image inference (PyTorch)")
+    p.add_argument("--model", required=True, help="FLUX.1-Fill-dev checkpoint dir")
+    p.add_argument("--transformer", default=None, help="fine-tuned transformer dir")
+    p.add_argument("--lora", default=None, help="LoRA weights (folded at load)")
+    p.add_argument("--image", required=True)
+    p.add_argument("--mask", required=True)
+    p.add_argument("--words", required=True)
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--max-sequence-length", type=int, default=512,
+                   help="T5 token length")
+    p.add_argument("--guidance-scale", type=float, default=30.0)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--scheduler", choices=["default", "overshoot"], default="default")
+    p.add_argument("--overshoot-c", type=float, default=None,
+                   help="AMO overshoot strength (default 2.0)")
+    p.add_argument("--font", default=None)
+    p.add_argument("--quantize", action="store_true",
+                   help="int8 DiT (not ported yet: ROADMAP Queue 1 item 11)")
+    p.add_argument("--quantize-mode", choices=["weight_only", "w8a8", "nf4", "mixed"],
+                   default=None,
+                   help="passing a mode implies --quantize (not ported yet)")
+    p.add_argument("--staged-text", action="store_true",
+                   help="staged residency: encode the prompt, free the text "
+                        "encoders, then load the DiT")
+    p.add_argument("--no-quantize-t5", action="store_true",
+                   help="keep the T5 encoder unquantised when --quantize is on")
+    p.add_argument("--output-dir", default="outputs")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+
+    # read_words treats a non-existent path as raw text (demo-input
+    # semantics); for the CLI that silently renders the path string
+    for path_arg in (args.image, args.mask, args.words):
+        if not os.path.exists(path_arg):
+            p.error(f"file not found: {path_arg}")
+
+    from textflux_torch.config import PipelineConfig
+    from textflux_torch.pipeline.fill import FillPipeline
+
+    pipe = FillPipeline.from_pretrained(
+        args.model, transformer_path=args.transformer, lora_path=args.lora,
+        # an explicit --quantize-mode implies --quantize: serving unquantised
+        # because only the mode was passed would be a trap
+        quantize=((args.quantize_mode or "weight_only")
+                  if (args.quantize or args.quantize_mode) else False),
+        quantize_t5=False if args.no_quantize_t5 else None,
+        defer_transformer=args.staged_text,
+        pipe_cfg=PipelineConfig(max_sequence_length=args.max_sequence_length),
+        device=args.device)
+    sampler = "overshoot" if args.scheduler == "overshoot" else "euler"
+    result, cropped, rendered, original, mask = run(
+        pipe, args.image, args.mask, args.words,
+        steps=args.steps, guidance_scale=args.guidance_scale,
+        seed=args.seed, sampler=sampler, overshoot_c=args.overshoot_c,
+        font_path=args.font, device=args.device)
+    seq = save_results(args.output_dir, result, cropped, mask, original, rendered, args.words)
+    print(f"saved result_{seq}.png under {args.output_dir}")
+
+
+if __name__ == "__main__":
+    main()

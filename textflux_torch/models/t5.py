@@ -41,8 +41,8 @@ class T5Encoder(nn.Module):
     def __init__(self, cfg: T5Config, *, device="cuda", dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        device = resolve_device(device)
-        if generator is None:
+        device = resolve_device(device, allow_meta=True)
+        if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.cfg = cfg

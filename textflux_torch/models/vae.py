@@ -4,14 +4,14 @@ The port of ``textflux_tpu/models/vae.py``. The public functions keep the JAX
 package's NHWC image/latent layout; inside, the convolutions run as
 ``nn.Conv2d`` in PyTorch's NCHW. GroupNorm computes in float32; the mid-block
 spatial attention is one single-head attention. FLUX's VAE has no quant convs.
-The tiled encode/decode pair (canvases above a 160x160 latent area) is not
-ported yet.
+``vae_encode_tiled`` / ``vae_decode_tiled`` bound the cost of large canvases
+(the pipeline switches to them above a 160x160 latent area).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -163,8 +163,8 @@ class FluxVAE(nn.Module):
     def __init__(self, cfg: VAEConfig, *, device="cuda", dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        device = resolve_device(device)
-        if generator is None:
+        device = resolve_device(device, allow_meta=True)
+        if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.cfg = cfg
@@ -210,6 +210,90 @@ def vae_encode(vae: FluxVAE, images: torch.Tensor, *, noise: Optional[torch.Tens
     if scale:
         z = (z - cfg.shift_factor) * cfg.scaling_factor
     return z
+
+
+def tile_starts(n: int, tile: int, stride: int) -> List[int]:
+    """Tile origins along one axis: every `stride`, plus a last tile flush
+    with the end when the stride leaves the end uncovered."""
+    starts = list(range(0, max(n - tile, 0) + 1, stride)) or [0]
+    if starts[-1] + tile < n:
+        starts.append(n - tile)
+    return starts
+
+
+def _blend_window(n: int, overlap: int, device) -> torch.Tensor:
+    """(n, n, 1) float32 blending weights: a linear ramp over `overlap` at
+    each edge. The +1 keeps the end weights strictly positive (a zero end
+    weight zeroed the canvas border, which a single tile covers); dividing
+    by the summed weights makes single-cover regions exact for any positive
+    weight, and overlaps blend linearly."""
+    ramp = torch.clamp((torch.arange(n, dtype=torch.float32, device=device) + 1.0) / overlap,
+                       max=1.0)
+    win1d = torch.minimum(ramp, ramp.flip(0))
+    return torch.minimum(win1d[:, None], win1d[None, :])[..., None]
+
+
+def vae_encode_tiled(vae: FluxVAE, images: torch.Tensor, *,
+                     noise: Optional[Sequence[torch.Tensor]] = None,
+                     generator: Optional[torch.Generator] = None,
+                     tile: int = 64, overlap: int = 16, scale: bool = True) -> torch.Tensor:
+    """Tiled encode for large canvases (bounds the mid-block attention, whose
+    cost is quadratic in latent area): encode overlapping pixel tiles and
+    blend the latent seams in float32. `tile`/`overlap` are in latent units.
+
+    Each tile takes its own posterior draw, row-major: ``noise[i]`` for tile
+    i when given (B, tile_h, tile_w, C), else drawn from `generator` tile by
+    tile; one draw for every tile would repeat the same noise field with the
+    tile stride. Neither: the posterior mode. A canvas within one tile is
+    encoded whole, with ``noise[0]``."""
+    if isinstance(noise, torch.Tensor):
+        raise TypeError("vae_encode_tiled takes a sequence of per-tile draws, not one tensor")
+    cfg = vae.cfg
+    f = cfg.spatial_factor
+    b, hp, wp, _ = images.shape
+    h, w = hp // f, wp // f
+    if h <= tile and w <= tile:
+        return vae_encode(vae, images, noise=None if noise is None else noise[0],
+                          generator=generator, scale=scale)
+    out = torch.zeros((b, h, w, cfg.latent_channels), dtype=torch.float32, device=images.device)
+    weight = torch.zeros((h, w, 1), dtype=torch.float32, device=images.device)
+    win = _blend_window(tile, overlap, images.device)
+    ys, xs = tile_starts(h, tile, tile - overlap), tile_starts(w, tile, tile - overlap)
+    ty, tx = min(tile, h), min(tile, w)
+    for i, y in enumerate(ys):
+        for j, x in enumerate(xs):
+            pix = images[:, y * f:(y + ty) * f, x * f:(x + tx) * f]
+            eps = None if noise is None else noise[i * len(xs) + j]
+            z = vae_encode(vae, pix, noise=eps, generator=generator, scale=scale).float()
+            tile_win = win[:ty, :tx]
+            out[:, y:y + ty, x:x + tx] += z * tile_win
+            weight[y:y + ty, x:x + tx] += tile_win
+    return (out / torch.clamp(weight, min=1e-6)).to(images.dtype)
+
+
+def vae_decode_tiled(vae: FluxVAE, latents: torch.Tensor, *, tile: int = 64,
+                     overlap: int = 16, scale: bool = True) -> torch.Tensor:
+    """Tiled decode for large canvases: decode overlapping latent tiles and
+    blend the seams linearly in float32. Bounds decoder activation memory
+    at ~tile^2."""
+    cfg = vae.cfg
+    b, h, w, _ = latents.shape
+    if h <= tile and w <= tile:
+        return vae_decode(vae, latents, scale=scale)
+    f = cfg.spatial_factor
+    out = torch.zeros((b, h * f, w * f, cfg.out_channels), dtype=torch.float32,
+                      device=latents.device)
+    weight = torch.zeros((h * f, w * f, 1), dtype=torch.float32, device=latents.device)
+    win = _blend_window(tile * f, overlap * f, latents.device)
+    for y in tile_starts(h, tile, tile - overlap):
+        for x in tile_starts(w, tile, tile - overlap):
+            dec = vae_decode(vae, latents[:, y:y + min(tile, h), x:x + min(tile, w)],
+                             scale=scale).float()
+            wy, wx = dec.shape[1], dec.shape[2]
+            tile_win = win[:wy, :wx]
+            out[:, y * f:y * f + wy, x * f:x * f + wx] += dec * tile_win
+            weight[y * f:y * f + wy, x * f:x * f + wx] += tile_win
+    return (out / torch.clamp(weight, min=1e-6)).to(latents.dtype)
 
 
 def vae_decode(vae: FluxVAE, latents: torch.Tensor, *, scale: bool = True) -> torch.Tensor:

@@ -1,42 +1,63 @@
 """End-to-end FLUX-Fill inpainting pipeline.
 
-The port of ``textflux_tpu/pipeline/fill.py::FillPipeline`` (single-image
-``__call__``; batched generation, serving sharding and checkpoint loading are
-not ported yet). Stages:
+The port of ``textflux_tpu/pipeline/fill.py::FillPipeline``: single-image
+``__call__``, batched ``generate_batch``, ``from_pretrained`` from a
+diffusers-layout checkpoint (with a LoRA folded in at load) and the staged
+residency of ``defer_transformer``. Not ported yet: quantised serving
+(``quantize``/``quantize_t5``, ROADMAP Queue 1 item 11) and multi-GPU
+serving (``shard_for_serving``, ``mesh``; item 13). Stages:
 
   1. text encode   — CLIP pooled + T5 sequence embeddings
-  2. conditioning  — VAE-encode the masked image, pack latents + the 8x8 -> 2x2
-                     mask rearrangement into the cond tokens
+  2. conditioning  — VAE-encode the masked image (tiled above a 160x160 latent
+                     area), pack latents + the 8x8 -> 2x2 mask rearrangement
+                     into the cond tokens
   3. denoise       — a loop over the sigma schedule; the MM-DiT consumes
                      [noise tokens | cond tokens] each step
-  4. decode        — unpack + VAE decode
+  4. decode        — unpack + VAE decode (tiled above the same area)
 
 Noise: the JAX package draws with ``jax.random``, whose streams PyTorch
-cannot reproduce. Here every draw comes from one ``torch.Generator`` seeded
-by ``seed``, unless the caller hands the draws in through ``noise=``.
+cannot reproduce. Here every draw of a sample comes from one
+``torch.Generator`` seeded by its seed, unless the caller hands the draws in
+through ``noise=``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Sequence
+import os
+import time
+from typing import Callable, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from textflux_torch.config import PipelineConfig
+from textflux_torch.config import FluxConfig, PipelineConfig
 from textflux_torch.device import resolve_device
 from textflux_torch.models import transformer
 from textflux_torch.models.clip import CLIPTextModel, clip_encode
 from textflux_torch.models.t5 import T5Encoder, t5_encode
 from textflux_torch.models.transformer import FluxTransformer, flux_apply
-from textflux_torch.models.vae import FluxVAE, vae_decode, vae_encode
+from textflux_torch.models.vae import (FluxVAE, vae_decode, vae_decode_tiled, vae_encode,
+                                       vae_encode_tiled)
 from textflux_torch.ops import packing, samplers
 from textflux_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
 from textflux_torch.ops.rope import rope_tables, rope_tables_half
 from textflux_torch.pipeline import image_processor as improc
-from textflux_torch.pipeline.prompts import build_prompts
+from textflux_torch.pipeline.prompts import GENERIC_TEMPLATE, build_prompts, words_prompt
 
 SAMPLERS = ("euler", "overshoot", "overshoot_spatial")
+NOISE_KEYS = ("latents", "vae", "steps")
+# beyond this latent area the VAE mid-block attention (quadratic) and the
+# decoder activations dominate memory: encode and decode in tiles
+VAE_TILE_THRESHOLD = 160 * 160
+VAE_TILE = 128
+
+
+def _check_noise(noise) -> dict:
+    noise = dict(noise or {})
+    unknown = set(noise) - set(NOISE_KEYS)
+    if unknown:
+        raise ValueError(f"unknown noise keys {sorted(unknown)}")
+    return noise
 
 
 class FillPipeline:
@@ -45,7 +66,7 @@ class FillPipeline:
     def __init__(
         self,
         *,
-        flux: FluxTransformer,
+        flux: Optional[FluxTransformer],
         vae: FluxVAE,
         clip: Optional[CLIPTextModel] = None,
         t5: Optional[T5Encoder] = None,
@@ -54,11 +75,16 @@ class FillPipeline:
         pipe_cfg: PipelineConfig = PipelineConfig(),
         attn_impl: str = "auto",
         device="cuda",
+        flux_cfg: Optional[FluxConfig] = None,
     ):
+        """`flux` may be None when `flux_cfg` is given: a DiT deferred to
+        ``load_transformer`` (staged residency)."""
         self.device = resolve_device(device)
         self.flux, self.vae, self.clip, self.t5 = (
             None if m is None else m.to(self.device) for m in (flux, vae, clip, t5))
-        self.flux_cfg, self.vae_cfg = flux.cfg, vae.cfg
+        if flux is None and flux_cfg is None:
+            raise ValueError("pass flux, or flux_cfg for a DiT loaded later")
+        self.flux_cfg, self.vae_cfg = (flux.cfg if flux is not None else flux_cfg), vae.cfg
         self.clip_tokenize = clip_tokenize
         self.t5_tokenize = t5_tokenize
         self.pipe_cfg = pipe_cfg
@@ -70,7 +96,8 @@ class FillPipeline:
         if attn_impl not in transformer.ATTN_IMPLS:
             raise ValueError(f"attn_impl must be 'auto' or one of {transformer.ATTN_IMPLS}")
         self.attn_impl = attn_impl
-        if attn_impl == "fused" and self.flux.rope_layout == "interleaved":
+        self.load_stats = {}         # from_pretrained: seconds and bytes by component
+        if attn_impl == "fused" and self.flux is not None and self.flux.rope_layout == "interleaved":
             # fold the rotate-half permutation into the q/k weights once
             # (in place, see half_permute_flux_params)
             transformer.half_permute_flux_params(self.flux)
@@ -86,17 +113,35 @@ class FillPipeline:
 
     def _prepare_cond(self, image, mask, *, vae_noise, generator):
         """Mask out the edit region, VAE-encode, pack; the mask folds
-        s x s -> s*s*4 channels."""
+        s x s -> s*s*4 channels. Above VAE_TILE_THRESHOLD the encode is
+        tiled, and `vae_noise` (when given) holds one draw per tile."""
         masked = image * (1.0 - mask[..., None])
-        z = vae_encode(self.vae, masked, noise=vae_noise, generator=generator)
+        f = self.vae_cfg.spatial_factor
+        if (image.shape[1] // f) * (image.shape[2] // f) > VAE_TILE_THRESHOLD:
+            z = vae_encode_tiled(self.vae, masked, noise=vae_noise, generator=generator,
+                                 tile=VAE_TILE)
+        else:
+            z = vae_encode(self.vae, masked, noise=vae_noise, generator=generator)
         img_tokens = packing.pack_latents(z)
         mask_tokens = packing.pack_mask(mask.to(z.dtype), self.vae_cfg.spatial_factor)
         return torch.cat([img_tokens, mask_tokens], dim=-1)
 
+    def _decode(self, latents, lat_h: int, lat_w: int):
+        z = packing.unpack_latents(latents, lat_h, lat_w)
+        if lat_h * lat_w > VAE_TILE_THRESHOLD:
+            return vae_decode_tiled(self.vae, z, tile=VAE_TILE)
+        return vae_decode(self.vae, z)
+
     def _denoise_step(self, lat, cond, txt, pooled, guidance, cos, sin, mods, sigma,
                       sigma_next, *, sampler, overshoot_c, kv_len, noise, generator):
-        """One step: the DiT's velocity, then the sampler update."""
+        """One step: the DiT's velocity, then the sampler update. `generator`
+        is one generator, or one per sample (each draws that sample's rows
+        of the step noise, as a single-sample call would)."""
         b = lat.shape[0]
+        if sampler != "euler" and noise is None and isinstance(generator, (list, tuple)):
+            noise = torch.cat([torch.randn((1,) + tuple(lat.shape[1:]), generator=g,
+                                           device=lat.device, dtype=torch.float32)
+                               for g in generator])
         v = flux_apply(self.flux, torch.cat([lat, cond], dim=-1), txt, pooled,
                        torch.full((b,), float(sigma), dtype=lat.dtype, device=lat.device),
                        guidance, cos, sin, attn_impl=self.attn_impl, kv_len=kv_len,
@@ -116,8 +161,11 @@ class FillPipeline:
     def _run_denoise(self, latents, cond, txt, pooled, *, t_img: int, lat_h: int,
                      lat_w: int, steps: int, guidance_scale: float, sampler: str,
                      overshoot_c: float, seq_pad_multiple, step_noise, generator):
-        """Sequence-bucket padding (masked kv), RoPE tables, the dynamic-shift
-        schedule, the denoise loop and unpadding."""
+        """Shared tail of __call__ and generate_batch: sequence-bucket padding
+        (masked kv), RoPE tables, the dynamic-shift schedule, the denoise
+        loop and unpadding."""
+        if self.flux is None:
+            raise ValueError("the DiT is not loaded: call load_transformer() first")
         cfgp = self.pipe_cfg
         dev = latents.device
         t_txt = txt.shape[1]
@@ -173,6 +221,24 @@ class FillPipeline:
                 kv_len=kv_len, noise=noise, generator=generator)
         return latents[:, :t_img] if t_pad != t_img else latents
 
+    def _initial_draws(self, img, mask, noise, generator, t_img: int, dtype):
+        """Cond tokens and initial latents, in __call__'s draw order: the VAE
+        posterior, then the latents (each from `noise` when given)."""
+        dev = self.device
+
+        def given(key):
+            x = noise.get(key)
+            if isinstance(x, (list, tuple)):   # per-tile VAE draws
+                return [torch.as_tensor(t, device=dev) for t in x]
+            return None if x is None else torch.as_tensor(x, device=dev)
+
+        cond = self._prepare_cond(img, mask, vae_noise=given("vae"), generator=generator)
+        latents = given("latents")
+        if latents is None:
+            latents = torch.randn((img.shape[0], t_img, self.vae_cfg.latent_channels * 4),
+                                  generator=generator, device=dev, dtype=torch.float32)
+        return cond, latents.to(dtype)
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
@@ -183,8 +249,11 @@ class FillPipeline:
             raise ValueError("pipeline was built without text encoders")
         if self.clip_tokenize is None or self.t5_tokenize is None:
             raise ValueError("pipeline was built without tokenizers")
-        clip_ids = torch.as_tensor(np.asarray(self.clip_tokenize(prompt)), device=self.device)
-        t5_ids = torch.as_tensor(np.asarray(self.t5_tokenize(prompt_2)), device=self.device)
+        return self._encode_ids(self.clip_tokenize(prompt), self.t5_tokenize(prompt_2), dtype)
+
+    def _encode_ids(self, clip_ids, t5_ids, dtype):
+        clip_ids = torch.as_tensor(np.asarray(clip_ids), device=self.device)
+        t5_ids = torch.as_tensor(np.asarray(t5_ids), device=self.device)
         _, pooled = clip_encode(self.clip, clip_ids, dtype=dtype)
         txt = t5_encode(self.t5, t5_ids, dtype=dtype)
         return pooled, txt
@@ -224,7 +293,8 @@ class FillPipeline:
           noise: optional draws to use instead of the seeded generator, for
             holding this port against another implementation's random
             streams: "latents" (B, T_img, 4*latent_channels), "vae" (the VAE
-            posterior eps, (B, h, w, latent_channels)) and "steps" (one
+            posterior eps, (B, h, w, latent_channels), or a list of per-tile
+            draws when the encode is tiled) and "steps" (one
             (B, T, 4*latent_channels) draw per overshoot step). Missing keys
             are drawn from the generator.
         """
@@ -235,10 +305,7 @@ class FillPipeline:
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
         overshoot_c = cfgp.overshoot_c if overshoot_c is None else overshoot_c
-        noise = dict(noise or {})
-        unknown = set(noise) - {"latents", "vae", "steps"}
-        if unknown:
-            raise ValueError(f"unknown noise keys {sorted(unknown)}")
+        noise = _check_noise(noise)
         dev = self.device
 
         pil = improc.to_pil(image)
@@ -275,17 +342,7 @@ class FillPipeline:
         t_img = (lat_h // 2) * (lat_w // 2)
 
         generator = torch.Generator(device=dev).manual_seed(seed)
-
-        def given(key):
-            x = noise.get(key)
-            return None if x is None else torch.as_tensor(x, device=dev)
-
-        cond = self._prepare_cond(img, mask, vae_noise=given("vae"), generator=generator)
-        latents = given("latents")
-        if latents is None:
-            latents = torch.randn((b, t_img, self.vae_cfg.latent_channels * 4),
-                                  generator=generator, device=dev, dtype=torch.float32)
-        latents = latents.to(dtype)
+        cond, latents = self._initial_draws(img, mask, noise, generator, t_img, dtype)
 
         latents = self._run_denoise(
             latents, cond, txt, pooled,
@@ -296,9 +353,207 @@ class FillPipeline:
 
         if output_type == "latent":
             return latents
-        z = packing.unpack_latents(latents, lat_h, lat_w)
-        images = vae_decode(self.vae, z)
-        images_np = images.float().cpu().numpy()
+        images_np = self._decode(latents, lat_h, lat_w).float().cpu().numpy()
         if output_type == "np":
             return images_np
         return improc.postprocess_image(images_np)
+
+    # ------------------------------------------------------------------
+    # batched generation
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def encode_batch_prompts(self, words_list, dtype=torch.bfloat16):
+        """(pooled, txt) embeddings for a batch of render-word lists, with
+        generate_batch's templates (the shared generic CLIP prompt, a T5
+        word prompt per sample). Staged residency: call for every batch
+        while the text encoders are resident, then release_text_encoders()."""
+        if self.clip is None or self.t5 is None:
+            raise ValueError("text encoders were released or never loaded")
+        clip_ids = np.concatenate([self.clip_tokenize(GENERIC_TEMPLATE)] * len(words_list))
+        t5_ids = np.concatenate([self.t5_tokenize(words_prompt(w)) for w in words_list])
+        return self._encode_ids(clip_ids, t5_ids, dtype)
+
+    @torch.inference_mode()
+    def generate_batch(
+        self,
+        images,
+        masks,
+        words_list,
+        *,
+        height: int,
+        width: int,
+        num_inference_steps: Optional[int] = None,
+        guidance_scale: Optional[float] = None,
+        seed: int = 42,
+        seeds: Optional[Sequence[int]] = None,
+        sampler: Optional[str] = None,
+        overshoot_c: Optional[float] = None,
+        dtype=torch.bfloat16,
+        seq_pad_multiple: Optional[int] = None,
+        text_embeds=None,
+        noise: Optional[Sequence[Optional[Mapping[str, object]]]] = None,
+    ) -> List:
+        """Batched generation: all samples share one (height, width) bucket;
+        T5 prompts differ per sample, CLIP uses the shared generic template.
+
+        RNG is per sample: sample i consumes exactly the draws of a
+        single-item __call__ with seed ``seeds[i]`` (default: ``seed`` for
+        every sample), from a generator of its own, so the batched output
+        is the per-item output. `noise`: one __call__-style dict per sample
+        (or None), handing in that sample's draws."""
+        cfgp = self.pipe_cfg
+        steps = num_inference_steps or cfgp.num_inference_steps
+        guidance_scale = cfgp.guidance_scale if guidance_scale is None else guidance_scale
+        sampler = sampler or cfgp.sampler
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
+        overshoot_c = cfgp.overshoot_c if overshoot_c is None else overshoot_c
+        width, height = (width // 16) * 16, (height // 16) * 16
+        dev = self.device
+
+        b = len(images)
+        seeds = [int(x) for x in (seeds if seeds is not None else [seed] * b)]
+        noise = [_check_noise(x) for x in (noise if noise is not None else [None] * b)]
+        if not len(seeds) == len(masks) == len(words_list) == len(noise) == b:
+            raise ValueError(f"{b} images, {len(masks)} masks, {len(words_list)} word "
+                             f"lists, {len(seeds)} seeds, {len(noise)} noise entries")
+
+        img = torch.as_tensor(np.concatenate(
+            [improc.preprocess_image(im, height, width) for im in images]), device=dev).to(dtype)
+        mask = torch.as_tensor(np.concatenate(
+            [improc.preprocess_mask(m, height, width) for m in masks]), device=dev).to(dtype)
+        if text_embeds is not None:
+            # staged residency: embeddings computed while the encoders were
+            # resident (encode_batch_prompts)
+            pooled, txt = (torch.as_tensor(t, device=dev).to(dtype) for t in text_embeds)
+        else:
+            pooled, txt = self.encode_batch_prompts(words_list, dtype)
+
+        lat_h = height // self.vae_cfg.spatial_factor
+        lat_w = width // self.vae_cfg.spatial_factor
+        t_img = (lat_h // 2) * (lat_w // 2)
+
+        generators = [torch.Generator(device=dev).manual_seed(x) for x in seeds]
+        draws = [self._initial_draws(img[i:i + 1], mask[i:i + 1], noise[i], generators[i],
+                                     t_img, dtype) for i in range(b)]
+        cond = torch.cat([c for c, _ in draws])
+        latents = torch.cat([lat for _, lat in draws])
+        step_noise = None
+        if any("steps" in x for x in noise):
+            if not all("steps" in x for x in noise):
+                raise ValueError("step noise was given for some samples only")
+            step_noise = [torch.cat([torch.as_tensor(x["steps"][i], device=dev) for x in noise])
+                          for i in range(steps)]
+
+        latents = self._run_denoise(
+            latents, cond, txt, pooled,
+            t_img=t_img, lat_h=lat_h, lat_w=lat_w, steps=steps,
+            guidance_scale=guidance_scale, sampler=sampler,
+            overshoot_c=overshoot_c, seq_pad_multiple=seq_pad_multiple,
+            step_noise=step_noise, generator=generators)
+        images_np = self._decode(latents, lat_h, lat_w).float().cpu().numpy()
+        return improc.postprocess_image(images_np)
+
+    # ------------------------------------------------------------------
+    # loading
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        base_path: str,
+        *,
+        transformer_path: Optional[str] = None,
+        lora_path: Optional[str] = None,
+        lora_scale: float = 1.0,
+        dtype=torch.bfloat16,
+        quantize: Union[bool, str] = False,
+        quantize_t5: Optional[bool] = None,
+        defer_transformer: bool = False,
+        pipe_cfg: PipelineConfig = PipelineConfig(),
+        attn_impl: str = "auto",
+        device="cuda",
+    ) -> "FillPipeline":
+        """Load from a diffusers-layout checkpoint directory (subfolders:
+        transformer/ vae/ text_encoder/ text_encoder_2/ tokenizer*/), onto
+        `device`, with `lora_path` (a peft LoRA file or directory) folded
+        into the DiT at `lora_scale` as it loads.
+
+        ``defer_transformer=True`` (staged residency) loads everything but
+        the DiT: encode the prompts, ``release_text_encoders()``, then
+        ``load_transformer()``, so the T5 encoder and the DiT never sit on
+        the device together.
+
+        ``load_stats`` records each component's load seconds and checkpoint
+        bytes. Quantised serving is not ported yet (ROADMAP Queue 1 item
+        11): ``quantize`` and ``quantize_t5`` must be off."""
+        from textflux_torch.io.config_io import (clip_config_from, flux_config_from,
+                                                 t5_config_from, vae_config_from)
+        from textflux_torch.io.lora import load_folded_flux_transformer, resolve_lora_path
+        from textflux_torch.io.params import (checkpoint_bytes, load_checkpoint_dir,
+                                              load_flux_transformer)
+        from textflux_torch.pipeline.tokenizers import load_tokenizers
+
+        if quantize or quantize_t5:
+            raise NotImplementedError(
+                "quantised serving (quantize / quantize_t5, the CLI's --quantize and "
+                "--quantize-mode) is not ported yet: ROADMAP Queue 1 item 11")
+        dev = resolve_device(device)
+        t_path = transformer_path or os.path.join(base_path, "transformer")
+        flux_cfg = flux_config_from(t_path)
+        stats = {}
+
+        def timed(name, paths, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            stats[name] = dict(seconds=time.perf_counter() - t0,
+                               bytes=sum(checkpoint_bytes(p) for p in paths))
+            return out
+
+        def load_flux():
+            if lora_path is None:
+                return timed("transformer", [t_path], lambda: load_flux_transformer(
+                    t_path, flux_cfg, dtype=dtype, device=dev))
+            return timed("transformer", [t_path, resolve_lora_path(lora_path)],
+                         lambda: load_folded_flux_transformer(
+                             t_path, lora_path, flux_cfg, scale=lora_scale, dtype=dtype,
+                             device=dev))
+
+        flux = None if defer_transformer else load_flux()
+        parts = {}
+        for name, sub, cfg_from in (("vae", "vae", vae_config_from),
+                                    ("clip", "text_encoder", clip_config_from),
+                                    ("t5", "text_encoder_2", t5_config_from)):
+            path = os.path.join(base_path, sub)
+            parts[name] = timed(name, [path], lambda: load_checkpoint_dir(
+                path, cfg_from(path), dtype=dtype, device=dev))
+        clip_tok, t5_tok = load_tokenizers(base_path,
+                                           max_t5_length=pipe_cfg.max_sequence_length)
+        pipe = cls(flux=flux, flux_cfg=flux_cfg, **parts, clip_tokenize=clip_tok,
+                   t5_tokenize=t5_tok, pipe_cfg=pipe_cfg, attn_impl=attn_impl, device=dev)
+        pipe.load_stats = stats
+        if defer_transformer:
+            pipe._deferred_flux = load_flux
+        return pipe
+
+    def release_text_encoders(self) -> None:
+        """Drop the text encoders (the staged-residency phase boundary: all
+        prompts are encoded, the DiT loads next); their device memory goes
+        back to the caching allocator for the DiT to reuse."""
+        self.clip = None
+        self.t5 = None
+
+    def load_transformer(self) -> None:
+        """Load the DiT deferred by from_pretrained(defer_transformer=True),
+        half-permuting it for the fused attention path."""
+        if self.flux is not None:
+            return
+        if not hasattr(self, "_deferred_flux"):
+            raise ValueError("pipeline was not built with defer_transformer=True")
+        flux = self._deferred_flux()
+        if self.attn_impl == "fused":
+            transformer.half_permute_flux_params(flux)
+        self.flux = flux
