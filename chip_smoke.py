@@ -32,10 +32,25 @@ Phases, in order; any failure exits non-zero:
      (three folded row blocks held against scale*(alpha/r)*B@A), then
      generate_batch (B=2, padded) against the single-item call, and the
      tiled VAE at 1536x1536 against the untiled one. Load seconds, GB/s and
-     peak device memory by component; the checkpoint is removed at the end.
+     peak device memory by component; the checkpoint stays for phase 8.
      The card has no tokenizer files (and no transformers package): the
      phase patches textflux_torch.pipeline.tokenizers.load_tokenizers with
-     the byte stand-ins below, and says so.
+     the byte stand-ins below, and says so;
+  8. train_main: LoRA training from a data directory through
+     textflux_torch.cli.train.main on that checkpoint (written here when
+     phase 7 did not run; removed after the last phase): an AnyWord json
+     over the two example images (the dataset's glyph strip, polygon fill
+     and mask augmentation), Prodigy at lr 1, rank 128, 1024 px. Run A
+     trains 4 steps, checkpointing at step 3, profiling step 1; run B
+     resumes a copy of A's step-3 checkpoint to step 4; A's export is
+     served through FillPipeline.from_pretrained(lora_path=...) for 2
+     steps. Per step: CUDA-event time, the host's wait in the loader, the
+     bucket and the flash launches; load seconds by component, the
+     checkpoint save's time on the training thread and the peak device
+     memory per run. Checked: every target's B moved in each run, B's
+     state right after the resume equals A's step-3 checkpoint bitwise,
+     the export's keys equal the manifest's, and two served row blocks are
+     the base with the export folded in (some elements changed).
 Phase 3 also holds the four training kernels (flash forward, LSE, dQ,
 dK/dV) against their plain versions, the L that the forward writes against
 the plain LSE, and the fused kernel's norm+rope pass (timed alone) against
@@ -51,12 +66,16 @@ kernel table as JSON; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -66,7 +85,8 @@ EXAMPLE = os.path.join(REPO, "resource", "example")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BF16_TOL = 2e-2              # unit-scale inputs, bf16 rounding of q/k/p/out
-PHASES = ("device", "build", "kernels", "main", "profile", "train", "checkpoint")
+PHASES = ("device", "build", "kernels", "main", "profile", "train", "checkpoint",
+          "train_main")
 
 
 def log(msg: str) -> None:
@@ -572,9 +592,7 @@ def phase_main(profile: bool = False) -> dict:
 
     pipe._denoise_step = timed_step
     per_block = flux_cfg.num_double_layers + flux_cfg.num_single_layers
-    paths = (os.path.join(EXAMPLE, "ori", "ori_0001.png"),
-             os.path.join(EXAMPLE, "mask", "mask_0001.png"),
-             os.path.join(EXAMPLE, "txt", "words_0001.txt"))
+    paths = EXAMPLE_PATHS
     runs = {}
     for sampler, steps in (("euler", 4), ("overshoot", 2)):
         step_events.clear()
@@ -649,8 +667,6 @@ def phase_train(profile: bool = False) -> dict:
     """3 LoRA optimizer steps of full-width FLUX.1-Fill-dev (random bf16
     weights from seed 0) on the example sample through train_lora, with the
     launch counts, the factors' movement and the frozen base checked."""
-    import gc
-
     from textflux_torch.cli.train import encode_batch_text, train_lora
     from textflux_torch.config import clip_l_config, flux_fill_config, flux_vae_config, t5_xxl_config
     from textflux_torch.models.clip import CLIPTextModel
@@ -774,7 +790,11 @@ def phase_train(profile: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 
 CKPT_DIR = os.path.join(REPO, "build", "checkpoint_smoke")   # build/ is git-ignored
+LORA_PATH = os.path.join(CKPT_DIR, "lora", "pytorch_lora_weights.safetensors")
 MANIFEST = os.path.join(REPO, "tests", "golden", "checkpoint_manifest.json")
+EXAMPLE_PATHS = (os.path.join(EXAMPLE, "ori", "ori_0001.png"),
+                 os.path.join(EXAMPLE, "mask", "mask_0001.png"),
+                 os.path.join(EXAMPLE, "txt", "words_0001.txt"))
 LORA_RANK, LORA_ALPHA, LORA_SCALE = 128, 64.0, 1.0
 # the stock FLUX.1-Fill-dev configs of the three components written from the manifest
 HF_CONFIGS = {
@@ -800,8 +820,6 @@ BATCH_MEAN_TOL, BATCH_MAX_TOL = 2.0, 32
 
 
 def _free_bytes(path: str) -> tuple:
-    import shutil
-
     with open("/proc/meminfo") as f:
         mem = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
     return shutil.disk_usage(path).free, mem.get("MemAvailable", 0)
@@ -911,36 +929,20 @@ def _run_main(argv, recorder, steps, expected_per_step):
     return rec
 
 
-def phase_checkpoint() -> dict:
-    import gc
-    import shutil
-    from functools import partial
-
-    from PIL import Image
-
-    import textflux_torch.pipeline.tokenizers as TK
-    from textflux_torch.cli.run_inference import render_conditioning, run
-    from textflux_torch.config import flux_fill_config
-    from textflux_torch.io.config_io import (clip_config_from, t5_config_from,
-                                             vae_config_from)
-    from textflux_torch.io.export import save_transformer_checkpoint
-    from textflux_torch.io.params import load_checkpoint_dir
-    from textflux_torch.io.safetensors import SafetensorsFile, save_file
-    from textflux_torch.models.transformer import FluxTransformer
-    from textflux_torch.models.vae import (vae_decode, vae_decode_tiled, vae_encode,
-                                           vae_encode_tiled)
-    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
-    from textflux_torch.ops.rope import half_permutation
-    from textflux_torch.pipeline.fill import FillPipeline
-    from textflux_torch.pipeline.prompts import read_words
-    from textflux_torch.rendering import load_font
-
-    gc.collect()
-    torch.cuda.empty_cache()
+def load_manifest() -> dict:
     with open(MANIFEST) as f:
-        manifest = json.load(f)
-    flux_cfg = flux_fill_config()
-    per_step = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+        return json.load(f)
+
+
+def write_checkpoint(manifest: dict) -> tuple:
+    """Write the full-size checkpoint under CKPT_DIR (see phase 7). Returns
+    (its record: bytes and seconds by part, the seed-0 DiT it was written
+    from, still on the card)."""
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.io.export import save_transformer_checkpoint
+    from textflux_torch.io.safetensors import save_file
+    from textflux_torch.models.transformer import FluxTransformer
+
     dit_bytes = 2 * sum(int(np.prod(s)) for s in manifest["transformer"].values())
     parts_bytes = {c: 2 * sum(int(np.prod(s)) for s in manifest[c].values())
                    for c in ("vae", "clip", "t5")}
@@ -951,50 +953,129 @@ def phase_checkpoint() -> dict:
     log(f"checkpoint: needs {needed} bytes on disk (DiT {dit_bytes}, {parts_bytes}, "
         f"LoRA {lora_bytes}); disk free {disk_free}, host MemAvailable {mem_free}")
     if disk_free < needed * 1.02:
-        raise AssertionError(f"checkpoint phase needs {needed} bytes of disk under "
+        raise AssertionError(f"the checkpoint needs {needed} bytes of disk under "
                              f"{os.path.dirname(CKPT_DIR)}, {disk_free} are free")
-    log("checkpoint: textflux_torch.pipeline.tokenizers.load_tokenizers is patched with the "
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    stages = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flux = FluxTransformer(flux_fill_config(), device="cuda", dtype=torch.bfloat16,
+                           generator=gen)
+    torch.cuda.synchronize()
+    stages["dit_init_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    written = {"transformer": save_transformer_checkpoint(
+        flux, os.path.join(CKPT_DIR, "transformer"), shards=3)}
+    stages["write_transformer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for sub, comp in COMPONENTS.items():
+        tensors = manifest_tensors(manifest[comp], gen)
+        written[comp] = save_file(tensors, os.path.join(CKPT_DIR, sub, "model.safetensors"))
+        with open(os.path.join(CKPT_DIR, sub, "config.json"), "w") as f:
+            json.dump(HF_CONFIGS[sub], f, indent=2)
+        del tensors
+    tensors = lora_tensors(manifest["lora"], gen)
+    written["lora"] = save_file(tensors, LORA_PATH)
+    del tensors
+    torch.cuda.empty_cache()
+    stages["write_parts_s"] = time.perf_counter() - t0
+    log("checkpoint written " + json.dumps(dict(
+        bytes=written, seconds={k: stages[k] for k in ("write_transformer_s",
+                                                      "write_parts_s")},
+        files=sorted(os.path.relpath(os.path.join(d, f), CKPT_DIR)
+                     for d, _, fs in os.walk(CKPT_DIR) for f in fs))))
+    return dict(written_bytes=written, stages=stages), flux
+
+
+@contextlib.contextmanager
+def byte_tokenizers(phase: str):
+    """textflux_torch.pipeline.tokenizers.load_tokenizers patched with the
+    byte stand-ins while the block runs (no tokenizer files in the repo, no
+    transformers on the card), and said so."""
+    import textflux_torch.pipeline.tokenizers as TK
+
+    log(f"{phase}: textflux_torch.pipeline.tokenizers.load_tokenizers is patched with the "
         "byte tokenizer stand-ins (no tokenizer files in the repo, no transformers on the card)")
-    orig_tokenizers = TK.load_tokenizers
+    orig = TK.load_tokenizers
     TK.load_tokenizers = lambda base, max_clip_length=77, max_t5_length=512: (
         partial(clip_byte_tokenize, length=max_clip_length),
         partial(t5_byte_tokenize, length=max_t5_length))
-    paths = (os.path.join(EXAMPLE, "ori", "ori_0001.png"),
-             os.path.join(EXAMPLE, "mask", "mask_0001.png"),
-             os.path.join(EXAMPLE, "txt", "words_0001.txt"))
-    stages, problems, out = {}, [], {}
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     try:
+        yield
+    finally:
+        TK.load_tokenizers = orig
+
+
+def _fold_check(lora_path: str, targets) -> dict:
+    """Each (label, loaded rows, diffusers module, permuted rows or None) of
+    `targets` against its base weight in CKPT_DIR's shards plus
+    LORA_SCALE * alpha/r * B @ A from the LoRA file, in float32 with TF32
+    off, as the loader folds. By label: the largest error (absolute and in
+    bf16 ulps of the loaded weight; `within_ulp`), the largest |delta|, how
+    many elements the fold changed (`changed`) and how many differ from
+    the base + delta rounded to bf16 (`differ_from_rounded`)."""
+    from textflux_torch.io.safetensors import SafetensorsFile
+
+    shards = [SafetensorsFile(os.path.join(CKPT_DIR, "transformer", f)) for f in
+              sorted(os.listdir(os.path.join(CKPT_DIR, "transformer")))
+              if f.endswith(".safetensors")]
+    lora_file = SafetensorsFile(lora_path)
+    fold = {}
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for label, loaded, mod, rows in targets:
+            base = next(s for s in shards if f"{mod}.weight" in s.keys()).get_tensor(
+                f"{mod}.weight").cuda().float()
+            a = lora_file.get_tensor(f"transformer.{mod}.lora_A.weight").cuda()
+            b = lora_file.get_tensor(f"transformer.{mod}.lora_B.weight").cuda()
+            alpha = float(lora_file.get_tensor(f"transformer.{mod}.alpha"))
+            delta = LORA_SCALE * (alpha / a.shape[0]) * (b @ a)
+            if rows is not None:
+                idx = torch.as_tensor(rows, device="cuda")
+                base, delta = base[idx], delta[idx]
+            err = ((loaded.float() - base) - delta).abs()
+            ulp = _bf16_ulp(loaded)
+            fold[label] = dict(
+                max_abs_err=err.max().item(), max_err_in_ulps=(err / ulp).max().item(),
+                max_abs_delta=delta.abs().max().item(), within_ulp=not bool((err > ulp).any()),
+                elements=loaded.numel(), changed=int((loaded.float() != base).sum()),
+                differ_from_rounded=int((loaded != (base + delta).to(loaded.dtype)).sum()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return fold
+
+
+def phase_checkpoint() -> dict:
+    """Phase 7. The checkpoint stays under CKPT_DIR for the train_main
+    phase; main() removes it after the last phase."""
+    from PIL import Image
+
+    from textflux_torch.cli.run_inference import render_conditioning, run
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.io.config_io import (clip_config_from, t5_config_from,
+                                             vae_config_from)
+    from textflux_torch.io.params import load_checkpoint_dir
+    from textflux_torch.models.vae import (vae_decode, vae_decode_tiled, vae_encode,
+                                           vae_encode_tiled)
+    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
+    from textflux_torch.ops.rope import half_permutation
+    from textflux_torch.pipeline.fill import FillPipeline
+    from textflux_torch.pipeline.prompts import read_words
+    from textflux_torch.rendering import load_font
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    manifest = load_manifest()
+    flux_cfg = flux_fill_config()
+    per_step = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    problems, out = [], {}
+    with byte_tokenizers("checkpoint"):
         # 1. write the checkpoint
-        t0 = time.perf_counter()
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        flux = FluxTransformer(flux_cfg, device="cuda", dtype=torch.bfloat16, generator=gen)
-        torch.cuda.synchronize()
-        stages["dit_init_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        written = {"transformer": save_transformer_checkpoint(
-            flux, os.path.join(CKPT_DIR, "transformer"), shards=3)}
-        stages["write_transformer_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        for sub, comp in COMPONENTS.items():
-            tensors = manifest_tensors(manifest[comp], gen)
-            written[comp] = save_file(tensors, os.path.join(CKPT_DIR, sub, "model.safetensors"))
-            with open(os.path.join(CKPT_DIR, sub, "config.json"), "w") as f:
-                json.dump(HF_CONFIGS[sub], f, indent=2)
-            del tensors
-        lora_path = os.path.join(CKPT_DIR, "lora", "pytorch_lora_weights.safetensors")
-        tensors = lora_tensors(manifest["lora"], gen)
-        written["lora"] = save_file(tensors, lora_path)
-        del tensors
-        torch.cuda.empty_cache()
-        stages["write_parts_s"] = time.perf_counter() - t0
-        out["written_bytes"] = written
-        log("checkpoint written " + json.dumps(dict(
-            bytes=written, seconds={k: stages[k] for k in ("write_transformer_s",
-                                                          "write_parts_s")},
-            files=sorted(os.path.relpath(os.path.join(d, f), CKPT_DIR)
-                         for d, _, fs in os.walk(CKPT_DIR) for f in fs))))
+        written, flux = write_checkpoint(manifest)
+        stages = written["stages"]
+        out["written_bytes"] = written["written_bytes"]
 
         # 2. the reference: the in-memory DiT, the rest loaded from the files
         t0 = time.perf_counter()
@@ -1006,7 +1087,7 @@ def phase_checkpoint() -> dict:
             parts[comp] = load_checkpoint_dir(path, cfg_from(path), device="cuda")
         ref_pipe = FillPipeline(flux=flux, **parts, clip_tokenize=clip_byte_tokenize,
                                 t5_tokenize=t5_byte_tokenize, device="cuda")
-        ref_img = run(ref_pipe, *paths, steps=2, seed=0, sampler="euler")[0]
+        ref_img = run(ref_pipe, *EXAMPLE_PATHS, steps=2, seed=0, sampler="euler")[0]
         # the pipeline half-permuted the DiT in place; main()'s is permuted too
         ref_sums = {k: param_checksum(p) for k, p in flux.named_parameters()}
         del ref_pipe, parts, flux
@@ -1016,8 +1097,8 @@ def phase_checkpoint() -> dict:
 
         # 3. main() without the LoRA
         outdir = os.path.join(CKPT_DIR, "out")
-        argv = ["--model", CKPT_DIR, "--image", paths[0], "--mask", paths[1],
-                "--words", paths[2], "--seed", "0", "--output-dir", outdir]
+        argv = ["--model", CKPT_DIR, "--image", EXAMPLE_PATHS[0], "--mask", EXAMPLE_PATHS[1],
+                "--words", EXAMPLE_PATHS[2], "--seed", "0", "--output-dir", outdir]
         with _Recorder() as recorder:
             rec = _run_main(argv + ["--steps", "2"], recorder, 2, per_step)
         pipe = recorder.pipe
@@ -1042,7 +1123,7 @@ def phase_checkpoint() -> dict:
 
         # 4. main() with the LoRA folded in
         with _Recorder() as recorder:
-            rec = _run_main(argv + ["--steps", "4", "--lora", os.path.dirname(lora_path)],
+            rec = _run_main(argv + ["--steps", "4", "--lora", os.path.dirname(LORA_PATH)],
                             recorder, 4, per_step)
         pipe = recorder.pipe
         d = flux_cfg.hidden_dim
@@ -1056,31 +1137,10 @@ def phase_checkpoint() -> dict:
              "single_transformer_blocks.37.attn.to_v", None),
             ("double_blocks.18.txt_mlp.fc2", pipe.flux.double_blocks[18].txt_mlp.fc2.weight,
              "transformer_blocks.18.ff_context.net.2", None)]
-        shards = [SafetensorsFile(os.path.join(CKPT_DIR, "transformer", f)) for f in
-                  sorted(os.listdir(os.path.join(CKPT_DIR, "transformer")))
-                  if f.endswith(".safetensors")]
-        lora_file = SafetensorsFile(lora_path)
-        fold = {}
-        prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        for label, loaded, mod, rows in targets:
-            base = next(s for s in shards if f"{mod}.weight" in s.keys()).get_tensor(
-                f"{mod}.weight").cuda().float()
-            a = lora_file.get_tensor(f"transformer.{mod}.lora_A.weight").cuda()
-            b = lora_file.get_tensor(f"transformer.{mod}.lora_B.weight").cuda()
-            alpha = float(lora_file.get_tensor(f"transformer.{mod}.alpha"))
-            delta = LORA_SCALE * (alpha / a.shape[0]) * (b @ a)
-            if rows is not None:
-                idx = torch.as_tensor(rows, device="cuda")
-                base, delta = base[idx], delta[idx]
-            err = ((loaded.float() - base) - delta).abs()
-            ulp = _bf16_ulp(loaded)
-            fold[label] = dict(max_abs_err=err.max().item(), max_err_in_ulps=(err / ulp).max().item(),
-                               max_abs_delta=delta.abs().max().item())
-            if bool((err > ulp).any()):
+        fold = _fold_check(LORA_PATH, targets)
+        for label, f in fold.items():
+            if not f["within_ulp"]:
                 problems.append(f"LoRA fold of {label} is off by more than one bf16 ulp")
-        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-        del shards, lora_file
         rec["fold_check"] = fold
         img = Image.open(os.path.join(outdir, "result_0002.png"))
         rec["image"] = _image_stats(img)
@@ -1099,9 +1159,9 @@ def phase_checkpoint() -> dict:
                                 f"{r['models_bytes']} + 1 GiB")
 
         # 5. generate_batch: B=2, padded (kv_len), against the single-item call
-        original = Image.open(paths[0]).convert("RGB")
-        mask = Image.open(paths[1]).convert("RGB")
-        words = [read_words(paths[2]), ["TEXTFLUX"]]
+        original = Image.open(EXAMPLE_PATHS[0]).convert("RGB")
+        mask = Image.open(EXAMPLE_PATHS[1]).convert("RGB")
+        words = [read_words(EXAMPLE_PATHS[2]), ["TEXTFLUX"]]
         canvases = [render_conditioning(original, mask, w, load_font(size=60))[:2]
                     for w in words]
         hw = dict(height=432, width=512)   # 27 x 32 = 864 image tokens, padded to 896
@@ -1167,15 +1227,409 @@ def phase_checkpoint() -> dict:
         if not rec["finite"]:
             problems.append("tiled VAE output is not finite")
         del pipe, x, z_tiled, dec_tiled, z_full, dec_full
-    finally:
-        TK.load_tokenizers = orig_tokenizers
-        shutil.rmtree(CKPT_DIR, ignore_errors=True)
-        gc.collect()
-        torch.cuda.empty_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
     out["stages"] = stages
     log("checkpoint stages " + json.dumps(stages))
     if problems:
         raise AssertionError("checkpoint phase: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8. train_main: LoRA training from a data directory through cli.train.main
+# ---------------------------------------------------------------------------
+
+TRAIN_MAIN_STEPS = 4
+# run A checkpoints at this step, run B resumes from it: one 7.17 GB Prodigy
+# checkpoint (factors + four fp32 state copies) is what the GPU machine's
+# disk-write budget (45 GiB per run of this script, deleted files included)
+# leaves beside phase 7's 35.4 GB checkpoint and the two 1.43 GB exports
+TRAIN_MAIN_CKPT_STEP = 3
+# the example images with the bounding quad (x0, y0, x1, y1) of each one's
+# mask and the word written there
+TRAIN_MAIN_ITEMS = (("ori_0001.png", "OPEN", (102, 128, 409, 256)),
+                    ("ori_0002.png", "CAFE 24H", (128, 160, 512, 320)))
+
+
+class _TrainMainRecorder:
+    """Instruments one cli.train.main() run from outside, while the block
+    runs:
+    - data.loader.BucketedLoader.__iter__: the host's seconds waiting in
+      next() and each batch's bucket; a CUDA event when a batch is handed
+      out (its step's start);
+    - training.train.make_lora_train_step: a CUDA event when each step
+      returns (its end) and the flash kernels' launch counts after it;
+    - io.params.load_checkpoint_dir: seconds and bytes by component;
+    - training.train.lora_insert: the base checksum when the factors are
+      attached, and each target's B checksum (the model and the factors
+      are held only while the block runs);
+    - training.train.make_optimizer: the optimizer;
+    - cli.train.load_train_state: each target's B checksum after the copy,
+      and the live state (factors, optimizer state, step) against
+      `resume_file` bitwise;
+    - training.checkpoint.CheckpointManager.save: its time on the training
+      thread (the device synchronised first), by step;
+    - CheckpointManager._write: the background write's seconds and, once
+      the checkpoint of `link_step` is written, a hard-linked copy of it
+      under `<link_to>/checkpoints/` (no second copy of its bytes on
+      disk)."""
+
+    def __init__(self, link_step=None, link_to=None, resume_file=None):
+        self.link_step, self.link_to, self.resume_file = link_step, link_to, resume_file
+        self.waits, self.buckets, self.starts, self.ends, self.counts = [], [], [], [], []
+        self.load, self.model, self.checksum0 = {}, None, None
+        self.lora, self.opt, self.b_sums, self.resume = None, None, {}, None
+        self.saves, self.writes = [], []
+        self._undo = []
+
+    @staticmethod
+    def _b_checksums(lora) -> dict:
+        return {path: param_checksum(f["b"]) for path, f in lora.items()}
+
+    def b_moved(self) -> list:
+        """The targets whose B differs from its value after the init (or the
+        resume's copy)."""
+        return [p for p, s in self._b_checksums(self.lora).items() if s != self.b_sums[p]]
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._undo.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def __enter__(self):
+        from textflux_torch.cli import train as CLI
+        from textflux_torch.data.loader import BucketedLoader
+        from textflux_torch.io import params as P
+        from textflux_torch.ops import flash_attention as FA
+        from textflux_torch.training import train as TR
+        from textflux_torch.training.checkpoint import CheckpointManager
+
+        def loader_iter(orig):
+            def timed(loader):
+                it = orig(loader)
+                try:
+                    while True:
+                        t0 = time.perf_counter()
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            return
+                        self.waits.append(time.perf_counter() - t0)
+                        self.buckets.append(list(batch["bucket"]))
+                        ev = torch.cuda.Event(enable_timing=True)
+                        ev.record()
+                        self.starts.append(ev)
+                        yield batch
+                finally:
+                    it.close()
+            return timed
+
+        def make_step(orig):
+            def make(tc, **kw):
+                step = orig(tc, **kw)
+
+                def timed(*a, **k):
+                    metrics = step(*a, **k)
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    self.ends.append(ev)
+                    self.counts.append({n: getattr(FA, n).launches for n in FLASH_KERNELS})
+                    return metrics
+                return timed
+            return make
+
+        def load(orig):
+            def timed(path, cfg, **kw):
+                t0 = time.perf_counter()
+                module = orig(path, cfg, **kw)
+                torch.cuda.synchronize()
+                self.load[os.path.basename(os.path.normpath(path))] = dict(
+                    seconds=time.perf_counter() - t0, bytes=P.checkpoint_bytes(path))
+                return module
+            return timed
+
+        def insert(orig):
+            def checked(model, lora, scale):
+                self.model, self.checksum0 = model, TR.base_checksum(model)
+                self.lora, self.b_sums = lora, self._b_checksums(lora)
+                return orig(model, lora, scale)
+            return checked
+
+        def make_opt(orig):
+            def kept(tc, params):
+                self.opt = orig(tc, params)
+                return self.opt
+            return kept
+
+        def load_state(orig):
+            def compared(lora, opt, state):
+                step = orig(lora, opt, state)
+                self.b_sums = self._b_checksums(lora)
+                saved = torch.load(self.resume_file, map_location="cpu", mmap=True,
+                                   weights_only=True)
+                n, bad = _tree_mismatches(CLI.train_state(lora, opt, step), saved)
+                self.resume = dict(step=step, compared_with=self.resume_file,
+                                   tensors_compared=n, mismatches=bad[:5], equal=not bad)
+                return step
+            return compared
+
+        def save(orig):
+            def timed(mgr, step, state, *, wait=False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                orig(mgr, step, state, wait=wait)
+                self.saves.append(dict(step=step, wait=wait,
+                                       host_ms=1e3 * (time.perf_counter() - t0)))
+            return timed
+
+        def write(orig):
+            def linked(mgr, step, host_state):
+                t0 = time.perf_counter()
+                orig(mgr, step, host_state)
+                self.writes.append(dict(step=step, seconds=time.perf_counter() - t0))
+                if step == self.link_step:
+                    shutil.copytree(os.path.join(mgr.directory, str(step)),
+                                    os.path.join(self.link_to, "checkpoints", str(step)),
+                                    copy_function=os.link)
+            return linked
+
+        self._patch(BucketedLoader, "__iter__", loader_iter)
+        self._patch(TR, "make_lora_train_step", make_step)
+        self._patch(P, "load_checkpoint_dir", load)
+        self._patch(TR, "lora_insert", insert)
+        self._patch(TR, "make_optimizer", make_opt)
+        self._patch(CLI, "load_train_state", load_state)
+        self._patch(CheckpointManager, "save", save)
+        self._patch(CheckpointManager, "_write", write)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self.model = self.lora = self.opt = None
+
+    def per_step_launches(self) -> list:
+        prev, out = {n: 0 for n in FLASH_KERNELS}, []
+        for c in self.counts:
+            out.append({n: c[n] - prev[n] for n in FLASH_KERNELS})
+            prev = c
+        return out
+
+
+def _tree_mismatches(live, saved, path: str = "state") -> tuple:
+    """(the tensors compared, the paths that differ) between a live nested
+    state and a saved one: tensors bitwise (shape, dtype and every bit, on
+    the live one's device), numbers by value, dicts and lists by
+    structure."""
+    if isinstance(live, torch.Tensor):
+        same = (isinstance(saved, torch.Tensor) and saved.shape == live.shape
+                and saved.dtype == live.dtype and torch.equal(live, saved.to(live.device)))
+        return 1, [] if same else [path]
+    if isinstance(live, dict):
+        if not isinstance(saved, dict) or set(saved) != set(live):
+            return 0, [path]
+        pairs = [(live[k], saved[k], f"{path}.{k}") for k in live]
+    elif isinstance(live, (list, tuple)):
+        if not isinstance(saved, (list, tuple)) or len(saved) != len(live):
+            return 0, [path]
+        pairs = [(x, y, f"{path}[{i}]") for i, (x, y) in enumerate(zip(live, saved))]
+    else:
+        return 0, [] if live == saved else [path]
+    n, bad = 0, []
+    for x, y, p in pairs:
+        m, b = _tree_mismatches(x, y, p)
+        n, bad = n + m, bad + b
+    return n, bad
+
+
+def _train_log(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
+    """LoRA training from a data directory through cli.train.main() at full
+    width: an AnyWord json over the two example images, the checkpoint of
+    phase 7 (written here when that phase did not run), Prodigy at lr 1.
+    Run A trains 4 steps, checkpointing at step 3 (one kept); run B
+    resumes a hard-linked copy of A's step-3 checkpoint to step 4; A's
+    exported LoRA is then served for 2 steps. Launches per step, finite
+    losses, the rotation, B's log, the export's keys and rank, the base
+    checksum, the profile trace and the round trip's fused launches are
+    checked."""
+    from textflux_torch.cli import train as CLI
+    from textflux_torch.cli.run_inference import run
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.io.safetensors import SafetensorsFile
+    from textflux_torch.ops import flash_attention as FA
+    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
+    from textflux_torch.pipeline.fill import FillPipeline
+    from textflux_torch.training import train as TR
+    from textflux_torch.training.checkpoint import STATE_FILE, CheckpointManager
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    manifest = load_manifest()
+    if not have_checkpoint:
+        _, flux = write_checkpoint(manifest)
+        del flux
+        gc.collect()
+        torch.cuda.empty_cache()
+    work = os.path.join(CKPT_DIR, "train_main")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_json = os.path.join(work, "anyword.json")
+    with open(data_json, "w") as f:
+        json.dump({"data_list": [
+            {"img_name": name, "annotations": [
+                {"text": text, "polygon": [[x0, y0], [x1, y0], [x1, y1], [x0, y1]]}]}
+            for name, text, (x0, y0, x1, y1) in TRAIN_MAIN_ITEMS]}, f)
+    out_a, out_b = os.path.join(work, "a"), os.path.join(work, "b")
+    disk_free, mem_free = _free_bytes(work)
+    factor_bytes = 4 * sum(int(np.prod(v)) for k, v in manifest["lora"].items()
+                           if k.endswith(("lora_A.weight", "lora_B.weight")))
+    log(f"train_main: writes ~{7 * factor_bytes} bytes (one Prodigy checkpoint of 5x the "
+        f"{factor_bytes} bytes of factors, two exports); disk free {disk_free}, host "
+        f"MemAvailable {mem_free}")
+    flux_cfg = flux_fill_config()
+    blocks = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    per_step = {"flash_attention": 2 * blocks, "flash_attention_lse": 0,
+                "flash_attention_dq": blocks, "flash_attention_dkv": blocks}
+    common = ["--model", CKPT_DIR, "--data-json", data_json,
+              "--data-images", os.path.join(EXAMPLE, "ori"), "--mode", "lora",
+              "--optimizer", "prodigy", "--learning-rate", "1",
+              "--resolution", str(TRAIN_RESOLUTION), "--train-batch-size", "1",
+              "--grad-accum", "1", "--max-train-steps", str(TRAIN_MAIN_STEPS),
+              "--checkpointing-steps", str(TRAIN_MAIN_CKPT_STEP),
+              "--checkpoints-total-limit", "1",
+              "--log-every", "1", "--seed", "0"]
+    problems, out = [], {}
+    a_state = os.path.join(out_a, "checkpoints", str(TRAIN_MAIN_CKPT_STEP), STATE_FILE)
+    with byte_tokenizers("train_main"):
+        resumed = list(range(TRAIN_MAIN_CKPT_STEP + 1, TRAIN_MAIN_STEPS + 1))
+        for name, extra, hooks, want_steps in (
+                ("A", ["--output-dir", out_a, "--profile-steps", "1"],
+                 dict(link_step=TRAIN_MAIN_CKPT_STEP, link_to=out_b),
+                 list(range(1, TRAIN_MAIN_STEPS + 1))),
+                ("B", ["--output-dir", out_b, "--resume-from-checkpoint",
+                       str(TRAIN_MAIN_CKPT_STEP)], dict(resume_file=a_state), resumed)):
+            for k in FLASH_KERNELS:
+                getattr(FA, k).launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _TrainMainRecorder(**hooks) as rec:
+                CLI.main(common + extra)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                checksum1 = TR.base_checksum(rec.model)
+                # B starts at 0 (or at the resumed copy): an update that did
+                # nothing leaves it there
+                b_moved = rec.b_moved()
+                estim_lr = (float(rec.opt.state["estim_lr"])
+                            if isinstance(rec.opt, TR.ClippedProdigy) else None)
+            train_log = _train_log(extra[1])
+            by_step = rec.per_step_launches()
+            r = dict(card=smi, seconds=seconds, steps=[e["step"] for e in train_log],
+                     loss=[e["loss"] for e in train_log],
+                     grad_norm=[e["grad_norm"] for e in train_log],
+                     step_ms=[s.elapsed_time(e) for s, e in zip(rec.starts, rec.ends)],
+                     data_wait_ms=[1e3 * w for w in rec.waits],
+                     bucket_hw=rec.buckets,
+                     joint_seq=[512 + (h // 16) * (w // 16) for h, w in rec.buckets],
+                     load=rec.load, launches={k: getattr(FA, k).launches for k in FLASH_KERNELS},
+                     launches_per_step=by_step, expected_per_step=per_step,
+                     max_memory_allocated=torch.cuda.max_memory_allocated(),
+                     base_checksum=[rec.checksum0, checksum1],
+                     b_targets=len(rec.b_sums), b_targets_moved=len(b_moved),
+                     prodigy_estim_lr=estim_lr, save=rec.saves, write=rec.writes,
+                     resume=rec.resume,
+                     checkpoints=CheckpointManager(os.path.join(extra[1], "checkpoints")).all_steps())
+            if name == "A":
+                prof = os.path.join(out_a, "profile")
+                r["profile_files"] = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+            log(f"train_main {name} " + json.dumps(r))
+            out[name] = r
+            del rec
+            gc.collect()
+            torch.cuda.empty_cache()
+            if r["steps"] != want_steps:
+                problems.append(f"run {name} logged steps {r['steps']}, expected {want_steps}")
+            if not all(np.isfinite(r["loss"])) or not all(np.isfinite(r["grad_norm"])):
+                problems.append(f"run {name}: non-finite loss or grad norm")
+            if len(by_step) != len(want_steps) or any(c != per_step for c in by_step):
+                problems.append(f"run {name} launched {by_step}, expected {per_step} a step")
+            if checksum1 != r["base_checksum"][0]:
+                problems.append(f"run {name} changed the base weights")
+            if not r["b_targets"] or r["b_targets_moved"] != r["b_targets"]:
+                problems.append(f"run {name}: B of {r['b_targets'] - r['b_targets_moved']} of "
+                                f"{r['b_targets']} LoRA targets did not move")
+            if name == "B" and not (r["resume"] and r["resume"]["equal"]):
+                problems.append(f"run B's state after the resume is not A's step-"
+                                f"{TRAIN_MAIN_CKPT_STEP} checkpoint: {r['resume']}")
+            if r["checkpoints"] != [TRAIN_MAIN_CKPT_STEP]:
+                problems.append(f"run {name} left checkpoints {r['checkpoints']}, expected "
+                                f"[{TRAIN_MAIN_CKPT_STEP}] alone")
+        if not any(f.endswith(".json") for f in out["A"]["profile_files"]):
+            problems.append("run A wrote no profile trace")
+
+        # the export: the manifest's LoRA keys, rank 128; A against B
+        exported = {}
+        for name, path in (("A", out_a), ("B", out_b)):
+            with SafetensorsFile(os.path.join(path, "pytorch_lora_weights.safetensors")) as f:
+                exported[name] = {k: f.get_tensor(k).cuda() for k in f.keys()}
+        keys = {k for k in exported["A"] if k.endswith(("lora_A.weight", "lora_B.weight"))}
+        want_keys = {k for k in manifest["lora"] if k.endswith(("lora_A.weight", "lora_B.weight"))}
+        shapes_ok = all(list(exported["A"][k].shape) == manifest["lora"][k] for k in keys & want_keys)
+        ranks = sorted({int(exported["A"][k].shape[0]) for k in keys if k.endswith("lora_A.weight")})
+        a_vs_b = max((exported["A"][k].float() - exported["B"][k].float()).abs().max().item()
+                     for k in exported["A"])
+        rec = dict(lora_keys=len(keys), manifest_lora_keys=len(want_keys),
+                   keys_equal=keys == want_keys, shapes_equal=shapes_ok, ranks=ranks,
+                   a_vs_b_max_abs_diff=a_vs_b)
+        del exported
+        if keys != want_keys or not shapes_ok or ranks != [LORA_RANK]:
+            problems.append(f"exported LoRA: {rec}")
+
+        # the round trip: A's export served through from_pretrained
+        flash_attention_qk_norm_rope.launches = 0
+        t0 = time.perf_counter()
+        pipe = FillPipeline.from_pretrained(CKPT_DIR, lora_path=out_a, device="cuda")
+        img = run(pipe, *EXAMPLE_PATHS, steps=2, seed=0, sampler="euler")[0]
+        torch.cuda.synchronize()
+        rec.update(round_trip_seconds=time.perf_counter() - t0,
+                   round_trip_load=pipe.load_stats,
+                   round_trip_launches=flash_attention_qk_norm_rope.launches,
+                   round_trip_expected_launches=2 * blocks, image=_image_stats(img), card=smi)
+        # the served DiT holds A's export: two unpermuted targets against the
+        # base + scale * B @ A; B is small after 4 steps at Prodigy's first D,
+        # so most elements round back to the base, but some must change
+        d = flux_cfg.hidden_dim
+        rec["fold_check"] = _fold_check(
+            os.path.join(out_a, "pytorch_lora_weights.safetensors"),
+            [("double_blocks.18.txt_mlp.fc2", pipe.flux.double_blocks[18].txt_mlp.fc2.weight,
+              "transformer_blocks.18.ff_context.net.2", None),
+             ("single_blocks.37.linear1[to_v]",
+              pipe.flux.single_blocks[37].linear1.weight[2 * d:3 * d],
+              "single_transformer_blocks.37.attn.to_v", None)])
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("train_main export " + json.dumps(rec))
+        out["export"] = rec
+        if rec["round_trip_launches"] != 2 * blocks:
+            problems.append(f"round trip launched the fused kernel {rec['round_trip_launches']} "
+                            f"times, expected {2 * blocks}")
+        for label, f in rec["fold_check"].items():
+            if (not f["within_ulp"] or f["changed"] == 0
+                    or f["differ_from_rounded"] > f["changed"] // 100):
+                problems.append(f"round trip: the served {label} is not the base with A's "
+                                f"export folded in: {f}")
+        if not rec["image"]["finite"] or rec["image"]["std"] <= 0:
+            problems.append(f"round trip image not finite/non-constant {rec['image']}")
+    if problems:
+        raise AssertionError("train_main phase: " + "; ".join(problems))
     return out
 
 
@@ -1189,10 +1643,12 @@ def _ckpt_launches(ckpt_rec) -> dict:
             "checkpoint_single_item": g["single_launches"]}
 
 
-def _fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec=None) -> dict:
+def _fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec=None, tm_rec=None) -> dict:
     serving = next((r for r in kernel_rows if r["case"] == "serving"), None)
     by_run = {k: v["launches"] for k, v in main_rec["runs"].items()} if main_rec else {}
     by_run.update(_ckpt_launches(ckpt_rec))
+    if tm_rec:
+        by_run["train_main_round_trip"] = tm_rec["export"]["round_trip_launches"]
     entry = dict(
         name="flash_attention_qk_norm_rope", route="cuda",
         source="textflux_torch/csrc/fused_attention.cu",
@@ -1229,19 +1685,27 @@ FLASH_FUNCTIONS = {"flash_attention": "flash_fwd_sm90_kernel",
                    "flash_attention_dkv": "flash_dkv_sm90_kernel"}
 
 
-def _flash_entries(flash_rows, train_rec, build_rec) -> list:
+def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None) -> list:
     """One JSON entry per training kernel: times at the `train` case,
-    launches from the train phase (all steps, and per step)."""
+    launches from the train phase and the train_main phase's runs A and B
+    (all steps, by run, and per step)."""
     train = flash_rows.get("train")
+    runs = {}
+    if train_rec:
+        runs["train"] = train_rec
+    for key in ("A", "B") if tm_rec else ():
+        runs[f"train_main_{key}"] = tm_rec[key]
     out = []
     for name in FLASH_KERNELS:
+        by_run = {k: r["launches"][name] for k, r in runs.items()}
         entry = dict(name=name, route="cuda", source=FLASH_SOURCES[name],
                      build={k: v for k, v in build_rec.get("kernels", {}).items()
                             if k.startswith(FLASH_FUNCTIONS[name])},
                      replaces=f"textflux_tpu/ops/flash_attention.py:{FLASH_REPLACES[name]}",
-                     launches=train_rec["launches"][name] if train_rec else None,
-                     launches_per_step=([c[name] for c in train_rec["launches_per_step"]]
-                                        if train_rec else None))
+                     launches=sum(by_run.values()) if runs else None,
+                     launches_by_run=by_run or None,
+                     launches_per_step={k: [c[name] for c in r["launches_per_step"]]
+                                        for k, r in runs.items()} or None)
         if train:
             k = train["kernels"][name]
             entry.update(
@@ -1274,16 +1738,21 @@ def main() -> int:
     phases = args.phases.split(",")
     dev = phase_device()
     build_rec = {}
-    if {"build", "kernels", "main", "train", "checkpoint"} & set(phases):
+    if {"build", "kernels", "main", "train", "checkpoint", "train_main"} & set(phases):
         build_rec = phase_build()
     kernel_rows = phase_kernels() if "kernels" in phases else []
     flash_rows = phase_flash_kernels() if "kernels" in phases else {}
     main_rec = phase_main("profile" in phases) if "main" in phases else None
     train_rec = phase_train("profile" in phases) if "train" in phases else None
-    ckpt_rec = phase_checkpoint() if "checkpoint" in phases else None
+    try:   # the checkpoint phases share the one under CKPT_DIR
+        ckpt_rec = phase_checkpoint() if "checkpoint" in phases else None
+        tm_rec = (phase_train_main(dev["nvidia_smi"], have_checkpoint=ckpt_rec is not None)
+                  if "train_main" in phases else None)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
-    kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec)]
-    kernel_entries += _flash_entries(flash_rows, train_rec, build_rec)
+    kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec, tm_rec)]
+    kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec)
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,7 +19,10 @@ for name in names:
     importlib.import_module(name)
 for name in ("textflux_torch.io.params", "textflux_torch.io.lora", "textflux_torch.io.export",
              "textflux_torch.io.safetensors", "textflux_torch.pipeline.tokenizers",
-             "textflux_torch.cli.run_inference"):
+             "textflux_torch.cli.run_inference", "textflux_torch.cli.train",
+             "textflux_torch.data.native", "textflux_torch.data.anytext",
+             "textflux_torch.data.dataset", "textflux_torch.data.loader",
+             "textflux_torch.training.checkpoint", "textflux_torch.utils.tracking"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "safetensors", "transformers")

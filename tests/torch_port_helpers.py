@@ -7,14 +7,25 @@ here the same way and handed to the port.
 """
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import torch
 
+from textflux_tpu.config import CLIPTextConfig, FluxConfig, T5Config, VAEConfig
+from textflux_tpu.io.export import save_transformer_checkpoint
+from textflux_tpu.models.transformer import init_flux_params
+
 import textflux_torch.config as TC
+from textflux_torch.io import params as TP
 from textflux_torch.io.from_jax import load_jax_params
+from textflux_torch.io.safetensors import save_file
+from textflux_torch.models import vae as TV
+from textflux_torch.models.clip import CLIPTextModel
+from textflux_torch.models.t5 import T5Encoder
 from textflux_torch.pipeline.fill import FillPipeline
 
 
@@ -99,3 +110,94 @@ def n(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# a tiny checkpoint in the diffusers layout (the serving and training CLIs' tests)
+# ---------------------------------------------------------------------------
+
+# an 8x VAE (four blocks), so the example canvas packs to 896 image tokens
+VAE_CFG = VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1, latent_channels=4,
+                    norm_num_groups=4, scaling_factor=0.5, shift_factor=0.1)
+FLUX_CFG = FluxConfig(in_channels=16 + 16 + 256, out_channels=16, num_double_layers=2,
+                      num_single_layers=2, num_heads=2, head_dim=8, joint_dim=32, pooled_dim=16,
+                      axes_dims_rope=(4, 2, 2))
+CLIP_CFG = CLIPTextConfig(vocab_size=64, hidden_dim=16, num_layers=1, num_heads=2, mlp_dim=32,
+                          max_positions=77, eos_token_id=3)
+T5_CFG = T5Config(vocab_size=64, d_model=32, d_kv=8, d_ff=64, num_layers=1, num_heads=4,
+                  relative_attention_num_buckets=8, relative_attention_max_distance=16)
+
+HF_CONFIGS = {
+    "vae": {"in_channels": 3, "out_channels": 3, "latent_channels": 4,
+            "block_out_channels": [8, 8, 16, 16], "layers_per_block": 1, "norm_num_groups": 4,
+            "scaling_factor": 0.5, "shift_factor": 0.1},
+    "text_encoder": {"vocab_size": 64, "hidden_size": 16, "num_hidden_layers": 1,
+                     "num_attention_heads": 2, "intermediate_size": 32,
+                     "max_position_embeddings": 77, "eos_token_id": 3},
+    "text_encoder_2": {"vocab_size": 64, "d_model": 32, "d_kv": 8, "d_ff": 64, "num_layers": 1,
+                       "num_heads": 4, "relative_attention_num_buckets": 8,
+                       "relative_attention_max_distance": 16},
+}
+VOCAB = ["the", "a", "image", "text", "words", "with", "of", "on", "and", "is", "pair",
+         "images", "'OPEN'", "'SALE'"]
+
+
+def write_tokenizers(root):
+    """WordLevel tokenizer directories saved as transformers saves them."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {"<pad>": 0, "<unk>": 1, "<bos>": 2, "<eos>": 3}
+    vocab.update({w: 4 + i for i, w in enumerate(VOCAB)})
+    for name in ("tokenizer", "tokenizer_2"):
+        tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+        tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+        PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", pad_token="<pad>",
+                                bos_token="<bos>", eos_token="<eos>").save_pretrained(
+            os.path.join(root, name))
+
+
+def real_naming(model) -> dict:
+    """A port module's state dict in the diffusers/transformers naming."""
+    return {k: (p if rows is None else p[rows]).detach()
+            for k, (p, rows) in TP.key_map(model).items()}
+
+
+def write_component(root, sub, model):
+    """A component in the diffusers/transformers naming, with its config.json."""
+    save_file(real_naming(model), os.path.join(root, sub, "model.safetensors"))
+    with open(os.path.join(root, sub, "config.json"), "w") as f:
+        json.dump(HF_CONFIGS[sub], f)
+
+
+def write_tiny_checkpoint(root: str) -> str:
+    """A tiny FLUX.1-Fill checkpoint in the diffusers layout under `root`:
+    the DiT (seed 11) from the JAX exporter, the VAE, CLIP and T5 from
+    seeded port modules, WordLevel tokenizers, and a peft LoRA on a few
+    modules under lora/. Returns `root`."""
+    # the DiT from the JAX exporter; the rest from seeded port modules (both
+    # packages then read every component from these files)
+    flux = init_flux_params(jax.random.PRNGKey(11), FLUX_CFG)
+    save_transformer_checkpoint(flux, FLUX_CFG, os.path.join(root, "transformer"))
+    g = torch.Generator().manual_seed(11)
+    write_component(root, "vae", TV.FluxVAE(port_cfg(VAE_CFG), device="cpu", generator=g))
+    write_component(root, "text_encoder",
+                    CLIPTextModel(port_cfg(CLIP_CFG), device="cpu", generator=g))
+    write_component(root, "text_encoder_2",
+                    T5Encoder(port_cfg(T5_CFG), device="cpu", generator=g))
+    write_tokenizers(root)
+    # a peft LoRA on a few modules, alpha given for some
+    rng = np.random.default_rng(3)
+    lora = {}
+    for mod, (d_out, d_in) in {"transformer_blocks.0.attn.to_k": (16, 16),
+                               "transformer_blocks.1.attn.add_v_proj": (16, 16),
+                               "transformer_blocks.1.ff.net.0.proj": (64, 16),
+                               "single_transformer_blocks.0.attn.to_q": (16, 16)}.items():
+        lora[f"transformer.{mod}.lora_A.weight"] = torch.tensor(
+            rng.standard_normal((2, d_in)) * 0.5, dtype=torch.float32)
+        lora[f"transformer.{mod}.lora_B.weight"] = torch.tensor(
+            rng.standard_normal((d_out, 2)) * 0.5, dtype=torch.float32)
+        if "single" in mod:
+            lora[f"transformer.{mod}.alpha"] = torch.tensor(3.0)
+    save_file(lora, os.path.join(root, "lora", "pytorch_lora_weights.safetensors"))
+    return root

@@ -2,10 +2,12 @@
 
 The port of the LoRA path of ``textflux_tpu/training/train.py``: the train
 config, the LoRA targets and factors (``lora_init``, ``lora_insert``,
-``lora_merge``), the learning-rate schedules, AdamW with optax's global-norm
-clipping, ``flow_matching_loss`` and ``make_lora_train_step`` with its
-gradient accumulation written out as a loop. The full-parameter masked path
-(``make_train_step``), Prodigy and 8-bit AdamW are not ported yet.
+``lora_merge``), the learning-rate schedules, AdamW and Prodigy
+(``optax.contrib.prodigy``) behind optax's global-norm clipping,
+``flow_matching_loss`` and ``make_lora_train_step`` with its gradient
+accumulation written out as a loop. The full-parameter masked path
+(``make_train_step``, ``--mode attn|all``) and 8-bit AdamW are not ported
+yet: ROADMAP Queue 1 item 2.
 
 The factors live beside a frozen base: ``lora_insert`` attaches them to the
 target ``nn.Linear``s as fp32 parameters, and ``models.layers.dense`` adds
@@ -32,12 +34,14 @@ from textflux_torch.ops.rope import rope_tables
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the JAX package's TrainConfig that the LoRA step reads,
-    with its defaults (scripts/train.sh + parser_helper.py of the
-    reference). The gradient accumulation count is the batch's leading axis,
-    as in the JAX step."""
+    """The fields of the JAX package's TrainConfig that the LoRA step and the
+    training CLI read, with its defaults (scripts/train.sh + parser_helper.py
+    of the reference). The step takes the gradient accumulation count from
+    the batch's leading axis, as the JAX step does, and trains LoRA factors
+    only, so the JAX fields ``grad_accum`` and ``mode`` have no place here."""
 
     learning_rate: float = 2e-5
+    optimizer: str = "adamw"              # "adamw" | "prodigy" ("adamw8bit" not ported)
     lr_scheduler: str = "constant"
     lr_warmup_steps: int = 0
     max_train_steps: int = 10000
@@ -57,6 +61,10 @@ class TrainConfig:
     lora_alpha: float = 128.0
     compute_dtype: str = "bfloat16"
     cond_dropout_prob: float = 0.0
+    # Prodigy's D-estimate momentum (None: sqrt(adam_b2)) and its warmup
+    # safeguard (reference --prodigy_beta3 / --prodigy_safeguard_warmup)
+    prodigy_beta3: Optional[float] = None
+    prodigy_safeguard_warmup: bool = False
     lr_num_cycles: int = 1
     lr_power: float = 1.0
 
@@ -220,24 +228,20 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-class ClippedAdamW:
-    """optax.chain(clip_by_global_norm(max_grad_norm), adamw(schedule)) over
-    parameters whose gradients are in ``.grad``.
+class ClippedOptimizer:
+    """optax.chain(clip_by_global_norm(max_grad_norm), <update>(schedule))
+    over parameters whose gradients are in ``.grad``; subclasses give the
+    update (``_update(lr)``) and its state.
 
     The clip is optax's: gradients are scaled by max/||g|| only when
     ||g|| > max (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm).
-    ``torch.optim.AdamW``'s decoupled decay, p <- p - lr*wd*p, and its bias
-    corrections equal optax's adamw; the learning rate is the schedule's at
-    the update count."""
+    The learning rate is the schedule's at the update count."""
 
     def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
         self.params = list(params)
         self.schedule = make_lr_schedule(tc)
         self.max_grad_norm = tc.max_grad_norm
         self.count = 0
-        self.opt = torch.optim.AdamW(self.params, lr=self.schedule(0),
-                                     betas=(tc.adam_b1, tc.adam_b2), eps=tc.adam_eps,
-                                     weight_decay=tc.weight_decay)
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -248,16 +252,139 @@ class ClippedAdamW:
         factor = torch.where(norm > self.max_grad_norm, self.max_grad_norm / norm,
                              torch.ones_like(norm))
         torch._foreach_mul_(grads, factor)
-        for group in self.opt.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.opt.step()
+        self._update(self.schedule(self.count))
         self.count += 1
         return norm
 
+    def _update(self, lr: float) -> None:
+        raise NotImplementedError
 
-def make_optimizer(tc: TrainConfig, params: Sequence[torch.Tensor]) -> ClippedAdamW:
-    """AdamW with global-norm clipping over `params` (the JAX
-    ``make_optimizer`` for ``optimizer="adamw"``, the one ported)."""
+    def state_dict(self) -> dict:
+        raise NotImplementedError
+
+    def load_state_dict(self, state: Mapping) -> None:
+        raise NotImplementedError
+
+
+class ClippedAdamW(ClippedOptimizer):
+    """Clipped AdamW: ``torch.optim.AdamW``'s decoupled decay, p <- p -
+    lr*wd*p, and its bias corrections equal optax's adamw."""
+
+    def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
+        super().__init__(params, tc)
+        self.opt = torch.optim.AdamW(self.params, lr=self.schedule(0),
+                                     betas=(tc.adam_b1, tc.adam_b2), eps=tc.adam_eps,
+                                     weight_decay=tc.weight_decay)
+
+    def _update(self, lr: float) -> None:
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "adamw": self.opt.state_dict()}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        self.count = int(state["count"])
+        self.opt.load_state_dict(state["adamw"])
+
+
+class ClippedProdigy(ClippedOptimizer):
+    """Clipped Prodigy: ``optax.contrib.prodigy``'s update (betas, beta3 =
+    sqrt(b2) unless given, eps, estim_lr0 1e-6, estim_lr_coef 1, AdamW-style
+    decoupled weight decay, safeguard_warmup, the lr schedule as a
+    multiplier of the D estimate), in float32.
+
+    The state is the Adam moments of the D-scaled gradients, the weighted
+    gradient sum, a copy of the initial parameters (a copy, not an alias of
+    them: the JAX wrapper copies for the same reason) and the scalar D
+    estimate and weighted numerator, kept on the parameters' device so no
+    step waits for the host."""
+
+    estim_lr0 = 1e-6
+    estim_lr_coef = 1.0
+
+    def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
+        super().__init__(params, tc)
+        self.betas = (tc.adam_b1, tc.adam_b2)
+        self.beta3 = tc.adam_b2 ** 0.5 if tc.prodigy_beta3 is None else tc.prodigy_beta3
+        self.eps = tc.adam_eps
+        self.weight_decay = tc.weight_decay
+        self.safeguard_warmup = tc.prodigy_safeguard_warmup
+        dev = self.params[0].device
+        self.state = {
+            "exp_avg": [torch.zeros_like(p) for p in self.params],
+            "exp_avg_sq": [torch.zeros_like(p) for p in self.params],
+            "grad_sum": [torch.zeros_like(p) for p in self.params],
+            "params0": [p.detach().clone() for p in self.params],
+            "estim_lr": torch.tensor(self.estim_lr0, dtype=torch.float32, device=dev),
+            "numerator_weighted": torch.zeros((), dtype=torch.float32, device=dev),
+        }
+
+    def _update(self, lr: float) -> None:
+        st, params = self.state, self.params
+        grads = [p.grad for p in params]
+        b1, b2 = self.betas
+        b3, d0 = self.beta3, self.estim_lr0
+        k = self.count + 1
+        bc = math.sqrt(1 - b2 ** k) / (1 - b1 ** k)
+        d = st["estim_lr"]
+        dlr = d * lr * bc
+        # <g, p0 - p> over every tensor (optax.tree.vdot)
+        diffs = torch._foreach_sub(st["params0"], params)
+        numerator = torch.stack([torch.vdot(g.reshape(-1), x.reshape(-1))
+                                 for g, x in zip(grads, diffs)]).sum()
+        del diffs
+        dg = torch._foreach_mul(grads, d)
+        torch._foreach_mul_(st["exp_avg"], b1)
+        torch._foreach_add_(st["exp_avg"], dg, alpha=1 - b1)
+        torch._foreach_mul_(st["exp_avg_sq"], b2)
+        torch._foreach_addcmul_(st["exp_avg_sq"], dg, dg, value=1 - b2)
+        torch._foreach_mul_(dg, (d if self.safeguard_warmup else dlr) / d0)
+        torch._foreach_mul_(st["grad_sum"], b3)
+        torch._foreach_add_(st["grad_sum"], dg)
+        del dg
+        denominator = torch.stack(torch._foreach_norm(st["grad_sum"], 1)).sum()
+        st["numerator_weighted"] = (b3 * st["numerator_weighted"]
+                                    + (d / d0) * dlr * numerator)
+        d_new = torch.maximum(d, self.estim_lr_coef * st["numerator_weighted"] / denominator)
+        st["estim_lr"] = d_new
+        # p <- p - wd*dlr*p - dlr*m / (sqrt(v) + d_new*eps), dlr a device
+        # scalar folded into the denominator as torch's capturable Adam does
+        denom = torch._foreach_sqrt(st["exp_avg_sq"])
+        torch._foreach_add_(denom, d_new * self.eps)
+        torch._foreach_div_(denom, -dlr)
+        torch._foreach_mul_(params, 1 - self.weight_decay * dlr)
+        torch._foreach_addcdiv_(params, st["exp_avg"], denom)
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "prodigy": self.state}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        self.count = int(state["count"])
+        with torch.no_grad():
+            for key, value in state["prodigy"].items():
+                if isinstance(value, torch.Tensor):
+                    self.state[key].copy_(value)
+                else:
+                    for x, y in zip(self.state[key], value, strict=True):
+                        x.copy_(y)
+
+
+OPTIMIZER_ITEM = "ROADMAP Queue 1 item 2"
+
+
+def make_optimizer(tc: TrainConfig, params: Sequence[torch.Tensor]) -> ClippedOptimizer:
+    """AdamW or Prodigy (the reference's LoRA optimizer) with global-norm
+    clipping over `params`, as the JAX ``make_optimizer`` chains them.
+    8-bit AdamW is not ported yet and raises."""
+    if tc.optimizer == "prodigy":
+        return ClippedProdigy(params, tc)
+    if tc.optimizer == "adamw8bit":
+        raise NotImplementedError(f"optimizer 'adamw8bit' (--optimizer adamw8bit / "
+                                  f"--use-8bit-adam) is not ported yet: {OPTIMIZER_ITEM}")
+    if tc.optimizer != "adamw":
+        raise ValueError(f"unknown optimizer {tc.optimizer!r}")
     return ClippedAdamW(params, tc)
 
 
@@ -364,7 +491,7 @@ def make_lora_train_step(tc: TrainConfig, *, attn_impl: str = "auto"):
     {"loss": mean microbatch loss, "grad_norm": global norm before clipping}.
     The gradients stay in ``.grad`` until the next step."""
 
-    def step(model, vae, opt: ClippedAdamW, batch, *, generator=None, noise=None):
+    def step(model, vae, opt: ClippedOptimizer, batch, *, generator=None, noise=None):
         accum = batch["pixel_values"].shape[0]
         if noise is not None and len(noise) != accum:
             raise ValueError(f"noise has {len(noise)} microbatches, the batch {accum}")
