@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero:
      overshoot), with the kernel launch counts checked;
   5. profile: one more denoise step timed unprofiled, then traced with
      torch.profiler: device time by kernel and the device's idle share (and
-     the same for one train step when the train phase runs);
+     the same for one train step when the train phase runs, and for one
+     denoise step of each quantised mode when the quantized phase runs);
   6. train: the serving models freed, full-width models built anew from the
      seed, then 3 LoRA optimizer steps (rank 128) through
      textflux_torch.cli.train.train_lora on one 1024-px sample composed
@@ -50,15 +51,33 @@ Phases, in order; any failure exits non-zero:
      memory per run. Checked: every target's B moved in each run, B's
      state right after the resume equals A's step-3 checkpoint bitwise,
      the export's keys equal the manifest's, and two served row blocks are
-     the base with the export folded in (some elements changed).
-Phase 3 also holds the four training kernels (flash forward, LSE, dQ,
-dK/dV) against their plain versions, the L that the forward writes against
-the plain LSE, and the fused kernel's norm+rope pass (timed alone) against
-its plain version; it checks that a second launch of the forward, dQ and
-dK/dV on the same inputs gives bitwise the same outputs. The train phase
-expects 114 / 0 / 57 / 57 launches of forward / LSE / dQ / dK/dV per step:
-the forward hands its L to the backward. The line before the last holds the
-kernel table as JSON; the last line is {"ok": true, "device": {...}}.
+     the base with the export folded in (some elements changed);
+  9. quantized: that checkpoint served through
+     textflux_torch.cli.run_inference.main with --quantize-mode
+     weight_only, w8a8, nf4 and mixed (T5 int8 weight-only with each), then
+     --staged-text weight_only, 2 steps at the 512 px single-line shape: load
+     seconds, GB/s and device bytes by component, the device's peak over the
+     load and over serving, step ms, fused launches per step and the relative
+     velocity error of one full-depth DiT forward against the bf16 DiT. Fails
+     when a mode breaks the JAX package's divergence bounds on a full-width
+     1-double + 1-single stack (2 / 3 / 25 / 5 %, mixed also under nf4's / 3)
+     or the weight_only load peaks more than 1 GiB above the models' bytes;
+ 10. qlora: in memory (weights made on the card, nothing written): the
+     full-width DiT quantised nf4 in place, rank-128 LoRA with 8-bit AdamW
+     (lr 2e-5, clip 1.0), 3 steps at 4,224 tokens through train_lora, then
+     one step over a weight_only base: step ms, the peak, launches per step
+     (114/0/57/57), the optimizer's state bytes beside AdamW's; every
+     target's B must move.
+Phase 3 runs every kernel at its path's shapes and at the JAX package's
+multi-line serving shape (S = 8704). It also holds the four training
+kernels (flash forward, LSE, dQ, dK/dV) against their plain versions, the
+L that the forward writes against the plain LSE, and the fused kernel's
+norm+rope pass (timed alone) against its plain version; it checks that a
+second launch of the forward, dQ and dK/dV on the same inputs gives
+bitwise the same outputs. The train and qlora phases expect 114 / 0 / 57 /
+57 launches of forward / LSE / dQ / dK/dV per step: the forward hands its L
+to the backward. The line before the last holds the kernel table as JSON;
+the last line is {"ok": true, "device": {...}}.
 
 `--phases` picks a subset (default: all of them).
 """
@@ -67,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -86,7 +106,7 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BF16_TOL = 2e-2              # unit-scale inputs, bf16 rounding of q/k/p/out
 PHASES = ("device", "build", "kernels", "main", "profile", "train", "checkpoint",
-          "train_main")
+          "train_main", "quantized", "qlora")
 
 
 def log(msg: str) -> None:
@@ -242,6 +262,9 @@ def phase_kernels() -> list:
         _attention_case("ragged_s1000", 1, 104, (56, 64), 24, 128, full_axes,
                         per_row=False, gen=gen),
         _attention_case("d64", 2, 64, (32, 32), 8, 64, (16, 24, 24), gen=gen),
+        # the JAX package's multi-line serving shape: a 2048x1024 canvas,
+        # 512 text + 8192 image tokens
+        _attention_case("multiline_s8704", 1, 512, (128, 256), 24, 128, full_axes, gen=gen),
     ]
     rows = []
     failed = []
@@ -359,6 +382,7 @@ def phase_flash_kernels() -> dict:
         # ragged query and key tiles, a batch stride in the tensor maps
         ("batch2_ragged_kv900", 2, 1000, 24, 128, 900, False),
         ("d64", 2, 320, 8, 64, None, False),
+        ("multiline_s8704", 1, 8704, 24, 128, None, False),
     ]
     rows, failed = [], []
     for name, b, s, h, d, kv_len, strided in specs:
@@ -873,34 +897,70 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def _models_bytes(pipe) -> int:
-    return sum(p.numel() * p.element_size() for m in (pipe.flux, pipe.vae, pipe.clip, pipe.t5)
-               if m is not None for p in m.parameters())
+    """Bytes the pipeline's models hold on the device (parameters and the
+    quantised linears' buffers)."""
+    from textflux_torch.io.quantize import quantized_bytes
+
+    return sum(quantized_bytes(m) for m in (pipe.flux, pipe.vae, pipe.clip, pipe.t5)
+               if m is not None)
 
 
 class _Recorder:
     """Wraps FillPipeline.from_pretrained for the runs of main(): resets the
     device's peak before the load and reads it after (the peak of loading
-    alone, before any activation), and keeps the pipeline."""
+    alone, before any activation), then resets it again (what follows is
+    serving), and keeps the pipeline. A deferred DiT's load_transformer()
+    is measured the same way (`staged_load`). Each denoise step of the
+    pipeline is timed with CUDA events (`steps`); `last_step` runs the last
+    one again."""
 
     def __init__(self):
         from textflux_torch.pipeline.fill import FillPipeline
 
         self.cls, self.orig = FillPipeline, FillPipeline.__dict__["from_pretrained"]
-        self.pipe, self.rec = None, {}
+        self.pipe, self.rec, self.steps, self.last_step = None, {}, [], None
+
+    def step_ms(self) -> list:
+        return [s.elapsed_time(e) for s, e in self.steps]
 
     def __enter__(self):
         orig = self.orig.__func__
 
-        def wrapped(cls, *a, **kw):
+        def peak_of(fn):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            pipe = orig(cls, *a, **kw)
+            out = fn()
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            return out, peak
+
+        def wrapped(cls, *a, **kw):
+            pipe, peak = peak_of(lambda: orig(cls, *a, **kw))
             self.pipe = pipe
             self.rec = dict(load=pipe.load_stats, load_peak_bytes=peak,
                             models_bytes=_models_bytes(pipe))
+            inner_step, inner_load = pipe._denoise_step, pipe.load_transformer
+
+            def timed_step(*a, **kw):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = inner_step(*a, **kw)
+                e.record()
+                self.steps.append((s, e))
+                self.last_step = partial(inner_step, *a, **kw)
+                return out
+
+            def measured_load():
+                t0 = time.perf_counter()
+                _, load_peak = peak_of(inner_load)
+                self.rec["staged_load"] = dict(
+                    seconds=time.perf_counter() - t0, load_peak_bytes=load_peak,
+                    transformer=dict(pipe.load_stats["transformer"]),
+                    models_bytes=_models_bytes(pipe))
+
+            pipe._denoise_step, pipe.load_transformer = timed_step, measured_load
             return pipe
 
         self.cls.from_pretrained = classmethod(wrapped)
@@ -1633,6 +1693,329 @@ def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 9. quantized: serve the checkpoint quantised through cli.run_inference.main
+# ---------------------------------------------------------------------------
+
+QUANT_MODES = ("weight_only", "w8a8", "nf4", "mixed")
+# the JAX package's bounds on the relative velocity error of a quantised
+# full-width 1-double + 1-single stack against the same stack in bf16
+# (tests/test_quantize.py); mixed must also stay under nf4's error / 3
+QUANT_BOUNDS = {"weight_only": 0.02, "w8a8": 0.03, "nf4": 0.25, "mixed": 0.05}
+QUANT_STEPS = 2
+
+
+def _rel_l2(out, ref) -> float:
+    a, b = out.double(), ref.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def stack_divergence() -> dict:
+    """Each mode's relative velocity error on a full-width 1-double +
+    1-single stack (random bf16 weights from seed 0) against the same stack
+    in bf16, on the JAX test's inputs (32 text + 128 image tokens, seeded
+    normal draws, timestep 0.5, guidance 30), plain attention."""
+    import copy
+
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.io.quantize import quantize_tree
+    from textflux_torch.models.transformer import FluxTransformer, flux_apply
+    from textflux_torch.ops import packing
+    from textflux_torch.ops.rope import rope_tables
+
+    cfg = dataclasses.replace(flux_fill_config(), num_double_layers=1, num_single_layers=1)
+    base = FluxTransformer(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    ids = np.concatenate([packing.text_ids(32), packing.latent_image_ids(16, 32)], 0)
+    cos, sin = (torch.as_tensor(x, device="cuda")
+                for x in rope_tables(ids, cfg.axes_dims_rope, cfg.rope_theta))
+    rng = np.random.default_rng(0)
+
+    def draw(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), device="cuda").to(torch.bfloat16)
+
+    args = (draw(1, 128, cfg.in_channels), draw(1, 32, cfg.joint_dim), draw(1, cfg.pooled_dim),
+            torch.tensor([0.5], device="cuda", dtype=torch.bfloat16),
+            torch.tensor([30.0], device="cuda"), cos, sin)
+    with torch.inference_mode():
+        ref = flux_apply(base, *args, attn_impl="plain")
+    out = {}
+    for mode in QUANT_MODES:
+        q = quantize_tree(copy.deepcopy(base), mode=mode)
+        with torch.inference_mode():
+            out[mode] = _rel_l2(flux_apply(q, *args, attn_impl="plain"), ref)
+        del q
+    del base
+    return out
+
+
+def _full_depth_inputs(flux_cfg):
+    """One full-depth DiT forward's inputs at the serving shape (512 text +
+    896 image tokens), seeded, with the fused path's rotate-half tables."""
+    from textflux_torch.ops import packing
+    from textflux_torch.ops.rope import rope_tables_half
+
+    ids = np.concatenate([packing.text_ids(512), packing.latent_image_ids(56, 64)], 0)
+    cos, sin = (torch.as_tensor(x, device="cuda")
+                for x in rope_tables_half(ids, flux_cfg.axes_dims_rope, flux_cfg.rope_theta))
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    return (draw(1, 896, flux_cfg.in_channels), draw(1, 512, flux_cfg.joint_dim),
+            draw(1, flux_cfg.pooled_dim), torch.tensor([0.5], device="cuda", dtype=torch.bfloat16),
+            torch.tensor([30.0], device="cuda"), cos, sin)
+
+
+def phase_quantized(smi: str, have_checkpoint: bool, profile: bool = False) -> dict:
+    """Phase 9. Phase 7's checkpoint (written here when no earlier phase
+    did) served through cli.run_inference.main with --quantize-mode
+    weight_only, w8a8, nf4 and mixed (T5 int8 weight-only with each), then
+    with --staged-text (weight_only), 2 euler steps at the 512 px
+    single-line shape. Per run: load seconds, GB/s and device bytes by
+    component, the device's peak over the load and over serving, step ms,
+    fused launches per step, and the relative velocity error of one
+    full-depth forward of the served DiT against the bf16 DiT on the same
+    inputs. Fails when a mode breaks the JAX package's divergence bound on
+    the full-width 1+1 stack, when the weight_only load peaks more than
+    1 GiB above the loaded models' bytes, or when a launch count, the
+    quantised modules or an image are wrong. With `profile`, one more
+    denoise step of each mode is traced (device time by kernel, idle
+    share)."""
+    from PIL import Image
+
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.io.quantize import quantized_linears
+    from textflux_torch.models.transformer import (FluxTransformer, flux_apply,
+                                                   half_permute_flux_params)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not have_checkpoint:
+        _, flux = write_checkpoint(load_manifest())
+        del flux
+        gc.collect()
+        torch.cuda.empty_cache()
+    flux_cfg = flux_fill_config()
+    per_step = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    problems, out = [], {}
+
+    t0 = time.perf_counter()
+    stack = stack_divergence()
+    log("quantized stack " + json.dumps(dict(card=smi, rel_err=stack, bounds=QUANT_BOUNDS,
+                                             seconds=time.perf_counter() - t0)))
+    out["stack_rel_err"] = stack
+    for mode, bound in QUANT_BOUNDS.items():
+        if not stack[mode] < bound:
+            problems.append(f"{mode}: stack velocity error {stack[mode]} >= {bound}")
+    if not stack["mixed"] < stack["nf4"] / 3:
+        problems.append(f"mixed's stack error {stack['mixed']} is not under nf4's / 3")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the bf16 reference of the full-depth forward: the checkpoint's DiT is
+    # the seed-0 model, half-permuted as the served one is
+    inputs = _full_depth_inputs(flux_cfg)
+    ref_flux = half_permute_flux_params(FluxTransformer(
+        flux_cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(0)))
+    with torch.inference_mode():
+        ref_v = flux_apply(ref_flux, *inputs, attn_impl="fused")
+    del ref_flux
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    outdir = os.path.join(CKPT_DIR, "quantized_out")
+    shutil.rmtree(outdir, ignore_errors=True)   # result_000<i + 1> is run i's
+    argv = ["--model", CKPT_DIR, "--image", EXAMPLE_PATHS[0], "--mask", EXAMPLE_PATHS[1],
+            "--words", EXAMPLE_PATHS[2], "--seed", "0", "--steps", str(QUANT_STEPS),
+            "--output-dir", outdir]
+    with byte_tokenizers("quantized"):
+        runs = [(mode, ["--quantize-mode", mode]) for mode in QUANT_MODES]
+        runs.append(("staged_weight_only", ["--quantize-mode", "weight_only", "--staged-text"]))
+        for i, (name, extra) in enumerate(runs):
+            mode = extra[1]
+            with _Recorder() as recorder:
+                rec = _run_main(argv + extra, recorder, QUANT_STEPS, per_step)
+            pipe = recorder.pipe
+            rec.update(card=smi, mode=mode, step_ms=recorder.step_ms(),
+                       serve_peak_bytes=torch.cuda.max_memory_allocated(),
+                       launches_per_step=rec["launches"] / QUANT_STEPS,
+                       dit_device_bytes=pipe.load_stats["transformer"]["device_bytes"],
+                       t5_device_bytes=pipe.load_stats["t5"]["device_bytes"],
+                       dit_modes=sorted(set(quantized_linears(pipe.flux).values())),
+                       dit_quantized_linears=len(quantized_linears(pipe.flux)),
+                       # a staged run has released T5: its load_stats remain
+                       t5_modes=(None if pipe.t5 is None
+                                 else sorted(set(quantized_linears(pipe.t5).values()))))
+            with torch.inference_mode():
+                rec["full_depth_rel_err"] = _rel_l2(
+                    flux_apply(pipe.flux, *inputs, attn_impl="fused"), ref_v)
+            rec["image"] = _image_stats(Image.open(os.path.join(outdir,
+                                                                f"result_{i + 1:04d}.png")))
+            log(f"quantized {name} " + json.dumps(rec))
+            if profile and name in QUANT_MODES:
+                profile_step(recorder.last_step, what=f"quantized {name} denoise step")
+            out[name] = rec
+            del pipe, recorder
+            gc.collect()
+            torch.cuda.empty_cache()
+            # at full width every input is a multiple of 128: no nf4 fallback
+            want_modes = ["nf4", "weight_only"] if mode == "mixed" else [mode]
+            if rec["launches"] != rec["expected_launches"]:
+                problems.append(f"{name}: fused kernel launched {rec['launches']} times, "
+                                f"expected {rec['expected_launches']}")
+            t5_stats = rec["load"]["t5"]
+            if (rec["dit_modes"] != want_modes or rec["t5_modes"] not in (None, ["weight_only"])
+                    or t5_stats["device_bytes"] > 0.55 * t5_stats["bytes"]):
+                problems.append(f"{name}: DiT modes {rec['dit_modes']} (expected {want_modes}),"
+                                f" T5 {rec['t5_modes']}, {t5_stats}")
+            if not rec["image"]["finite"] or rec["image"]["std"] <= 0:
+                problems.append(f"{name}: image not finite/non-constant {rec['image']}")
+            if not np.isfinite(rec["full_depth_rel_err"]):
+                problems.append(f"{name}: the full-depth forward is not finite")
+        # loading holds no full-size transient copy on the device
+        r = out["weight_only"]
+        if r["load_peak_bytes"] > r["models_bytes"] + 2 ** 30:
+            problems.append(f"weight_only: load peak {r['load_peak_bytes']} > models "
+                            f"{r['models_bytes']} + 1 GiB")
+    if problems:
+        raise AssertionError("quantized phase: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 10. qlora: LoRA over a quantised base with 8-bit AdamW, in memory
+# ---------------------------------------------------------------------------
+
+QLORA_STEPS = 3
+
+
+def _qlora_run(base_mode: str, steps: int, models, sample, per_step) -> dict:
+    """`steps` LoRA steps (rank 128, alpha 128, adamw8bit at lr 2e-5, clip
+    1.0) through train_lora over the seed-0 full-width DiT quantised in
+    place with `base_mode`; launch counts, step ms, peak, the optimizer's
+    state bytes, and each target's B against its zero init."""
+    from textflux_torch.cli.train import train_lora
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.io.quantize import quantize_tree, quantized_bytes, quantized_linears
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.ops import flash_attention as FA
+    from textflux_torch.training import train as TR
+    from textflux_torch.training.optim8bit import state_bytes
+
+    vae, clip, t5 = models
+    t0 = time.perf_counter()
+    flux = FluxTransformer(flux_fill_config(), device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    bf16_bytes = quantized_bytes(flux)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    quantize_tree(flux, mode=base_mode)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t1
+    base_bytes = quantized_bytes(flux)   # before the factors are attached
+    tc = TR.TrainConfig(optimizer="adamw8bit")   # lr 2e-5, clip 1.0, rank 128, alpha 128
+    starts, ends, counts = [], [], []
+
+    def batches():
+        while True:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            yield sample
+
+    def on_step(step, metrics, lora):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        counts.append({k: getattr(FA, k).launches for k in FLASH_KERNELS})
+
+    for k in FLASH_KERNELS:
+        getattr(FA, k).launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = {}
+    lora, history = train_lora(flux, vae, clip, t5, batches(), tc=tc,
+                               clip_tokenize=clip_byte_tokenize, t5_tokenize=t5_byte_tokenize,
+                               steps=steps, seed=0, log_every=1, on_step=on_step, state=state)
+    torch.cuda.synchronize()
+    prev, by_step = {k: 0 for k in FLASH_KERNELS}, []
+    for c in counts:
+        by_step.append({k: c[k] - prev[k] for k in FLASH_KERNELS})
+        prev = c
+    n_params = sum(p.numel() for p in TR.lora_parameters(lora))
+    rec = dict(base=base_mode, steps=steps, init_s=t1 - t0, quantize_s=quantize_s,
+               dit_bf16_bytes=bf16_bytes, dit_device_bytes=base_bytes,
+               dit_modes=sorted(set(quantized_linears(flux).values())),
+               step_ms=[s.elapsed_time(e) for s, e in zip(starts, ends)],
+               history=history, launches={k: getattr(FA, k).launches for k in FLASH_KERNELS},
+               launches_per_step=by_step, expected_per_step=per_step,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               lora_params=n_params, state_bytes=state_bytes(state["opt_state"]),
+               # torch's AdamW: two float32 moments and a float32 step per tensor
+               adamw_state_bytes=8 * n_params + 4 * 2 * len(lora),
+               b_targets=len(lora),
+               b_targets_moved=sum(bool(f["b"].detach().abs().max() > 0) for f in lora.values()))
+    del flux, lora, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_qlora(smi: str) -> dict:
+    """Phase 10, in memory (like phase 6: weights made on the card from
+    seed 0, nothing written to disk): 3 QLoRA steps over an nf4 base with
+    adamw8bit at 4,224 tokens, then one step over a weight_only base.
+    Fails on a non-finite loss, a launch count other than 114/0/57/57 a
+    step, or a target whose B did not move."""
+    from textflux_torch.config import clip_l_config, flux_fill_config, flux_vae_config, t5_xxl_config
+    from textflux_torch.models.clip import CLIPTextModel
+    from textflux_torch.models.t5 import T5Encoder
+    from textflux_torch.models.vae import FluxVAE
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt = torch.bfloat16
+    models = (FluxVAE(flux_vae_config(), device="cuda", dtype=dt, generator=gen),
+              CLIPTextModel(clip_l_config(), device="cuda", dtype=dt, generator=gen),
+              T5Encoder(t5_xxl_config(), device="cuda", dtype=dt, generator=gen))
+    sample = training_sample()
+    _, _, hp, wp, _ = sample["pixel_values"].shape
+    flux_cfg = flux_fill_config()
+    blocks = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    per_step = {"flash_attention": 2 * blocks, "flash_attention_lse": 0,
+                "flash_attention_dq": blocks, "flash_attention_dkv": blocks}
+    out, problems = {}, []
+    for base_mode, steps in (("nf4", QLORA_STEPS), ("weight_only", 1)):
+        rec = _qlora_run(base_mode, steps, models, sample, per_step)
+        rec.update(card=smi, joint_seq=512 + (hp // 16) * (wp // 16))
+        log(f"qlora {base_mode} " + json.dumps(rec))
+        out[base_mode] = rec
+        for e in rec["history"]:
+            if not (np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"])
+                    and e["grad_norm"] > 0):
+                problems.append(f"{base_mode} step {e['step']}: loss {e['loss']} "
+                                f"grad_norm {e['grad_norm']}")
+        if len(rec["launches_per_step"]) != steps or any(
+                c != per_step for c in rec["launches_per_step"]):
+            problems.append(f"{base_mode}: launched {rec['launches_per_step']}, "
+                            f"expected {per_step} a step")
+        if rec["b_targets_moved"] != rec["b_targets"]:
+            problems.append(f"{base_mode}: B of {rec['b_targets'] - rec['b_targets_moved']} "
+                            f"of {rec['b_targets']} targets did not move")
+        if rec["dit_modes"] != [base_mode]:
+            problems.append(f"{base_mode}: DiT modes {rec['dit_modes']}")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("qlora phase: " + "; ".join(problems))
+    return out
+
+
 def _ckpt_launches(ckpt_rec) -> dict:
     if not ckpt_rec:
         return {}
@@ -1643,12 +2026,16 @@ def _ckpt_launches(ckpt_rec) -> dict:
             "checkpoint_single_item": g["single_launches"]}
 
 
-def _fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec=None, tm_rec=None) -> dict:
+def _fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec=None, tm_rec=None,
+                 q_rec=None) -> dict:
     serving = next((r for r in kernel_rows if r["case"] == "serving"), None)
     by_run = {k: v["launches"] for k, v in main_rec["runs"].items()} if main_rec else {}
     by_run.update(_ckpt_launches(ckpt_rec))
     if tm_rec:
         by_run["train_main_round_trip"] = tm_rec["export"]["round_trip_launches"]
+    for name, r in (q_rec or {}).items():
+        if name != "stack_rel_err":
+            by_run[f"quantized_{name}"] = r["launches"]
     entry = dict(
         name="flash_attention_qk_norm_rope", route="cuda",
         source="textflux_torch/csrc/fused_attention.cu",
@@ -1685,16 +2072,18 @@ FLASH_FUNCTIONS = {"flash_attention": "flash_fwd_sm90_kernel",
                    "flash_attention_dkv": "flash_dkv_sm90_kernel"}
 
 
-def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None) -> list:
+def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None) -> list:
     """One JSON entry per training kernel: times at the `train` case,
-    launches from the train phase and the train_main phase's runs A and B
-    (all steps, by run, and per step)."""
+    launches from the train phase, the train_main phase's runs A and B and
+    the qlora phase's runs (all steps, by run, and per step)."""
     train = flash_rows.get("train")
     runs = {}
     if train_rec:
         runs["train"] = train_rec
     for key in ("A", "B") if tm_rec else ():
         runs[f"train_main_{key}"] = tm_rec[key]
+    for key, r in (qlora_rec or {}).items():
+        runs[f"qlora_{key}"] = r
     out = []
     for name in FLASH_KERNELS:
         by_run = {k: r["launches"][name] for k, r in runs.items()}
@@ -1738,21 +2127,26 @@ def main() -> int:
     phases = args.phases.split(",")
     dev = phase_device()
     build_rec = {}
-    if {"build", "kernels", "main", "train", "checkpoint", "train_main"} & set(phases):
+    if set(PHASES[1:]) & set(phases):
         build_rec = phase_build()
     kernel_rows = phase_kernels() if "kernels" in phases else []
     flash_rows = phase_flash_kernels() if "kernels" in phases else {}
     main_rec = phase_main("profile" in phases) if "main" in phases else None
     train_rec = phase_train("profile" in phases) if "train" in phases else None
+    smi = dev["nvidia_smi"]
     try:   # the checkpoint phases share the one under CKPT_DIR
         ckpt_rec = phase_checkpoint() if "checkpoint" in phases else None
-        tm_rec = (phase_train_main(dev["nvidia_smi"], have_checkpoint=ckpt_rec is not None)
+        tm_rec = (phase_train_main(smi, have_checkpoint=ckpt_rec is not None)
                   if "train_main" in phases else None)
+        q_rec = (phase_quantized(smi, have_checkpoint=bool(ckpt_rec or tm_rec),
+                                 profile="profile" in phases)
+                 if "quantized" in phases else None)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    qlora_rec = phase_qlora(smi) if "qlora" in phases else None
 
-    kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec, tm_rec)]
-    kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec)
+    kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec, tm_rec, q_rec)]
+    kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec, qlora_rec)
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

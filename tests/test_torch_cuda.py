@@ -56,7 +56,10 @@ def _case(cuda, *, b, t_txt, lat_hw, h, d, axes, per_row):
          kv_len=None),
     dict(b=2, t_txt=64, lat_hw=(32, 32), h=8, d=64, axes=(16, 24, 24), per_row=False,
          kv_len=None),
-], ids=["serving", "serving_kv_len", "ragged_s1000", "d64"])
+    # the multi-line serving shape: a 2048x1024 canvas, 512 + 8192 tokens
+    dict(b=1, t_txt=512, lat_hw=(128, 256), h=24, d=128, axes=(16, 56, 56), per_row=True,
+         kv_len=None),
+], ids=["serving", "serving_kv_len", "ragged_s1000", "d64", "multiline_s8704"])
 def test_kernel_matches_plain_version(case, cuda):
     kv_len = case.pop("kv_len")
     q, k, v, cos, sin, qs, ks = _case(cuda, **case)
@@ -140,7 +143,9 @@ def _flash_inputs(cuda, b, s, h, d, strided):
     (1, 1408, 8, 128, None, True),
     (2, 320, 8, 64, 250, False),
     (2, 1000, 24, 128, 900, False),
-], ids=["s1408", "kv_len1300", "ragged_s1000", "strided", "d64_kv_len", "batch2_ragged_kv900"])
+    (1, 8704, 24, 128, None, False),
+], ids=["s1408", "kv_len1300", "ragged_s1000", "strided", "d64_kv_len", "batch2_ragged_kv900",
+        "multiline_s8704"])
 def test_flash_kernels_match_plain_versions(b, s, h, d, kv_len, strided, cuda):
     q, k, v, do = _flash_inputs(cuda, b, s, h, d, strided)
     n = s if kv_len is None else kv_len
@@ -224,3 +229,57 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
         FA.flash_attention_dq(q, k, v, do, lse.to(torch.bfloat16), lse)
     with pytest.raises(ValueError, match="kv_len"):
         FA.flash_attention_dkv(q, k, v, do, lse, lse, kv_len=65)
+
+
+# ---------------------------------------------------------------------------
+# quantised dense on the card
+# ---------------------------------------------------------------------------
+
+def _quant_linear(cuda, mode, d_in=3072, d_out=1536):
+    from textflux_torch.io.quantize import QuantLinear
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lin = torch.nn.Linear(d_in, d_out, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn(d_out, d_in, generator=g, device=cuda) / d_in ** 0.5)
+        lin.bias.copy_(torch.randn(d_out, generator=g, device=cuda))
+    return QuantLinear.from_linear(lin, mode)
+
+
+@pytest.mark.parametrize("rows", [1, 6, 1408])
+def test_w8a8_dense_on_the_card_matches_the_cpu(rows, cuda):
+    """w8a8 dense on the card (torch._int_mm; fewer than 17 rows padded)
+    against the same call on the CPU. The int32 products of the same codes
+    are equal bitwise. The per-token scale amax/127 may differ in its last
+    bit between the two (CUDA divides by a scalar as a product with its
+    reciprocal), so an activation that lands on a half rounds to the
+    neighbouring code on one side: each such element moves an output by
+    at most s * max|w| (one code of x times the largest weight), the
+    tolerance below."""
+    from textflux_torch.io.quantize import int_mm
+    from textflux_torch.models.layers import dense
+
+    q = _quant_linear(cuda, "w8a8")
+    g = torch.Generator(device=cuda).manual_seed(4)
+    xq = torch.randint(-127, 128, (rows, 3072), generator=g, device=cuda).to(torch.int8)
+    assert torch.equal(int_mm(xq, q.w_q8a8).cpu(), int_mm(xq.cpu(), q.w_q8a8.cpu()))
+    x = torch.randn(rows, 3072, generator=g, device=cuda, dtype=torch.float32)
+    got = dense(q, x)
+    want = dense(q.to("cpu"), x.cpu())
+    assert got.shape == (rows, 1536)
+    one_code = float(x.abs().amax() / 127 * (q.scale.amax() * 127))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=2 * one_code)
+
+
+@pytest.mark.parametrize("mode", ["weight_only", "nf4"])
+def test_quantized_dense_in_bf16_matches_the_dequantized_product(mode, cuda):
+    """bf16 activations through the dequantise-on-read path against the
+    float32 product with the float32 dequantised weight."""
+    from textflux_torch.models.layers import dense
+
+    q = _quant_linear(cuda, mode)
+    x = torch.randn(2, 1408, 3072, generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda)
+    got = dense(q, x.to(torch.bfloat16)).float()
+    want = torch.nn.functional.linear(x, q.dequantize(torch.float32), q.bias.float())
+    assert _rel(got, want) <= BF16_TOL

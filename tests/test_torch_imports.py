@@ -22,7 +22,8 @@ for name in ("textflux_torch.io.params", "textflux_torch.io.lora", "textflux_tor
              "textflux_torch.cli.run_inference", "textflux_torch.cli.train",
              "textflux_torch.data.native", "textflux_torch.data.anytext",
              "textflux_torch.data.dataset", "textflux_torch.data.loader",
-             "textflux_torch.training.checkpoint", "textflux_torch.utils.tracking"):
+             "textflux_torch.training.checkpoint", "textflux_torch.utils.tracking",
+             "textflux_torch.io.quantize", "textflux_torch.training.optim8bit"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "safetensors", "transformers")

@@ -1,7 +1,8 @@
 """The port's serving entry points held against the JAX package on a tiny
 diffusers-layout checkpoint on disk: tokenizers, the tiled VAE,
 FillPipeline.from_pretrained (with and without a LoRA folded in),
-generate_batch (B = 2, padded), and cli.run_inference.main on the CPU.
+generate_batch (B = 2, padded), and cli.run_inference.main on the CPU
+(quantised serving is held in test_torch_quantize.py).
 CPU, float32; the JAX draws are handed to the port through ``noise=``."""
 
 import os
@@ -218,5 +219,21 @@ def test_main_on_cpu_writes_artifacts(checkpoint, tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:
         main(missing)
     assert exc.value.code == 2 and "file not found" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a quantize mode implies --quantize: the DiT and T5 load int8 (every
+    # linear: at these widths none reaches the default min_size)
+    loaded = []
+    record = FillPipeline.__dict__["from_pretrained"].__func__
+
+    def kept(cls, *a, **kw):
+        loaded.append(record(cls, *a, **kw))
+        return loaded[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("textflux_torch.io.quantize.MIN_SIZE", 0)
+        mp.setattr(FillPipeline, "from_pretrained", classmethod(kept))
         main(base + ["--quantize-mode", "w8a8"])
+    assert (out / "result_0003.png").exists()
+    from textflux_torch.io.quantize import quantized_linears
+
+    assert set(quantized_linears(loaded[0].flux).values()) == {"w8a8"}
+    assert set(quantized_linears(loaded[0].t5).values()) == {"weight_only"}

@@ -2,8 +2,8 @@
 LoRA warm start against the JAX package's import, the checkpoint manager,
 the per-step noise stream over a resume (train_lora and main()), and
 cli.train.main() end to end on a tiny diffusers-layout checkpoint: export
-and serving round trip, SIGTERM preemption, its SystemExits and the choices
-that are not ported yet."""
+and serving round trip (AdamW, Prodigy and 8-bit AdamW), SIGTERM
+preemption, its SystemExits and the choices that are not ported yet."""
 
 import dataclasses
 import json
@@ -120,8 +120,12 @@ def test_prodigy_matches_jax_make_optimizer(rng):
 
 
 def test_make_optimizer_refuses_adamw8bit():
-    with pytest.raises(NotImplementedError, match="item 2"):
-        TR.make_optimizer(TR.TrainConfig(optimizer="adamw8bit"), [torch.zeros(2)])
+    """adamw8bit is ported (held to JAX in test_torch_quantize.py): it gives
+    the 8-bit optimizer; an optimizer name the trainer lacks is refused."""
+    assert isinstance(TR.make_optimizer(TR.TrainConfig(optimizer="adamw8bit"),
+                                        [torch.zeros(2)]), TR.ClippedAdamW8bit)
+    with pytest.raises(ValueError, match="unknown optimizer 'adamw4bit'"):
+        TR.make_optimizer(TR.TrainConfig(optimizer="adamw4bit"), [torch.zeros(2)])
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +232,7 @@ def _assert_trees_equal(a, b):
         assert a == b
 
 
-@pytest.mark.parametrize("optimizer", ["adamw", "prodigy"])
+@pytest.mark.parametrize("optimizer", ["adamw", "prodigy", "adamw8bit"])
 def test_checkpoint_round_trip_and_rotation(optimizer, tmp_path):
     ckpt = CheckpointManager(str(tmp_path / "checkpoints"), max_to_keep=2)
     states = {}
@@ -351,7 +355,8 @@ def _export(out_dir):
     return load_safetensors_dir(str(out_dir / "pytorch_lora_weights.safetensors"))
 
 
-@pytest.mark.parametrize("optimizer,lr", [("adamw", "1e-2"), ("prodigy", "1")])
+@pytest.mark.parametrize("optimizer,lr", [("adamw", "1e-2"), ("prodigy", "1"),
+                                          ("adamw8bit", "1e-2")])
 def test_main_resume_is_bitwise_and_serves(optimizer, lr, checkpoint, tmp_path, rng, capsys):
     """4 steps straight against 2, then 2 more resumed from the checkpoint,
     on a one-image dataset at one resolution (so the data depend on neither
@@ -469,15 +474,30 @@ def test_main_exits_on_data_it_cannot_batch(checkpoint, tmp_path, rng):
                        "--train-batch-size", "2", "--bucket-quant", "32"))
 
 
+# each trainer choice beside the ROADMAP item that ports it; items 4 and the
+# adamw8bit half of 2 are ported
+PORTED_CHOICES = (["--optimizer", "adamw8bit"], ["--use-8bit-adam"], ["--quantize-base", "nf4"])
+
+
 @pytest.mark.parametrize("extra,item", [
     (["--mode", "attn"], "item 2"), (["--mode", "all"], "item 2"),
     (["--optimizer", "adamw8bit"], "item 2"), (["--use-8bit-adam"], "item 2"),
     (["--quantize-base", "nf4"], "item 4"), (["--mesh", "1,2,1"], "item 6"),
     (["--loader-procs", "2"], "item 7")])
 def test_main_refuses_unported_choices(extra, item, tmp_path):
+    """An unported choice raises naming its item; a ported one passes the
+    check and main() goes on to read the (absent) data."""
     argv = _argv("unused", str(tmp_path), tmp_path / "out") + extra
+    if extra in PORTED_CHOICES:
+        CLI.check_ported(CLI.parse_args(argv))
+        with pytest.raises(FileNotFoundError):
+            CLI.main(argv)
+        return
     with pytest.raises(NotImplementedError, match=item):
         CLI.main(argv)
+    if extra[0] == "--mode":   # with --quantize-base, the JAX trainer's own message
+        with pytest.raises(SystemExit, match="--quantize-base requires --mode lora"):
+            CLI.main(argv + ["--quantize-base", "weight_only"])
 
 
 def test_main_defaults_to_cuda(tmp_path, monkeypatch):

@@ -8,6 +8,7 @@ The port of ``textflux_tpu/cli/run_inference.py``:
       --image ori.png --mask mask.png --words words.txt \
       [--lora path] [--steps 30] [--guidance-scale 30] [--seed 42]
       [--scheduler default|overshoot] [--staged-text] [--output-dir outputs]
+      [--quantize] [--quantize-mode weight_only|w8a8|nf4|mixed] [--no-quantize-t5]
       [--device cuda|cpu]
 
 Loads a diffusers-layout checkpoint onto the device (a LoRA folded in at
@@ -15,8 +16,9 @@ load), auto-detects single-line (glyph strip stacked above) vs multi-line
 (per-region rotated glyphs) conditioning from the word file, mirrors the
 reference's //32 snap and saves the same artifact set (full result, crop,
 mask, ori, rendered, txt). Runs on CUDA unless ``--device cpu`` is asked.
-The quantize flags are parsed as the JAX CLI parses them but fail: quantised
-serving is not ported yet (ROADMAP Queue 1 item 11).
+``--quantize`` serves an int8 DiT (``--quantize-mode``: weight_only, the
+default; w8a8; nf4; mixed; a mode implies ``--quantize``), quantised as it
+loads, with T5 int8 weight-only unless ``--no-quantize-t5``.
 """
 
 from __future__ import annotations
@@ -133,15 +135,19 @@ def main(argv=None):
                    help="AMO overshoot strength (default 2.0)")
     p.add_argument("--font", default=None)
     p.add_argument("--quantize", action="store_true",
-                   help="int8 DiT (not ported yet: ROADMAP Queue 1 item 11)")
+                   help="quantise the DiT as it loads (int8 weight-only by default)")
     p.add_argument("--quantize-mode", choices=["weight_only", "w8a8", "nf4", "mixed"],
                    default=None,
-                   help="passing a mode implies --quantize (not ported yet)")
+                   help="weight_only: int8 codes dequantised into the matmuls; w8a8: "
+                        "int8 x int8 products; nf4: 4-bit codes; mixed: int8 on the "
+                        "input/output modules, nf4 inside the blocks. Passing a mode "
+                        "implies --quantize")
     p.add_argument("--staged-text", action="store_true",
                    help="staged residency: encode the prompt, free the text "
                         "encoders, then load the DiT")
     p.add_argument("--no-quantize-t5", action="store_true",
-                   help="keep the T5 encoder unquantised when --quantize is on")
+                   help="keep the T5 encoder unquantised when --quantize is on "
+                        "(default: T5 goes int8 weight-only with the DiT)")
     p.add_argument("--output-dir", default="outputs")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)

@@ -6,7 +6,9 @@ The port of ``textflux_tpu/cli/train.py``'s LoRA path (``--mode lora``):
       --model /path/to/FLUX.1-Fill-dev [--transformer path] \\
       --data-json data.json --data-images imgs/      (AnyWord single-line)
       | --data-dir combined/ [--multi-dataset]       (pre-combined folders)
-      --output-dir out/ --mode lora [--lora-rank 128] [--optimizer adamw|prodigy]
+      --output-dir out/ --mode lora [--lora-rank 128]
+      [--optimizer adamw|adamw8bit|prodigy] [--use-8bit-adam]
+      [--quantize-base none|weight_only|nf4]
       [--learning-rate 2e-5] [--train-batch-size 1] [--grad-accum 8]
       [--max-train-steps 10000] [--checkpointing-steps 5000]
       [--resume-from-checkpoint latest] [--pretrained-lora file]
@@ -14,7 +16,10 @@ The port of ``textflux_tpu/cli/train.py``'s LoRA path (``--mode lora``):
 
 Per optimizer step: the batch's prompts are encoded (CLIP pooled + T5,
 frozen), then one step of ``training.train.make_lora_train_step`` runs over
-the frozen base with the LoRA factors attached. Each step draws its noise
+the frozen base with the LoRA factors attached. ``--quantize-base`` stores
+the frozen DiT int8 weight-only or NF4, quantised as it loads (QLoRA);
+``--optimizer adamw8bit`` (or ``--use-8bit-adam``) keeps Adam's moments in
+blockwise int8. Each step draws its noise
 from a generator seeded from (seed, step), as the JAX trainer folds the step
 into its key, so a resumed run continues the stream. Checkpoints (factors,
 optimizer state, step) rotate under ``<output>/checkpoints/``; SIGTERM
@@ -24,9 +29,9 @@ finishes the step, saves and exits; the trained factors are written as
 
 Runs on CUDA unless ``--device cpu`` is asked. The JAX flags parse
 unchanged; the choices not ported yet raise, naming their ROADMAP item:
-``--mode attn|all``, ``--optimizer adamw8bit`` and ``--use-8bit-adam``
-(Queue 1 item 2), ``--quantize-base`` (item 4), a ``--mesh`` over more than
-one device (item 6), ``--loader-procs > 0`` (item 7). ``train_lora`` is the
+``--mode attn|all`` (Queue 1 item 2, which waits for multi-GPU: the
+full-parameter modes need more memory than one card holds), a ``--mesh``
+over more than one device (item 6), ``--loader-procs > 0`` (item 7). ``train_lora`` is the
 in-memory entry: built models and collated batches in, factors out.
 """
 
@@ -192,8 +197,9 @@ def train_lora(
 # the command line
 # ---------------------------------------------------------------------------
 
+# --mode attn|all loads the DiT in fp32 (~95 GB before activations): it waits
+# for multi-GPU training
 ITEM_FULL_PARAM = "ROADMAP Queue 1 item 2"
-ITEM_QUANTIZED = "ROADMAP Queue 1 item 4"
 ITEM_MULTI_GPU = "ROADMAP Queue 1 item 6"
 
 
@@ -215,8 +221,8 @@ def parse_args(argv=None):
     p.add_argument("--lora-alpha", type=float, default=128.0)
     p.add_argument("--quantize-base", choices=["none", "weight_only", "nf4"],
                    default="none",
-                   help=f"LoRA mode only: quantise the frozen base DiT (not ported yet, "
-                        f"{ITEM_QUANTIZED})")
+                   help="LoRA mode only: quantise the frozen base DiT as it loads "
+                        "(int8 weight-only or NF4; QLoRA); the LoRA factors train in fp32")
     p.add_argument("--learning-rate", type=float, default=2e-5)
     p.add_argument("--adam-beta1", type=float, default=0.9)
     p.add_argument("--adam-beta2", type=float, default=0.999)
@@ -236,10 +242,9 @@ def parse_args(argv=None):
                         "pytorch_lora_weights.safetensors (reference "
                         "train_lora.py:536-553)")
     p.add_argument("--optimizer", choices=["adamw", "adamw8bit", "prodigy"],
-                   default="adamw",
-                   help=f"adamw8bit is not ported yet ({ITEM_FULL_PARAM})")
+                   default="adamw")
     p.add_argument("--use-8bit-adam", action="store_true",
-                   help=f"int8 blockwise Adam moments (not ported yet, {ITEM_FULL_PARAM})")
+                   help="int8 blockwise Adam moments (reference --use_8bit_adam)")
     p.add_argument("--prodigy-beta3", type=float, default=None,
                    help="prodigy D-estimate momentum (default sqrt(beta2), "
                         "reference --prodigy_beta3)")
@@ -307,16 +312,14 @@ def parse_args(argv=None):
 
 
 def check_ported(args) -> None:
-    """Raise on a choice the port does not have yet, naming its ROADMAP item."""
+    """Exit on a choice the JAX trainer refuses, with its message; raise on
+    one the port does not have yet, naming its ROADMAP item."""
+    if args.quantize_base != "none" and args.mode != "lora":
+        raise SystemExit("--quantize-base requires --mode lora (full-param "
+                         "training cannot update a quantized base)")
     if args.mode != "lora":
         raise NotImplementedError(f"--mode {args.mode} (full-parameter training) is not "
                                   f"ported yet: {ITEM_FULL_PARAM}; pass --mode lora")
-    if args.use_8bit_adam or args.optimizer == "adamw8bit":
-        raise NotImplementedError("8-bit AdamW (--optimizer adamw8bit / --use-8bit-adam) "
-                                  f"is not ported yet: {ITEM_FULL_PARAM}")
-    if args.quantize_base != "none":
-        raise NotImplementedError(f"--quantize-base {args.quantize_base} is not ported yet: "
-                                  f"{ITEM_QUANTIZED}")
     if args.mesh and math.prod(int(x) for x in args.mesh.split(",")) > 1:
         raise NotImplementedError(f"--mesh {args.mesh} spans more than one device; "
                                   f"multi-GPU training is not ported yet: {ITEM_MULTI_GPU}")
@@ -375,8 +378,9 @@ def resume_step(want: str, ckpt) -> Optional[int]:
 
 def load_models(args, dev: torch.device):
     """The frozen models from a diffusers-layout directory: the DiT in bf16
-    in the checkpoint's interleaved q/k layout (the training attention
-    takes it as it is), the VAE, CLIP and T5 in bf16; and the tokenizers."""
+    (quantised as it streams in with ``--quantize-base``) in the
+    checkpoint's interleaved q/k layout (the training attention takes it as
+    it is), the VAE, CLIP and T5 in bf16; and the tokenizers."""
     from textflux_torch.io.config_io import (clip_config_from, flux_config_from,
                                              t5_config_from, vae_config_from)
     from textflux_torch.io.params import load_checkpoint_dir, load_flux_transformer
@@ -384,7 +388,9 @@ def load_models(args, dev: torch.device):
 
     t_path = args.transformer or os.path.join(args.model, "transformer")
     flux_cfg = flux_config_from(t_path)
-    flux = load_flux_transformer(t_path, flux_cfg, dtype=torch.bfloat16, device=dev)
+    flux = load_flux_transformer(
+        t_path, flux_cfg, dtype=torch.bfloat16, device=dev,
+        quantize=None if args.quantize_base == "none" else args.quantize_base)
     parts = []
     for sub, cfg_from in (("vae", vae_config_from), ("text_encoder", clip_config_from),
                           ("text_encoder_2", t5_config_from)):
@@ -419,7 +425,7 @@ def main(argv=None):
 
     tc = TR.TrainConfig(
         learning_rate=args.learning_rate,
-        optimizer=args.optimizer,
+        optimizer="adamw8bit" if args.use_8bit_adam else args.optimizer,
         lr_scheduler=("constant" if args.lr_scheduler == "constant_with_warmup"
                       else args.lr_scheduler),
         lr_warmup_steps=args.lr_warmup_steps,

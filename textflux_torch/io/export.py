@@ -25,14 +25,18 @@ def export_flux_state_dict(model) -> Dict[str, torch.Tensor]:
     """A FluxTransformer -> the diffusers FluxTransformer2DModel state dict,
     as views of its parameters. Raises on a model whose q/k weights were
     half-permuted for the fused attention path (``rope_layout == "half"``):
-    its q/k rows are not the checkpoint's."""
+    its q/k rows are not the checkpoint's; and on a quantised one, whose
+    weights no longer hold the checkpoint's values."""
     if model.rope_layout != "interleaved":
         raise ValueError(
             f"the model's q/k weights are in the {model.rope_layout!r} layout "
             "(half_permute_flux_params, done by FillPipeline on the fused path); "
             "export needs the checkpoint's 'interleaved' layout")
-    return {k: (p if rows is None else p[rows]).detach()
-            for k, (p, rows) in flux_key_map(model).items()}
+    keys = flux_key_map(model)
+    if any(not isinstance(p, torch.Tensor) for p, _ in keys.values()):
+        raise ValueError("the model is quantised (io.quantize.QuantLinear): export the "
+                         "full-precision weights it was loaded from")
+    return {k: (p if rows is None else p[rows]).detach() for k, (p, rows) in keys.items()}
 
 
 # LoRA target -> its diffusers sub-modules, in fused row order, with sizes

@@ -7,6 +7,10 @@ returns the port's module for that config: ``FluxTransformer``, ``FluxVAE``,
 read works. The layout changes, each written out below:
 
   * dense ``w`` (in, out)            -> ``nn.Linear.weight`` (out, in)
+  * a quantised dense leaf (``w_q`` / ``w_q8a8`` / ``w_nf4`` with their
+    scales, the JAX ``io.quantize`` layouts) -> an ``io.quantize.
+    QuantLinear`` in the linear's place, every (in, out) tensor transposed
+    to the port's (out, in): the same codes on both sides
   * stacked block leaves (L, ...)    -> leaf [i] of per-block module i
   * conv ``w`` HWIO                  -> ``nn.Conv2d.weight`` OIHW
   * norm ``scale``/``bias``, biases, embeddings, tables -> copied as they are
@@ -15,7 +19,8 @@ The trees hold the checkpoint's q/k feature order: the modules come back in
 the "interleaved" rope layout, and a pipeline on the fused path permutes
 them as the JAX pipeline does.
 
-``load_jax_lora(tree, model)`` carries a JAX LoRA factor tree
+``load_jax_dense(leaf)`` carries one dense leaf. ``load_jax_lora(tree,
+model)`` carries a JAX LoRA factor tree
 (``training.train.lora_init``'s: stacked (L, ...) factors per target name)
 across as the port's per-layer factors, in the same (in, r) / (r, out)
 layout, ready for ``textflux_torch.training.train.lora_insert``.
@@ -30,6 +35,7 @@ import torch
 from torch import nn
 
 from textflux_torch.config import CLIPTextConfig, FluxConfig, T5Config, VAEConfig
+from textflux_torch.io.quantize import QuantLinear
 
 
 def _t(x) -> torch.Tensor:
@@ -43,8 +49,34 @@ def _set(param: torch.Tensor, value: torch.Tensor, what: str) -> None:
     param.copy_(value)
 
 
-def _dense(lin: nn.Linear, p: Mapping, what: str) -> None:
-    """JAX dense {"w": (in, out), "b": (out,)} -> nn.Linear (weight (out, in))."""
+# the JAX leaf key of each quantised layout's codes -> its mode
+_QUANT_CODES = {"w_q": "weight_only", "w_q8a8": "w8a8", "w_nf4": "nf4"}
+
+
+def _quant_linear(lin: nn.Linear, p: Mapping, what: str) -> QuantLinear:
+    """A QuantLinear holding a JAX quantised dense leaf's codes and scales."""
+    mode = next(_QUANT_CODES[k] for k in _QUANT_CODES if k in p)
+    q = QuantLinear(lin.in_features, lin.out_features, mode, bias="b" in p,
+                    double_quant="absmax8" in p, device=lin.weight.device,
+                    dtype=lin.weight.dtype)
+    if q.mode != mode:
+        raise ValueError(f"{what}: a {mode} leaf for a linear of {lin.in_features} inputs")
+    for k, v in p.items():
+        buf = getattr(q, "bias" if k == "b" else k, None)
+        if not isinstance(buf, torch.Tensor) or k == "bias":
+            raise ValueError(f"{what}: unknown key {k!r} in a quantised dense leaf")
+        x = torch.from_numpy(np.array(v, copy=True))
+        _set(buf, x.T if x.dim() == 2 else x, f"{what}.{k}")
+    return q
+
+
+def _dense(owner: nn.Module, name: str, p: Mapping, what: str) -> None:
+    """JAX dense {"w": (in, out), "b": (out,)} -> owner.<name>, an nn.Linear
+    (weight (out, in)); a quantised leaf puts a QuantLinear in its place."""
+    lin = getattr(owner, name)
+    if any(k in p for k in _QUANT_CODES):
+        setattr(owner, name, _quant_linear(lin, p, what))
+        return
     _set(lin.weight, _t(p["w"]).T, what + ".w")
     if "b" in p:
         _set(lin.bias, _t(p["b"]), what + ".b")
@@ -71,26 +103,24 @@ def _layer(tree, i: int):
 
 
 def _load_flux(model, tree) -> None:
-    _dense(model.img_in, tree["img_in"], "img_in")
-    _dense(model.txt_in, tree["txt_in"], "txt_in")
+    for name in ("img_in", "txt_in", "final_mod", "final_proj"):
+        _dense(model, name, tree[name], name)
     for name in ("time_in", "vector_in") + (("guidance_in",) if model.guidance_in else ()):
-        _dense(getattr(model, name).fc1, tree[name]["fc1"], name + ".fc1")
-        _dense(getattr(model, name).fc2, tree[name]["fc2"], name + ".fc2")
-    _dense(model.final_mod, tree["final_mod"], "final_mod")
-    _dense(model.final_proj, tree["final_proj"], "final_proj")
+        for fc in ("fc1", "fc2"):
+            _dense(getattr(model, name), fc, tree[name][fc], f"{name}.{fc}")
     for i, blk in enumerate(model.double_blocks):
         p = _layer(tree["double"], i)
         for name in ("img_mod", "txt_mod", "img_qkv", "txt_qkv", "img_proj", "txt_proj"):
-            _dense(getattr(blk, name), p[name], f"double[{i}].{name}")
+            _dense(blk, name, p[name], f"double[{i}].{name}")
         for name in ("img_mlp", "txt_mlp"):
-            _dense(getattr(blk, name).fc1, p[name]["fc1"], f"double[{i}].{name}.fc1")
-            _dense(getattr(blk, name).fc2, p[name]["fc2"], f"double[{i}].{name}.fc2")
+            for fc in ("fc1", "fc2"):
+                _dense(getattr(blk, name), fc, p[name][fc], f"double[{i}].{name}.{fc}")
         for name in ("img_q_scale", "img_k_scale", "txt_q_scale", "txt_k_scale"):
             _set(getattr(blk, name), _t(p[name]), f"double[{i}].{name}")
     for i, blk in enumerate(model.single_blocks):
         p = _layer(tree["single"], i)
         for name in ("mod", "linear1", "linear2"):
-            _dense(getattr(blk, name), p[name], f"single[{i}].{name}")
+            _dense(blk, name, p[name], f"single[{i}].{name}")
         for name in ("q_scale", "k_scale"):
             _set(getattr(blk, name), _t(p[name]), f"single[{i}].{name}")
 
@@ -108,7 +138,7 @@ def _load_mid(m, p, what):
     _load_resnet(m.res1, p["res1"], what + ".res1")
     _norm(m.attn.norm, p["attn"]["norm"], what + ".attn.norm")
     for name in ("q", "k", "v", "out"):
-        _dense(getattr(m.attn, name), p["attn"][name], f"{what}.attn.{name}")
+        _dense(m.attn, name, p["attn"][name], f"{what}.attn.{name}")
     _load_resnet(m.res2, p["res2"], what + ".res2")
 
 
@@ -142,7 +172,7 @@ def _load_clip(model, tree) -> None:
         _norm(layer.ln1, p["ln1"], f"layers[{i}].ln1")
         _norm(layer.ln2, p["ln2"], f"layers[{i}].ln2")
         for name in ("q", "k", "v", "o", "fc1", "fc2"):
-            _dense(getattr(layer, name), p[name], f"layers[{i}].{name}")
+            _dense(layer, name, p[name], f"layers[{i}].{name}")
     _norm(model.final_ln, tree["final_ln"], "final_ln")
 
 
@@ -154,7 +184,7 @@ def _load_t5(model, tree) -> None:
         _set(layer.attn_norm, _t(p["attn_norm"]), f"layers[{i}].attn_norm")
         _set(layer.mlp_norm, _t(p["mlp_norm"]), f"layers[{i}].mlp_norm")
         for name in ("q", "k", "v", "o", "wi_0", "wi_1", "wo"):
-            _dense(getattr(layer, name), p[name], f"layers[{i}].{name}")
+            _dense(layer, name, p[name], f"layers[{i}].{name}")
     _set(model.final_norm, _t(tree["final_norm"]), "final_norm")
 
 
@@ -174,6 +204,20 @@ def load_jax_lora(tree: Mapping, model) -> dict:
                 out[f"{blocks}.{i}.{name}"] = {
                     k: nn.Parameter(_t(x[i]).to(device)) for k, x in (("a", a), ("b", b))}
     return out
+
+
+def load_jax_dense(p: Mapping, *, device="cuda", dtype=torch.float32) -> nn.Module:
+    """One JAX dense leaf as the port's module: an nn.Linear, or a
+    QuantLinear holding a quantised leaf's codes."""
+    if "w_nf4" in p:
+        half, d_out = np.shape(p["w_nf4"])
+        d_in = 2 * half
+    else:
+        d_in, d_out = np.shape(next(p[k] for k in ("w", "w_q", "w_q8a8") if k in p))
+    holder = nn.Module()
+    holder.lin = nn.Linear(d_in, d_out, bias="b" in p, device=device, dtype=dtype)
+    _dense(holder, "lin", p, "dense")
+    return holder.lin
 
 
 def load_jax_params(tree: Mapping, cfg, *, device="cuda", dtype=torch.float32) -> nn.Module:

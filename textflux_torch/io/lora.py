@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,9 +118,11 @@ def resolve_lora_path(lora_path: str) -> str:
 
 
 def load_folded_flux_transformer(base_path: str, lora_path: str, cfg: FluxConfig, *,
-                                 scale: float = 1.0, dtype=torch.bfloat16, device="cuda"):
+                                 scale: float = 1.0, dtype=torch.bfloat16, device="cuda",
+                                 quantize: Optional[str] = None):
     """Load a base transformer checkpoint with a LoRA file (or directory)
-    folded in as it streams to `device`."""
+    folded in as it streams to `device` (then quantised, with
+    `quantize`)."""
     lora_sd = load_safetensors_dir(resolve_lora_path(lora_path))
     deltas = lora_deltas(lora_sd, scale=scale)
     present = set(checkpoint_keys(base_path))
@@ -128,7 +130,7 @@ def load_folded_flux_transformer(base_path: str, lora_path: str, cfg: FluxConfig
         if key not in present:
             raise KeyError(f"LoRA targets missing base weight: {key}")
     return load_flux_transformer(base_path, cfg, dtype=dtype, device=device,
-                                 transform=fold_transform(deltas, device))
+                                 transform=fold_transform(deltas, device), quantize=quantize)
 
 
 # training warm start: a diffusers/peft LoRA state dict -> the factors ------

@@ -19,23 +19,31 @@ GroupNorm scales) stay float32, the rest take ``dtype``, as the JAX
 package's ``to_device_params`` does. A checkpoint key the module does not
 take, or a module parameter the checkpoint lacks, raises: a dropped tensor
 would give wrong images and no error.
+
+With ``quantize`` a mode of ``io.quantize``, the linears that
+``io.quantize.quantize_tree`` picks are swapped for empty ``QuantLinear``s
+on ``meta`` before anything is allocated, and each of their weights is
+quantised row block by row block as it streams in (after the transform,
+e.g. a LoRA fold): the device never holds the full-precision module.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from textflux_torch.config import CLIPTextConfig, FluxConfig, T5Config, VAEConfig
 from textflux_torch.device import resolve_device
+from textflux_torch.io.quantize import QuantLinear, quantize_tree
 from textflux_torch.io.safetensors import SafetensorsFile, read_header
 
-# checkpoint key -> (parameter, rows of it or None)
-KeyMap = Dict[str, Tuple[torch.Tensor, Optional[slice]]]
+# checkpoint key -> (parameter, or the QuantLinear a weight quantises into;
+# rows of it or None)
+KeyMap = Dict[str, Tuple[Union[torch.Tensor, QuantLinear], Optional[slice]]]
 # (checkpoint key, tensor as stored) -> the tensor to copy in
 Transform = Callable[[str, torch.Tensor], torch.Tensor]
 
@@ -85,8 +93,8 @@ def checkpoint_bytes(path: str) -> int:
 # Key maps: checkpoint names -> the port's parameters
 # ---------------------------------------------------------------------------
 
-def _lin(out: KeyMap, name: str, lin: nn.Linear, rows: Optional[slice] = None) -> None:
-    out[f"{name}.weight"] = (lin.weight, rows)
+def _lin(out: KeyMap, name: str, lin: nn.Module, rows: Optional[slice] = None) -> None:
+    out[f"{name}.weight"] = (lin if isinstance(lin, QuantLinear) else lin.weight, rows)
     if lin.bias is not None:
         out[f"{name}.bias"] = (lin.bias, rows)
 
@@ -262,10 +270,12 @@ def key_map(model) -> KeyMap:
 # Loading
 # ---------------------------------------------------------------------------
 
-def empty_module(cfg, *, device="cuda", dtype=torch.bfloat16) -> nn.Module:
+def empty_module(cfg, *, device="cuda", dtype=torch.bfloat16,
+                 quantize: Optional[str] = None) -> nn.Module:
     """The port's module for `cfg` with uninitialised storage on `device`:
     built on the meta device, then allocated. Parameters named ``*scale``
-    are float32, the rest `dtype`."""
+    are float32, the rest `dtype`. With `quantize` (a ``quantize_tree``
+    mode), the linears it picks are empty ``QuantLinear``s."""
     table = _modules()
     if type(cfg) not in table:
         raise TypeError(f"no port module for config type {type(cfg).__name__}")
@@ -276,6 +286,8 @@ def empty_module(cfg, *, device="cuda", dtype=torch.bfloat16) -> nn.Module:
             if p is not None and name.endswith("scale"):
                 mod._parameters[name] = nn.Parameter(p.to(torch.float32),
                                                      requires_grad=p.requires_grad)
+    if quantize:
+        quantize_tree(model, mode=quantize)
     return model.to_empty(device=device)
 
 
@@ -299,14 +311,21 @@ def _resolve_keys(keys: KeyMap, present: Iterable[str]) -> Dict[str, str]:
 @torch.no_grad()
 def _copy(keys: KeyMap, key: str, src_key: str, tensor: torch.Tensor,
           transform: Optional[Transform]) -> None:
-    param, rows = keys[key]
-    dst = param if rows is None else param[rows]
-    if tuple(tensor.shape) != tuple(dst.shape):
+    target, rows = keys[key]
+    if isinstance(target, QuantLinear):
+        shape = target.rows_shape(rows)
+    else:
+        target = target if rows is None else target[rows]
+        shape = target.shape
+    if tuple(tensor.shape) != tuple(shape):
         raise ValueError(f"{src_key}: checkpoint shape {tuple(tensor.shape)} != "
-                         f"module shape {tuple(dst.shape)}")
+                         f"module shape {tuple(shape)}")
     if transform is not None:
         tensor = transform(src_key, tensor)
-    dst.copy_(tensor)
+    if isinstance(target, QuantLinear):
+        target.load_rows(rows, tensor)
+    else:
+        target.copy_(tensor)
 
 
 def convert_state_dict(sd: Mapping[str, torch.Tensor], cfg, *, device="cuda",
@@ -342,12 +361,14 @@ def convert_t5_state_dict(sd, cfg: T5Config, **kw):
 
 
 def load_checkpoint_dir(path: str, cfg, *, device="cuda", dtype=torch.bfloat16,
-                        transform: Optional[Transform] = None):
+                        transform: Optional[Transform] = None,
+                        quantize: Optional[str] = None):
     """The port's module for `cfg`, streamed from the safetensors shards of
     `path` (a directory or one file): shard by shard, tensor by tensor in
-    file order, each copied from the mapping straight into its parameter.
-    Each shard's mapping is dropped once its tensors are in."""
-    model = empty_module(cfg, device=device, dtype=dtype)
+    file order, each copied from the mapping straight into its parameter
+    (or quantised into its ``QuantLinear`` with `quantize`). Each shard's
+    mapping is dropped once its tensors are in."""
+    model = empty_module(cfg, device=device, dtype=dtype, quantize=quantize)
     keys = key_map(model)
     use = _resolve_keys(keys, checkpoint_keys(path))
     for f in safetensors_files(path):
@@ -385,10 +406,13 @@ def check_flux_config(path: str, cfg: FluxConfig) -> None:
 
 
 def load_flux_transformer(path: str, cfg: FluxConfig, *, dtype=torch.bfloat16,
-                          device="cuda", transform: Optional[Transform] = None):
+                          device="cuda", transform: Optional[Transform] = None,
+                          quantize: Optional[str] = None):
     """Load a diffusers-format transformer checkpoint (a directory of
     safetensors shards, optionally with a config.json that is validated
-    against `cfg`) onto `device`. Returns the FluxTransformer in the
-    checkpoint's ("interleaved") q/k layout."""
+    against `cfg`) onto `device`, quantised as it streams in with
+    `quantize`. Returns the FluxTransformer in the checkpoint's
+    ("interleaved") q/k layout."""
     check_flux_config(path, cfg)
-    return load_checkpoint_dir(path, cfg, device=device, dtype=dtype, transform=transform)
+    return load_checkpoint_dir(path, cfg, device=device, dtype=dtype, transform=transform,
+                               quantize=quantize)

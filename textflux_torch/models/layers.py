@@ -1,6 +1,7 @@
 """Shared building blocks.
 
-Linears are ``nn.Linear`` (weights stored (out, in)); ``dense`` applies one in
+Linears are ``nn.Linear`` (weights stored (out, in)), or the quantised
+``io.quantize.QuantLinear`` that replaces one; ``dense`` applies either in
 the input's dtype, as the JAX package's ``x @ w + b`` does, plus the LoRA
 branch that ``training.train.lora_insert`` attaches. Norms compute in float32
 and cast back to the activation dtype.
@@ -14,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from textflux_torch.io.quantize import QuantLinear
 
 
 def make_linear(d_in: int, d_out: int, *, bias: bool = True, device=None, dtype=None,
@@ -46,9 +49,10 @@ def ones_param(n: int, *, device=None, dtype=None) -> nn.Parameter:
     return nn.Parameter(torch.ones(n, device=device, dtype=dtype))
 
 
-def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ w + b in x's dtype, plus the LoRA branch when one is attached
-    (quantised weights are not ported yet):
+def dense(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x @ w + b in x's dtype (a ``QuantLinear`` dequantises on read, or runs
+    its w8a8 product), plus the LoRA branch when one is attached, over any
+    base:
 
     * ``lora_a`` (in, r) / ``lora_b`` (r, out): the parallel low-rank branch
       y += (x @ A*s) @ B, with s = ``lora_scale`` (alpha/rank) folded into A;
@@ -58,8 +62,11 @@ def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
     The factors are fp32 parameters cast to x's dtype for the products, and
     the frozen base is never merged with them."""
-    bias = None if lin.bias is None else lin.bias.to(x.dtype)
-    y = F.linear(x, lin.weight.to(x.dtype), bias)
+    if isinstance(lin, QuantLinear):
+        y = lin.matmul(x)
+    else:
+        bias = None if lin.bias is None else lin.bias.to(x.dtype)
+        y = F.linear(x, lin.weight.to(x.dtype), bias)
     a = getattr(lin, "lora_a", None)
     if a is not None:
         y = y + (x @ (a * lin.lora_scale).to(x.dtype)) @ lin.lora_b.to(x.dtype)

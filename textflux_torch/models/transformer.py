@@ -2,7 +2,8 @@
 
 The port of ``textflux_tpu/models/transformer.py`` (tensor parallelism,
 ``tp > 1``, is not ported). Parameters live in ``FluxTransformer``, an
-``nn.Module`` with one submodule per block; the forward pass is the plain
+``nn.Module`` with one submodule per block (any linear of which may be an
+``io.quantize.QuantLinear``); the forward pass is the plain
 functions below, mirroring the JAX package's: fused q|k|v projections per
 stream, a fused qkv+mlp-in projection (``linear1``) and attn-out+mlp-out
 projection (``linear2``) in the single blocks, norms/AdaLN/softmax in float32,
@@ -32,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from textflux_torch.config import FluxConfig
 from textflux_torch.device import resolve_device
+from textflux_torch.io.quantize import OUT_AXIS_KEYS
 from textflux_torch.models.layers import (
     MLP,
     dense,
@@ -317,9 +319,15 @@ def half_permute_flux_params(model: FluxTransformer) -> FluxTransformer:
     The permutation is a similarity transform on the attention logits (q and
     k permuted identically), so outputs are unchanged; it folds the
     interleaved RoPE pairing into the weights once at load time. v and all
-    other parameters are untouched. Unlike the JAX package, which returns a
-    new tree, this permutes the module IN PLACE (a copy of the 12B DiT would
-    not fit beside it) and returns it."""
+    other parameters are untouched. Every output-axis tensor of the fused
+    projections is gathered: the weight and bias of an ``nn.Linear``, every
+    buffer of a ``QuantLinear`` (``io.quantize.OUT_AXIS_KEYS``: the NF4 codes
+    pack along the input axis and their absmax groups it, so the output
+    rows move whole), and a parallel LoRA's B along its last axis (A acts on
+    the input and stays). Grouped LoRA factors, or a tensor of unknown
+    layout, raise. Unlike the JAX package, which returns a new tree, this
+    permutes the module IN PLACE (a copy of the 12B DiT would not fit beside
+    it) and returns it."""
     if model.rope_layout != "interleaved":
         raise ValueError(f"model is already in the {model.rope_layout!r} layout")
     cfg = model.cfg
@@ -327,14 +335,25 @@ def half_permute_flux_params(model: FluxTransformer) -> FluxTransformer:
     perm = half_permutation(cfg.head_dim)
     per_head = np.concatenate([h * cfg.head_dim + perm for h in range(cfg.num_heads)])
 
-    def permute_rows(lin: nn.Linear, extra: int = 0) -> None:
-        # nn.Linear keeps the out dim first: permute the q and k output rows
+    def permute_rows(lin: nn.Module, extra: int = 0) -> None:
         idx = torch.as_tensor(np.concatenate([per_head, d + per_head,
-                                              2 * d + np.arange(d + extra)]),
-                              device=lin.weight.device)
-        lin.weight.copy_(lin.weight.index_select(0, idx))
-        if lin.bias is not None:
-            lin.bias.copy_(lin.bias.index_select(0, idx))
+                                              2 * d + np.arange(d + extra)]))
+        tensors = list(lin.named_parameters(recurse=False)) + list(
+            lin.named_buffers(recurse=False))
+        for name, t in tensors:
+            if name in OUT_AXIS_KEYS:
+                t.copy_(t.index_select(0, idx.to(t.device)))
+            elif name == "lora_b":
+                t.copy_(t.index_select(-1, idx.to(t.device)))
+            elif name in ("lora_ga", "lora_gb"):
+                raise ValueError(
+                    "grouped per-module LoRA factors cannot be permuted for the fused "
+                    "kernel: fold them first (training.train.lora_merge or io.lora's "
+                    "load-time folding)")
+            elif name != "lora_a":   # never drop one silently
+                raise KeyError(f"unknown tensor {name!r} of a fused projection in "
+                               "half_permute_flux_params: add it to io.quantize."
+                               "OUT_AXIS_KEYS (output axis first) or handle it here")
 
     p = torch.as_tensor(perm)
     for blk in model.double_blocks:

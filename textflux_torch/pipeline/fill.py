@@ -2,10 +2,11 @@
 
 The port of ``textflux_tpu/pipeline/fill.py::FillPipeline``: single-image
 ``__call__``, batched ``generate_batch``, ``from_pretrained`` from a
-diffusers-layout checkpoint (with a LoRA folded in at load) and the staged
-residency of ``defer_transformer``. Not ported yet: quantised serving
-(``quantize``/``quantize_t5``, ROADMAP Queue 1 item 11) and multi-GPU
-serving (``shard_for_serving``, ``mesh``; item 13). Stages:
+diffusers-layout checkpoint (with a LoRA folded in at load, and quantised
+serving: ``quantize`` / ``quantize_t5``, the DiT and T5 quantised as they
+stream in) and the staged residency of ``defer_transformer``. Not ported
+yet: multi-GPU serving (``shard_for_serving``, ``mesh``; ROADMAP Queue 1
+item 6). Stages:
 
   1. text encode   — CLIP pooled + T5 sequence embeddings
   2. conditioning  — VAE-encode the masked image (tiled above a 160x160 latent
@@ -485,20 +486,29 @@ class FillPipeline:
         ``load_transformer()``, so the T5 encoder and the DiT never sit on
         the device together.
 
-        ``load_stats`` records each component's load seconds and checkpoint
-        bytes. Quantised serving is not ported yet (ROADMAP Queue 1 item
-        11): ``quantize`` and ``quantize_t5`` must be off."""
+        ``quantize``: False, True (= "weight_only") or a mode of
+        ``io.quantize`` ("weight_only", "w8a8", "nf4", "mixed"): the DiT's
+        linears are quantised as its checkpoint streams in (after the LoRA
+        fold), so the device never holds the full-precision DiT.
+        ``quantize_t5`` (default: ``bool(quantize)``) stores T5 int8
+        weight-only the same way. A quantised model stays quantised on the
+        device.
+
+        ``load_stats`` records each component's load seconds, checkpoint
+        bytes and ``device_bytes``, what its module holds on the device
+        (the quantised bytes of a quantised component)."""
         from textflux_torch.io.config_io import (clip_config_from, flux_config_from,
                                                  t5_config_from, vae_config_from)
         from textflux_torch.io.lora import load_folded_flux_transformer, resolve_lora_path
         from textflux_torch.io.params import (checkpoint_bytes, load_checkpoint_dir,
                                               load_flux_transformer)
+        from textflux_torch.io.quantize import check_mode, quantized_bytes
         from textflux_torch.pipeline.tokenizers import load_tokenizers
 
-        if quantize or quantize_t5:
-            raise NotImplementedError(
-                "quantised serving (quantize / quantize_t5, the CLI's --quantize and "
-                "--quantize-mode) is not ported yet: ROADMAP Queue 1 item 11")
+        flux_mode = check_mode(quantize if isinstance(quantize, str) else "weight_only") \
+            if quantize else None
+        t5_mode = "weight_only" if (bool(quantize) if quantize_t5 is None else quantize_t5) \
+            else None
         dev = resolve_device(device)
         t_path = transformer_path or os.path.join(base_path, "transformer")
         flux_cfg = flux_config_from(t_path)
@@ -510,26 +520,27 @@ class FillPipeline:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             stats[name] = dict(seconds=time.perf_counter() - t0,
-                               bytes=sum(checkpoint_bytes(p) for p in paths))
+                               bytes=sum(checkpoint_bytes(p) for p in paths),
+                               device_bytes=quantized_bytes(out))
             return out
 
         def load_flux():
             if lora_path is None:
                 return timed("transformer", [t_path], lambda: load_flux_transformer(
-                    t_path, flux_cfg, dtype=dtype, device=dev))
+                    t_path, flux_cfg, dtype=dtype, device=dev, quantize=flux_mode))
             return timed("transformer", [t_path, resolve_lora_path(lora_path)],
                          lambda: load_folded_flux_transformer(
                              t_path, lora_path, flux_cfg, scale=lora_scale, dtype=dtype,
-                             device=dev))
+                             device=dev, quantize=flux_mode))
 
         flux = None if defer_transformer else load_flux()
         parts = {}
-        for name, sub, cfg_from in (("vae", "vae", vae_config_from),
-                                    ("clip", "text_encoder", clip_config_from),
-                                    ("t5", "text_encoder_2", t5_config_from)):
+        for name, sub, cfg_from, mode in (("vae", "vae", vae_config_from, None),
+                                          ("clip", "text_encoder", clip_config_from, None),
+                                          ("t5", "text_encoder_2", t5_config_from, t5_mode)):
             path = os.path.join(base_path, sub)
             parts[name] = timed(name, [path], lambda: load_checkpoint_dir(
-                path, cfg_from(path), dtype=dtype, device=dev))
+                path, cfg_from(path), dtype=dtype, device=dev, quantize=mode))
         clip_tok, t5_tok = load_tokenizers(base_path,
                                            max_t5_length=pipe_cfg.max_sequence_length)
         pipe = cls(flux=flux, flux_cfg=flux_cfg, **parts, clip_tokenize=clip_tok,

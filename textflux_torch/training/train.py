@@ -2,15 +2,16 @@
 
 The port of the LoRA path of ``textflux_tpu/training/train.py``: the train
 config, the LoRA targets and factors (``lora_init``, ``lora_insert``,
-``lora_merge``), the learning-rate schedules, AdamW and Prodigy
-(``optax.contrib.prodigy``) behind optax's global-norm clipping,
-``flow_matching_loss`` and ``make_lora_train_step`` with its gradient
-accumulation written out as a loop. The full-parameter masked path
-(``make_train_step``, ``--mode attn|all``) and 8-bit AdamW are not ported
-yet: ROADMAP Queue 1 item 2.
+``lora_merge``), the learning-rate schedules, AdamW, 8-bit AdamW
+(``training.optim8bit``) and Prodigy (``optax.contrib.prodigy``) behind
+optax's global-norm clipping, ``flow_matching_loss`` and
+``make_lora_train_step`` with its gradient accumulation written out as a
+loop. The full-parameter masked path (``make_train_step``, ``--mode
+attn|all``) is not ported yet: ROADMAP Queue 1 item 2.
 
 The factors live beside a frozen base: ``lora_insert`` attaches them to the
-target ``nn.Linear``s as fp32 parameters, and ``models.layers.dense`` adds
+target linears (``nn.Linear``, or a weight_only / nf4 ``io.quantize.
+QuantLinear``: QLoRA) as fp32 parameters, and ``models.layers.dense`` adds
 the parallel branch y += (x @ A*s) @ B. Randomness comes from a
 ``torch.Generator`` or is handed in (``flow_matching_loss(noise=...)``), so
 a test can give the port the JAX package's draws.
@@ -19,6 +20,7 @@ a test can give the port the JAX package's draws.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
@@ -26,10 +28,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from textflux_torch.io.quantize import QuantLinear
 from textflux_torch.models.transformer import FluxTransformer, flux_apply
 from textflux_torch.models.vae import FluxVAE, vae_encode
 from textflux_torch.ops import packing, samplers
 from textflux_torch.ops.rope import rope_tables
+from textflux_torch.training import optim8bit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +45,7 @@ class TrainConfig:
     only, so the JAX fields ``grad_accum`` and ``mode`` have no place here."""
 
     learning_rate: float = 2e-5
-    optimizer: str = "adamw"              # "adamw" | "prodigy" ("adamw8bit" not ported)
+    optimizer: str = "adamw"              # "adamw" | "adamw8bit" | "prodigy"
     lr_scheduler: str = "constant"
     lr_warmup_steps: int = 0
     max_train_steps: int = 10000
@@ -89,7 +93,7 @@ LORA_GROUPED = {"img_qkv": 3, "txt_qkv": 3, "linear1": 3}
 Lora = Dict[str, Dict[str, torch.Tensor]]
 
 
-def lora_targets(model: FluxTransformer) -> Dict[str, nn.Linear]:
+def lora_targets(model: FluxTransformer) -> Dict[str, nn.Module]:
     """Every LoRA target linear by module path ("double_blocks.3.img_mlp.fc1"),
     target by target and layer by layer, as the JAX tree stacks them."""
     out = {}
@@ -101,9 +105,9 @@ def lora_targets(model: FluxTransformer) -> Dict[str, nn.Linear]:
     return out
 
 
-def lora_target_dims(lin: nn.Linear) -> Tuple[int, int]:
-    """(d_in, d_out) of a target linear (the quantised base layouts of the
-    JAX version are not ported)."""
+def lora_target_dims(lin: nn.Module) -> Tuple[int, int]:
+    """(d_in, d_out) of a target linear in any base layout: an ``nn.Linear``
+    or a ``QuantLinear`` (its unpacked dims, whatever its codes' shape)."""
     return lin.in_features, lin.out_features
 
 
@@ -116,7 +120,7 @@ def lora_init(model: FluxTransformer, rank: int, *,
     lora = {}
     for path, lin in lora_targets(model).items():
         d_in, d_out = lora_target_dims(lin)
-        dev = lin.weight.device
+        dev = next(itertools.chain(lin.parameters(), lin.buffers())).device
         m = LORA_GROUPED.get(path.split(".", 2)[2])   # "double_blocks.3.img_qkv" -> "img_qkv"
         a_shape, b_shape = ((m, d_in, rank), (m, rank, d)) if m else ((d_in, rank), (rank, d_out))
         a = torch.randn(a_shape, generator=generator, device=dev, dtype=torch.float32) / rank
@@ -134,10 +138,18 @@ def lora_insert(model: FluxTransformer, lora: Lora, scale: float) -> FluxTransfo
     and attach the factors to their target linears as the parallel branch
     ``dense`` computes: ``lora_a``/``lora_b`` (or grouped ``lora_ga``/
     ``lora_gb``) plus ``lora_scale`` = alpha/rank, folded into A at use.
-    The base is never merged with the factors, so it could be quantised.
-    In place; returns `model`."""
+    The base is never merged with the factors, so it may be quantised
+    (weight_only or nf4; a w8a8 base raises, as in the JAX package). In
+    place; returns `model`."""
     for p in model.parameters():
         p.requires_grad_(False)
+    for path in lora:
+        lin = model.get_submodule(path)
+        if isinstance(lin, QuantLinear) and lin.mode == "w8a8":
+            raise ValueError(
+                "LoRA over a w8a8 base is unsupported: the activation-quant "
+                "round() has zero gradient, so the base matmul would pass no "
+                "dL/dx. Quantize the frozen base as weight_only or nf4.")
     for path, f in lora.items():
         lin = model.get_submodule(path)
         names = ("lora_ga", "lora_gb") if f["a"].dim() == 3 else ("lora_a", "lora_b")
@@ -289,6 +301,58 @@ class ClippedAdamW(ClippedOptimizer):
         self.opt.load_state_dict(state["adamw"])
 
 
+class ClippedAdamW8bit(ClippedOptimizer):
+    """Clipped 8-bit AdamW: the JAX package's ``optim8bit.adamw8bit`` (Adam
+    with both moments stored as blockwise log-domain int8, blocks of
+    ``optim8bit.BLOCK``; optax's decoupled decay p <- p - lr*(u + wd*p)).
+    Each step dequantises the moments to float32 (the second with its
+    floor), updates them, computes the step from those fresh float32
+    values and requantises them after."""
+
+    def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
+        super().__init__(params, tc)
+        self.betas = (tc.adam_b1, tc.adam_b2)
+        self.eps = tc.adam_eps
+        self.weight_decay = tc.weight_decay
+        self.state = {k: [] for k in ("mu_q", "mu_scale", "nu_q", "nu_scale")}
+        for p in self.params:
+            nb = optim8bit.n_blocks(p.numel())
+            for m in ("mu", "nu"):
+                self.state[f"{m}_q"].append(torch.zeros((nb, optim8bit.BLOCK), dtype=torch.int8,
+                                                        device=p.device))
+                self.state[f"{m}_scale"].append(torch.zeros(nb, dtype=torch.float32,
+                                                            device=p.device))
+
+    def _update(self, lr: float) -> None:
+        st = self.state
+        b1, b2 = self.betas
+        # the bias corrections in float32, as the JAX step computes them
+        k = torch.tensor(float(self.count + 1), dtype=torch.float32)
+        c1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** k)
+        c2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** k)
+        for i, p in enumerate(self.params):
+            g = p.grad.float()
+            mu = optim8bit.dequantize_dynamic((st["mu_q"][i], st["mu_scale"][i]), p.shape)
+            nu = optim8bit.dequantize_dynamic((st["nu_q"][i], st["nu_scale"][i]), p.shape,
+                                              floor=True)
+            mu = b1 * mu + (1.0 - b1) * g
+            nu = b2 * nu + (1.0 - b2) * torch.square(g)
+            upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            st["mu_q"][i], st["mu_scale"][i] = optim8bit.quantize_dynamic(mu)
+            st["nu_q"][i], st["nu_scale"][i] = optim8bit.quantize_dynamic(nu)
+            p.add_((upd + self.weight_decay * p).to(p.dtype), alpha=-lr)
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "adamw8bit": self.state}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        self.count = int(state["count"])
+        with torch.no_grad():
+            for key, value in state["adamw8bit"].items():
+                for x, y in zip(self.state[key], value, strict=True):
+                    x.copy_(y)
+
+
 class ClippedProdigy(ClippedOptimizer):
     """Clipped Prodigy: ``optax.contrib.prodigy``'s update (betas, beta3 =
     sqrt(b2) unless given, eps, estim_lr0 1e-6, estim_lr_coef 1, AdamW-style
@@ -371,18 +435,14 @@ class ClippedProdigy(ClippedOptimizer):
                         x.copy_(y)
 
 
-OPTIMIZER_ITEM = "ROADMAP Queue 1 item 2"
-
-
 def make_optimizer(tc: TrainConfig, params: Sequence[torch.Tensor]) -> ClippedOptimizer:
-    """AdamW or Prodigy (the reference's LoRA optimizer) with global-norm
-    clipping over `params`, as the JAX ``make_optimizer`` chains them.
-    8-bit AdamW is not ported yet and raises."""
+    """AdamW, 8-bit AdamW or Prodigy (the reference's LoRA optimizer) with
+    global-norm clipping over `params`, as the JAX ``make_optimizer``
+    chains them."""
     if tc.optimizer == "prodigy":
         return ClippedProdigy(params, tc)
     if tc.optimizer == "adamw8bit":
-        raise NotImplementedError(f"optimizer 'adamw8bit' (--optimizer adamw8bit / "
-                                  f"--use-8bit-adam) is not ported yet: {OPTIMIZER_ITEM}")
+        return ClippedAdamW8bit(params, tc)
     if tc.optimizer != "adamw":
         raise ValueError(f"unknown optimizer {tc.optimizer!r}")
     return ClippedAdamW(params, tc)
@@ -511,12 +571,13 @@ def make_lora_train_step(tc: TrainConfig, *, attn_impl: str = "auto"):
     return step
 
 
-CHECKSUM_WEIGHTS = ("img_in.weight", "double_blocks.0.img_qkv.weight",
-                    "single_blocks.0.linear1.weight", "final_proj.weight")
+CHECKSUM_MODULES = ("img_in", "double_blocks.0.img_qkv", "single_blocks.0.linear1",
+                    "final_proj")
 
 
 def base_checksum(model: FluxTransformer) -> float:
-    """A float64 sum over a few base weights, to show a step left them as
-    they were."""
-    params = dict(model.named_parameters())
-    return sum(params[n].detach().double().sum().item() for n in CHECKSUM_WEIGHTS)
+    """A float64 sum over the weights (or quantised codes and scales) of a
+    few base linears, to show a step left them as they were."""
+    return sum(t.detach().double().sum().item() for name in CHECKSUM_MODULES
+               for key, t in model.get_submodule(name).state_dict().items()
+               if not key.startswith("lora_"))
