@@ -67,7 +67,23 @@ Phases, in order; any failure exits non-zero:
      (lr 2e-5, clip 1.0), 3 steps at 4,224 tokens through train_lora, then
      one step over a weight_only base: step ms, the peak, launches per step
      (114/0/57/57), the optimizer's state bytes beside AdamW's; every
-     target's B must move.
+     target's B must move;
+ 11. eval: phase 7's checkpoint (written here when no earlier phase did)
+     through textflux_torch.cli.run_eval.main over an AnyWord json of three
+     items on the example images (two in one //32 bucket): --batch-size 1,
+     --batch-size 2 into a second directory (images equal within 1 level),
+     --multiline, then --skip-existing on the first directory (does
+     nothing); failures.json, fused launches (57 a step per item or
+     chunk), step ms, seconds per item and the serving peak per run. Then
+     the demo callbacks on the loaded pipeline (check_gradio must raise),
+     Text2ImagePipeline at full FLUX.1-dev width (64 input channels, random
+     bf16 weights made after the Fill DiT is freed; 512x512, euler 4),
+     eval_ocr.main over the first run's crops with the PP-OCRv3 entry point
+     and eval_fid_lpips.main against the example images, with random
+     full-config PP-OCRv3, InceptionV3 and LPIPS-alex weights written here;
+     each metric network on the card held against the port on the CPU
+     (EVAL_*_TOL), the features with TF32 allowed measured beside them,
+     and the networks' times.
 Phase 3 runs every kernel at its path's shapes and at the JAX package's
 multi-line serving shape (S = 8704). It also holds the four training
 kernels (flash forward, LSE, dQ, dK/dV) against their plain versions, the
@@ -106,7 +122,7 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BF16_TOL = 2e-2              # unit-scale inputs, bf16 rounding of q/k/p/out
 PHASES = ("device", "build", "kernels", "main", "profile", "train", "checkpoint",
-          "train_main", "quantized", "qlora")
+          "train_main", "quantized", "qlora", "eval")
 
 
 def log(msg: str) -> None:
@@ -143,6 +159,11 @@ def phase_device() -> dict:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    try:   # the eval phase's polygon crops and the multi-line glyphs use cv2
+        import cv2
+        log(f"cv2 {cv2.__version__} imports")
+    except ImportError as e:
+        log(f"cv2 does not import: {e}")
     return {"nvidia_smi": smi}
 
 
@@ -2016,6 +2037,452 @@ def phase_qlora(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 11. eval: batch evaluation, the demo callbacks, t2i and the metric harnesses
+# ---------------------------------------------------------------------------
+
+EVAL_STEPS = 2
+T2I_STEPS, T2I_SIZE = 4, 512
+# (img_name, example image, words file, quad of the example's mask): the two
+# example images, the first again under a second directory with the
+# second's words, so one //32 bucket holds two items (a batch of 2 at
+# --batch-size 2) and every img_name carries a subdirectory (safe_name)
+EVAL_ITEMS = (("ex1/ori_0001.png", "ori_0001.png", "words_0001.txt", (102, 128, 409, 256)),
+              ("ex2/ori_0001.png", "ori_0001.png", "words_0002.txt", (102, 128, 409, 256)),
+              ("ex1/ori_0002.png", "ori_0002.png", "words_0002.txt", (128, 160, 512, 320)))
+# the card (true float32) against the port on the CPU, same weights and
+# inputs (tests/test_torch_cuda.py holds the same): Inception pool3 within
+# EVAL_FEATURE_TOL of the largest |feature|, LPIPS within EVAL_LPIPS_RTOL,
+# PP-OCR logits within EVAL_LOGIT_TOL (they are O(1)) with the same text
+EVAL_FEATURE_TOL, EVAL_LPIPS_RTOL, EVAL_LOGIT_TOL = 1e-4, 1e-4, 1e-4
+PPOCR_CHARS = 6623   # ppocr_keys_v1's lines: + 'sos' + ' ' = the 6625 classes
+EVAL_BATCH_TOL = 1   # grey levels between --batch-size 1 and 2
+
+
+def _eval_data(work: str) -> tuple:
+    """The AnyWord json and the images directory of EVAL_ITEMS."""
+    from textflux_torch.pipeline.prompts import read_words
+
+    imgs = os.path.join(work, "imgs")
+    data = {"data_list": []}
+    for name, src, words, (x0, y0, x1, y1) in EVAL_ITEMS:
+        os.makedirs(os.path.dirname(os.path.join(imgs, name)), exist_ok=True)
+        shutil.copy(os.path.join(EXAMPLE, "ori", src), os.path.join(imgs, name))
+        text = " ".join(read_words(os.path.join(EXAMPLE, "txt", words)))
+        data["data_list"].append({"img_name": name, "annotations": [
+            {"text": text, "polygon": [[x0, y0], [x1, y0], [x1, y1], [x0, y1]]}]})
+    path = os.path.join(work, "anyword.json")
+    with open(path, "w") as f:
+        json.dump(data, f)
+    return path, imgs
+
+
+def _run_eval_main(argv, recorder, expected_launches) -> dict:
+    from textflux_torch.cli.run_eval import main as run_eval_main
+    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
+
+    torch.cuda.synchronize()
+    flash_attention_qk_norm_rope.launches = 0
+    t0 = time.perf_counter()
+    run_eval_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out_dir = argv[argv.index("--output-dir") + 1]
+    with open(os.path.join(out_dir, "failures.json")) as f:
+        report = json.load(f)
+    load_s = sum(v["seconds"] for v in recorder.rec.get("load", {}).values())
+    step_ms = recorder.step_ms()
+    return dict(seconds=seconds, load_seconds=load_s,
+                s_per_item=(seconds - load_s) / max(report["done"], 1),
+                step_ms=step_ms, mean_step_ms=float(np.mean(step_ms)) if step_ms else None,
+                joint_seq_last=recorder.pipe.last_joint_seq if recorder.pipe else None,
+                launches=flash_attention_qk_norm_rope.launches,
+                expected_launches=expected_launches,
+                serve_peak_bytes=torch.cuda.max_memory_allocated(),
+                report={k: report[k] for k in ("total", "done", "failed", "skipped_existing")},
+                failures=report["failures"])
+
+
+def _images_diff(dir_a: str, dir_b: str) -> dict:
+    out = {}
+    for sub in ("full_images", "cropped_images"):
+        names_a = sorted(os.listdir(os.path.join(dir_a, sub)))
+        if names_a != sorted(os.listdir(os.path.join(dir_b, sub))):
+            raise AssertionError(f"{sub}: {dir_a} and {dir_b} hold other files")
+        diffs = [np.abs(np.asarray(_open_rgb(os.path.join(dir_a, sub, n)), np.int16)
+                        - np.asarray(_open_rgb(os.path.join(dir_b, sub, n)), np.int16))
+                 for n in names_a]
+        out[sub] = dict(files=names_a, max_abs_diff=int(max(d.max() for d in diffs)),
+                        mean_abs_diff=float(np.mean([d.mean() for d in diffs])))
+    return out
+
+
+def _open_rgb(path: str):
+    from PIL import Image
+
+    return Image.open(path).convert("RGB")
+
+
+def _timed_steps(pipe) -> list:
+    """CUDA events around each of `pipe`'s denoise steps from now on."""
+    events, inner = [], pipe._denoise_step
+
+    def timed(*a, **kw):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = inner(*a, **kw)
+        e.record()
+        events.append((s, e))
+        return out
+
+    pipe._denoise_step = timed
+    return events
+
+
+def _eval_demo(pipe, per_step: int) -> dict:
+    """The demo callbacks on the loaded pipeline (the default overshoot
+    sampler), with the example's mask as the sketch; check_gradio raises
+    the JAX package's message (gradio is not installed on the card)."""
+    from textflux_torch.cli import demo as D
+    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
+
+    original = _open_rgb(os.path.join(EXAMPLE, "ori", "ori_0001.png"))
+    sketch = {"image": original, "mask": _open_rgb(os.path.join(EXAMPLE, "mask",
+                                                                "mask_0001.png"))}
+    out, problems = {}, []
+    events = _timed_steps(pipe)
+    for name, fn, words in (("custom_beta_1_line", D.demo_custom_beta, "OPEN"),
+                            ("custom_beta_2_lines", D.demo_custom_beta, "OPEN\nCAFE 24H"),
+                            ("custom", D.demo_custom, "OPEN")):
+        events.clear()
+        flash_attention_qk_norm_rope.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cropped, full, cond = fn(pipe, original, sketch, words, steps=EVAL_STEPS, seed=0)
+        torch.cuda.synchronize()
+        rec = dict(seconds=time.perf_counter() - t0, step_ms=[s.elapsed_time(e) for s, e in events],
+                   launches=flash_attention_qk_norm_rope.launches,
+                   expected_launches=per_step * EVAL_STEPS, joint_seq=pipe.last_joint_seq,
+                   images={k: _image_stats(v) for k, v in
+                           (("cropped", cropped), ("full", full), ("conditioning", cond))})
+        out[name] = rec
+        if rec["launches"] != rec["expected_launches"]:
+            problems.append(f"demo {name}: {rec['launches']} fused launches, expected "
+                            f"{rec['expected_launches']}")
+        for k in ("cropped", "full"):
+            if not rec["images"][k]["finite"] or rec["images"][k]["std"] <= 0:
+                problems.append(f"demo {name}: {k} image {rec['images'][k]}")
+    try:
+        D.check_gradio()
+        problems.append("check_gradio() did not raise")
+    except RuntimeError as e:
+        out["check_gradio"] = str(e)
+        if not str(e).startswith("gradio ") or D.SUPPORTED_GRADIO not in str(e):
+            problems.append(f"check_gradio() raised {e!r}")
+    return out, problems
+
+
+def _eval_t2i(vae, clip, t5, per_step: int, smi: str) -> dict:
+    """Text2ImagePipeline at full FLUX.1-dev width (64 input channels, no
+    cond concat; random bf16 weights from seed 2, made here) with the
+    phase's VAE and text encoders: 512x512, euler, T2I_STEPS steps."""
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
+    from textflux_torch.pipeline.t2i import Text2ImagePipeline
+
+    cfg = dataclasses.replace(flux_fill_config(), in_channels=64, out_channels=64)
+    t0 = time.perf_counter()
+    flux = FluxTransformer(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = Text2ImagePipeline(flux=flux, vae=vae, clip=clip, t5=t5,
+                              clip_tokenize=clip_byte_tokenize, t5_tokenize=t5_byte_tokenize)
+    events = _timed_steps(pipe._fill)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_qk_norm_rope.launches = 0
+    t0 = time.perf_counter()
+    image = pipe(prompt="a shop sign that says 'OPEN'", height=T2I_SIZE, width=T2I_SIZE,
+                 num_inference_steps=T2I_STEPS, seed=0, sampler="euler")[0]
+    torch.cuda.synchronize()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    rec = dict(card=smi, in_channels=cfg.in_channels, blocks=[cfg.num_double_layers,
+                                                              cfg.num_single_layers],
+               init_s=init_s, seconds=time.perf_counter() - t0, steps=T2I_STEPS,
+               joint_seq=pipe._fill.last_joint_seq, step_ms=step_ms,
+               mean_step_ms=float(np.mean(step_ms)), attn_impl=pipe._fill.attn_impl,
+               launches=flash_attention_qk_norm_rope.launches,
+               expected_launches=per_step * T2I_STEPS,
+               peak_bytes=torch.cuda.max_memory_allocated(), image=_image_stats(image))
+    del pipe, flux
+    return rec
+
+
+def _eval_ocr(work: str, data_json: str, crops: str, smi: str) -> tuple:
+    """eval_ocr.main over `crops` with the PP-OCR entry point (random
+    full-config RecModel weights and a 6,623-line char dict written here);
+    the recognizer's logits on the card held against a CPU copy."""
+    import contextlib
+    import io
+
+    from textflux_torch.cli import eval_ocr as EO
+    from textflux_torch.cli.run_eval import safe_name
+    from textflux_torch.evaluation import ppocr as TP
+    from textflux_torch.evaluation.crop import crop_polygon_region
+    from textflux_torch.device import true_fp32
+
+    ckpt, cdict = os.path.join(work, "ppv3_rec.pth"), os.path.join(work, "ppocr_keys.txt")
+    cfg = TP.PPOCRConfig()
+    torch.save(TP.random_recmodel_state_dict(cfg, torch.Generator().manual_seed(3)), ckpt)
+    with open(cdict, "w", encoding="utf-8") as f:
+        f.write("".join(chr(0x4E00 + i) + "\n" for i in range(PPOCR_CHARS)))
+    os.environ.update(PPOCR_CKPT=ckpt, PPOCR_DICT=cdict)
+    TP._DEFAULT_RECOGNIZER = None
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        EO.main(["--images-dir", crops, "--json-path", data_json, "--recognizer",
+                 "textflux_torch.evaluation.ppocr:recognize", "--charset", cdict,
+                 "--report", os.path.join(work, "ocr_report.json")])
+    seconds = time.perf_counter() - t0
+    metrics = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rec_card = TP._DEFAULT_RECOGNIZER
+    cpu = TP.PPOCRRecognizer(TP.RecModel(cfg, device="cpu"), rec_card.charset)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in rec_card.model.state_dict().items()})
+    with open(data_json) as f:
+        items = json.load(f)["data_list"]
+    errs, same_text, crops_np = [], [], []
+    for item in items:
+        image = np.asarray(_open_rgb(os.path.join(crops, safe_name(item["img_name"]))))
+        crop = crop_polygon_region(image, item["annotations"][0]["polygon"])
+        crops_np.append(crop)
+        errs.append(float(np.abs(rec_card.logits(crop) - cpu.logits(crop)).max()))
+        same_text.append(rec_card(crop) == cpu(crop))
+    x = torch.as_tensor(TP.preprocess_crop(crops_np[0], cfg.image_shape), device="cuda")
+    with torch.inference_mode(), true_fp32():
+        device_ms = cuda_ms(lambda: rec_card.model(x))
+    t0 = time.perf_counter()
+    for crop in crops_np:
+        rec_card(crop)
+    host_ms = 1e3 * (time.perf_counter() - t0) / len(crops_np)
+    rec = dict(card=smi, metrics=metrics, seconds=seconds, crops=len(crops_np),
+               logits_max_abs_err_vs_cpu=max(errs), tol=EVAL_LOGIT_TOL,
+               same_text_as_cpu=all(same_text), recognizer_ms_per_crop=host_ms,
+               recognizer_device_ms_per_crop=device_ms,
+               params=sum(p.numel() for p in rec_card.model.parameters()))
+    problems = []
+    if metrics["count"] != len(items) or metrics["skipped"] != 0 or not (
+            np.isfinite(metrics["seq_acc"]) and np.isfinite(metrics["ned"])):
+        problems.append(f"eval_ocr metrics {metrics}")
+    if not (max(errs) <= EVAL_LOGIT_TOL and all(same_text)):
+        problems.append(f"PP-OCR logits on the card vs the CPU: {errs}, same text {same_text}")
+    return rec, problems
+
+
+def _eval_fid_lpips(work: str, data_json: str, crops: str, smi: str) -> tuple:
+    """eval_fid_lpips.main over the example images (resized to each crop's
+    size, under its safe_name) against `crops`, with random InceptionV3
+    (torchvision names, BatchNorm statistics) and LPIPS-alex weights written
+    here; features and distances on the card held against a CPU copy, and
+    the features with TF32 allowed measured against the same (information:
+    the extractors run in true float32)."""
+    import contextlib
+    import io
+
+    from textflux_torch.cli import eval_fid_lpips as EF
+    from textflux_torch.cli.run_eval import safe_name
+    from textflux_torch.device import true_fp32
+    from textflux_torch.evaluation import inception as TI, lpips as TL
+    from textflux_torch.evaluation.fid import fid_from_features
+
+    g = torch.Generator().manual_seed(4)
+    inc_path, lp_path = os.path.join(work, "pt_inception.pth"), os.path.join(work, "alex.pth")
+    torch.save(TI.random_torchvision_state_dict(g), inc_path)
+    torch.save(TL.random_lpips_state_dict(g), lp_path)
+    gt = os.path.join(work, "gt")
+    os.makedirs(gt, exist_ok=True)
+    with open(data_json) as f:
+        items = json.load(f)["data_list"]
+    for item, (_, src, _, _) in zip(items, EVAL_ITEMS):
+        name = safe_name(item["img_name"])
+        size = _open_rgb(os.path.join(crops, name)).size
+        _open_rgb(os.path.join(EXAMPLE, "ori", src)).resize(size).save(os.path.join(gt, name))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        EF.main(["--gt-dir", gt, "--gen-dir", crops, "--inception-weights", inc_path,
+                 "--lpips-weights", lp_path, "--log-dir", os.path.join(work, "fid_log")])
+    seconds = time.perf_counter() - t0
+    metrics = json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    pairs = EF.matched_pairs(gt, crops)
+    x = np.stack([EF._load(p, 299) for pair in pairs for p in pair])   # gt, gen, gt, ...
+    sd = TI.convert_inception_state_dict({k: v.numpy() for k, v in torch.load(inc_path).items()})
+    inc_cpu, inc_card = TI.InceptionV3(device="cpu"), TI.InceptionV3(device="cuda")
+    for m in (inc_cpu, inc_card):
+        m.load_state_dict(sd)
+        m.eval()
+    ref = TI.make_fid_extractor(inc_cpu)(x)
+    card = TI.make_fid_extractor(inc_card)(x)
+    scale = float(np.abs(ref).max())
+    feat_err = float(np.abs(card - ref).max()) / scale
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            tf32 = inc_card(torch.as_tensor(x, device="cuda")).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    tf32_err = float(np.abs(tf32 - ref).max()) / scale
+    n = len(pairs)
+    fids = {k: fid_from_features(f[0::2], f[1::2])
+            for k, f in (("card", card), ("cpu", ref), ("card_tf32", tf32))}
+
+    lp_cpu = TL.load_lpips(lp_path, device="cpu")
+    lp_card = TL.load_lpips(lp_path, device="cuda")
+    lp_errs, lp_card_vals = [], []
+    for gp, fp in pairs:
+        a, b = EF._load(gp)[None], EF._load(fp)[None]
+        v_card = float(TL.lpips_distance(lp_card, a, b)[0])
+        v_cpu = float(TL.lpips_distance(lp_cpu, a, b)[0])
+        lp_card_vals.append(v_card)
+        lp_errs.append(abs(v_card - v_cpu) / abs(v_cpu))
+    with torch.inference_mode(), true_fp32():
+        xb = torch.as_tensor(x[:len(pairs)], device="cuda")
+        inc_batch_ms = cuda_ms(lambda: inc_card(xb), iters=10)
+        x32 = xb.repeat(-(-32 // len(xb)), 1, 1, 1)[:32]
+        inc_32_ms = cuda_ms(lambda: inc_card(x32), iters=5)
+        a, b = (torch.as_tensor(EF._load(p)[None], device="cuda") for p in pairs[0])
+        lpips_pair_ms = cuda_ms(lambda: lp_card(a, b))
+    rec = dict(card=smi, metrics=metrics, seconds=seconds, pairs=n,
+               pair_sizes=[list(_open_rgb(f).size) for _, f in pairs],
+               features_max_rel_err_vs_cpu=feat_err, tol=EVAL_FEATURE_TOL,
+               features_tf32_max_rel_err_vs_cpu=tf32_err, fid_from_features=fids,
+               lpips_max_rel_err_vs_cpu=max(lp_errs), lpips_tol=EVAL_LPIPS_RTOL,
+               lpips_card=lp_card_vals,
+               inception_ms_per_299_batch={str(len(xb)): inc_batch_ms, "32": inc_32_ms},
+               lpips_ms_per_pair=lpips_pair_ms, lpips_pair_size=list(a.shape[1:3]))
+    problems = []
+    if not (np.isfinite(metrics.get("fid", np.nan)) and np.isfinite(metrics.get("lpips", np.nan))
+            and metrics["pairs"] == len(items)):
+        problems.append(f"eval_fid_lpips metrics {metrics}")
+    if feat_err > EVAL_FEATURE_TOL or max(lp_errs) > EVAL_LPIPS_RTOL:
+        problems.append(f"features {feat_err} / LPIPS {max(lp_errs)} on the card vs the CPU")
+    return rec, problems
+
+
+def phase_eval(smi: str, have_checkpoint: bool) -> dict:
+    """Phase 11. Phase 7's checkpoint (written here when no earlier phase
+    did) through cli.run_eval.main over EVAL_ITEMS: --batch-size 1, then 2
+    into a second directory (images equal within EVAL_BATCH_TOL),
+    --multiline, and --skip-existing on the first directory (does nothing);
+    the demo callbacks on the last run's pipeline; Text2ImagePipeline at
+    full FLUX.1-dev width after the Fill DiT is freed; eval_ocr.main over
+    the first run's crops (PP-OCR entry point) and eval_fid_lpips.main
+    against the example images, with the metric networks on the card held
+    against the CPU."""
+    from textflux_torch.config import flux_fill_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not have_checkpoint:
+        _, flux = write_checkpoint(load_manifest())
+        del flux
+        gc.collect()
+        torch.cuda.empty_cache()
+    # ~0.12 GB of weights and images under CKPT_DIR: inside the 45 GiB a
+    # run may write beside phases 7-8's checkpoint and exports
+    work = os.path.join(CKPT_DIR, "eval")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_json, imgs = _eval_data(work)
+    flux_cfg = flux_fill_config()
+    per_step = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    n = len(EVAL_ITEMS)
+    # items by //32 bucket: two share ori_0001's canvas, one has ori_0002's
+    chunks_at_2 = 2
+    out, problems = {}, []
+    dirs = {k: os.path.join(work, k) for k in ("b1", "b2", "multiline")}
+    common = ["--model", CKPT_DIR, "--json-path", data_json, "--original-images-dir", imgs,
+              "--steps", str(EVAL_STEPS), "--seed", "0"]
+    runs = (("batch_1", dirs["b1"], ["--batch-size", "1"], per_step * EVAL_STEPS * n),
+            ("batch_2", dirs["b2"], ["--batch-size", "2"], per_step * EVAL_STEPS * chunks_at_2),
+            ("multiline", dirs["multiline"], ["--batch-size", "2", "--multiline"],
+             per_step * EVAL_STEPS * chunks_at_2),
+            ("skip_existing", dirs["b1"], ["--batch-size", "1", "--skip-existing"], 0))
+    pipe = None
+    with byte_tokenizers("eval"):
+        for name, out_dir, extra, expected in runs:
+            with _Recorder() as recorder:
+                rec = _run_eval_main(common + ["--output-dir", out_dir] + extra, recorder,
+                                     expected)
+            rec["card"] = smi
+            log(f"eval run_eval {name} " + json.dumps(rec))
+            out[name] = rec
+            if rec["launches"] != expected:
+                problems.append(f"run_eval {name}: {rec['launches']} fused launches, "
+                                f"expected {expected}")
+            want = ({"total": 0, "done": 0, "failed": 0, "skipped_existing": n}
+                    if name == "skip_existing" else
+                    {"total": n, "done": n, "failed": 0, "skipped_existing": 0})
+            if rec["report"] != want:
+                problems.append(f"run_eval {name}: failures.json {rec['report']} "
+                                f"{rec['failures']}, expected {want}")
+            # the demo callbacks run on the last run's pipeline (loaded, no
+            # image generated); one pipeline resident at a time
+            pipe = recorder.pipe if name == "skip_existing" else None
+            del recorder
+            gc.collect()
+            torch.cuda.empty_cache()
+        diff = _images_diff(dirs["b1"], dirs["b2"])
+        log("eval batch_1_vs_batch_2 " + json.dumps(diff))
+        out["batch_1_vs_batch_2"] = diff
+        for sub, d in diff.items():
+            if d["max_abs_diff"] > EVAL_BATCH_TOL:
+                problems.append(f"{sub}: batch 1 and 2 differ by {d['max_abs_diff']} levels")
+        for sub in ("full_images", "cropped_images"):
+            stats = [_image_stats(_open_rgb(os.path.join(dirs["multiline"], sub, f)))
+                     for f in sorted(os.listdir(os.path.join(dirs["multiline"], sub)))]
+            if len(stats) != n or not all(s["finite"] and s["std"] > 0 for s in stats):
+                problems.append(f"multiline {sub}: {stats}")
+
+        demo, demo_problems = _eval_demo(pipe, per_step)
+        demo["card"] = smi
+        log("eval demo " + json.dumps(demo))
+        out["demo"], problems = demo, problems + demo_problems
+
+    vae, clip, t5 = pipe.vae, pipe.clip, pipe.t5
+    pipe.flux = None     # the Fill DiT goes before the dev DiT is made
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2i = _eval_t2i(vae, clip, t5, per_step, smi)
+    log("eval t2i " + json.dumps(t2i))
+    out["t2i"] = t2i
+    if t2i["launches"] != t2i["expected_launches"]:
+        problems.append(f"t2i: {t2i['launches']} fused launches, expected "
+                        f"{t2i['expected_launches']}")
+    if not t2i["image"]["finite"] or t2i["image"]["std"] <= 0:
+        problems.append(f"t2i image {t2i['image']}")
+    del vae, clip, t5
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    crops = os.path.join(dirs["b1"], "cropped_images")
+    ocr, ocr_problems = _eval_ocr(work, data_json, crops, smi)
+    log("eval eval_ocr " + json.dumps(ocr))
+    fid, fid_problems = _eval_fid_lpips(work, data_json, crops, smi)
+    log("eval eval_fid_lpips " + json.dumps(fid))
+    out["eval_ocr"], out["eval_fid_lpips"] = ocr, fid
+    problems += ocr_problems + fid_problems
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("eval phase: " + "; ".join(problems))
+    return out
+
+
 def _ckpt_launches(ckpt_rec) -> dict:
     if not ckpt_rec:
         return {}
@@ -2027,7 +2494,7 @@ def _ckpt_launches(ckpt_rec) -> dict:
 
 
 def _fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec=None, tm_rec=None,
-                 q_rec=None) -> dict:
+                 q_rec=None, eval_rec=None) -> dict:
     serving = next((r for r in kernel_rows if r["case"] == "serving"), None)
     by_run = {k: v["launches"] for k, v in main_rec["runs"].items()} if main_rec else {}
     by_run.update(_ckpt_launches(ckpt_rec))
@@ -2036,6 +2503,12 @@ def _fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec=None, tm_rec=None,
     for name, r in (q_rec or {}).items():
         if name != "stack_rel_err":
             by_run[f"quantized_{name}"] = r["launches"]
+    if eval_rec:
+        for name in ("batch_1", "batch_2", "multiline", "skip_existing", "t2i"):
+            by_run[f"eval_{name}"] = eval_rec[name]["launches"]
+        for name, r in eval_rec["demo"].items():
+            if isinstance(r, dict):
+                by_run[f"eval_demo_{name}"] = r["launches"]
     entry = dict(
         name="flash_attention_qk_norm_rope", route="cuda",
         source="textflux_torch/csrc/fused_attention.cu",
@@ -2141,11 +2614,14 @@ def main() -> int:
         q_rec = (phase_quantized(smi, have_checkpoint=bool(ckpt_rec or tm_rec),
                                  profile="profile" in phases)
                  if "quantized" in phases else None)
+        qlora_rec = phase_qlora(smi) if "qlora" in phases else None
+        eval_rec = (phase_eval(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec))
+                    if "eval" in phases else None)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    qlora_rec = phase_qlora(smi) if "qlora" in phases else None
 
-    kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec, tm_rec, q_rec)]
+    kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec, tm_rec, q_rec,
+                                   eval_rec)]
     kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec, qlora_rec)
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)

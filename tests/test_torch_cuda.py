@@ -283,3 +283,58 @@ def test_quantized_dense_in_bf16_matches_the_dequantized_product(mode, cuda):
     got = dense(q, x.to(torch.bfloat16)).float()
     want = torch.nn.functional.linear(x, q.dequantize(torch.float32), q.bias.float())
     assert _rel(got, want) <= BF16_TOL
+
+
+# ---------------------------------------------------------------------------
+# the evaluation networks: the card (true float32, TF32 off inside the
+# extractors) against the port on the CPU, same weights and inputs;
+# tolerances as chip_smoke.py's eval phase: Inception pool3 within 1e-4 of
+# the largest |feature|, LPIPS within 1e-4 relative, PP-OCR logits within
+# 1e-4 absolute with the same decoded text
+# ---------------------------------------------------------------------------
+
+def _eval_net(name):
+    import copy
+
+    from textflux_torch.evaluation import inception as TI, lpips as TL, ppocr as TP
+
+    g = torch.Generator().manual_seed(0)
+    if name == "inception":
+        model = TI.InceptionV3(device="cpu")
+        model.load_state_dict(TI.convert_inception_state_dict(
+            {k: v.numpy() for k, v in TI.random_torchvision_state_dict(g).items()}))
+    elif name == "lpips":
+        model = TL.LPIPS(device="cpu")
+        model.load_state_dict(TL.convert_lpips_state_dict(
+            {k: v.numpy() for k, v in TL.random_lpips_state_dict(g).items()}))
+    else:
+        cfg = TP.PPOCRConfig()
+        model = TP.RecModel(cfg, device="cpu")
+        model.load_state_dict(TP.convert_ppocr_state_dict(
+            {k: v.numpy() for k, v in TP.random_recmodel_state_dict(cfg, g).items()}, cfg))
+    return model.eval(), copy.deepcopy(model).to("cuda").eval()
+
+
+@pytest.mark.parametrize("name", ["inception", "lpips", "ppocr"])
+def test_eval_network_on_the_card_matches_the_cpu(name, cuda):
+    from textflux_torch.evaluation import inception as TI, lpips as TL, ppocr as TP
+
+    cpu, card = _eval_net(name)
+    rng = np.random.default_rng(1)
+    if name == "inception":
+        x = rng.uniform(-1, 1, (4, 120, 160, 3)).astype(np.float32)
+        ref, out = TI.make_fid_extractor(cpu)(x), TI.make_fid_extractor(card)(x)
+        assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
+    elif name == "lpips":
+        a = rng.uniform(-1, 1, (4, 96, 128, 3)).astype(np.float32)
+        b = np.clip(a + 0.3 * rng.standard_normal(a.shape), -1, 1).astype(np.float32)
+        ref = TL.lpips_distance(cpu, a, b).numpy()
+        out = TL.lpips_distance(card, a, b).cpu().numpy()
+        np.testing.assert_allclose(out, ref, rtol=1e-4)
+    else:
+        charset = ["sos"] + [chr(0x4E00 + i) for i in range(6623)] + [" "]
+        for h, w in ((40, 150), (48, 320)):
+            crop = rng.integers(0, 255, (h, w, 3), np.uint8)
+            ref_rec, rec = TP.PPOCRRecognizer(cpu, charset), TP.PPOCRRecognizer(card, charset)
+            np.testing.assert_allclose(rec.logits(crop), ref_rec.logits(crop), atol=1e-4)
+            assert rec(crop) == ref_rec(crop)

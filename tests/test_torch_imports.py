@@ -23,7 +23,13 @@ for name in ("textflux_torch.io.params", "textflux_torch.io.lora", "textflux_tor
              "textflux_torch.data.native", "textflux_torch.data.anytext",
              "textflux_torch.data.dataset", "textflux_torch.data.loader",
              "textflux_torch.training.checkpoint", "textflux_torch.utils.tracking",
-             "textflux_torch.io.quantize", "textflux_torch.training.optim8bit"):
+             "textflux_torch.io.quantize", "textflux_torch.training.optim8bit",
+             "textflux_torch.cli.run_eval", "textflux_torch.cli.demo",
+             "textflux_torch.cli.eval_ocr", "textflux_torch.cli.eval_fid_lpips",
+             "textflux_torch.pipeline.t2i", "textflux_torch.evaluation.metrics",
+             "textflux_torch.evaluation.crop", "textflux_torch.evaluation.fid",
+             "textflux_torch.evaluation.inception", "textflux_torch.evaluation.lpips",
+             "textflux_torch.evaluation.ppocr"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "safetensors", "transformers")

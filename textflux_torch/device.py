@@ -6,6 +6,7 @@ CPU is used only when the caller asks for it (``device="cpu"``).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -23,3 +24,16 @@ def resolve_device(device: Union[str, torch.device] = "cuda", *,
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+@contextlib.contextmanager
+def true_fp32():
+    """float32 convolutions and matmuls in true float32 while the block runs
+    (TF32 off for cuDNN and cuBLAS; cuDNN allows it by default), the
+    previous flags restored after."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev

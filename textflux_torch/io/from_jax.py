@@ -19,6 +19,11 @@ The trees hold the checkpoint's q/k feature order: the modules come back in
 the "interleaved" rope layout, and a pipeline on the fused path permutes
 them as the JAX pipeline does.
 
+``load_jax_inception`` / ``load_jax_lpips`` / ``load_jax_ppocr`` carry
+the evaluation networks' trees (the FID InceptionV3, the AlexNet LPIPS and
+the PP-OCR recognizer) into their modules in ``textflux_torch.evaluation``,
+with the same layout changes.
+
 ``load_jax_dense(leaf)`` carries one dense leaf. ``load_jax_lora(tree,
 model)`` carries a JAX LoRA factor tree
 (``training.train.lora_init``'s: stacked (L, ...) factors per target name)
@@ -235,4 +240,80 @@ def load_jax_params(tree: Mapping, cfg, *, device="cuda", dtype=torch.float32) -
     cls, fill = table[type(cfg)]
     model = cls(cfg, device=device, dtype=dtype)
     fill(model, tree)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# the evaluation networks
+# ---------------------------------------------------------------------------
+
+def load_jax_inception(tree: Mapping, *, device="cuda") -> nn.Module:
+    """The JAX FID InceptionV3 tree ({<Mixed_x>: {<branch>: {"w": HWIO,
+    "b"}}, <stem conv>: {...}}, BatchNorm already folded) -> an
+    ``evaluation.inception.InceptionV3``."""
+    from textflux_torch.evaluation.inception import InceptionV3, all_conv_specs
+
+    model = InceptionV3(device=device)
+    for path, _ in all_conv_specs():
+        node = tree
+        for part in path.split("."):
+            node = node[part]
+        _conv(model.conv(path), node, path)
+    return model
+
+
+def load_jax_lpips(tree: Mapping, *, device="cuda") -> nn.Module:
+    """The JAX LPIPS tree ({"net": {"convs": [{"w", "b"}]}, "lins": [{"w":
+    (1, 1, C, 1)}]}) -> an ``evaluation.lpips.LPIPS``."""
+    from textflux_torch.evaluation.lpips import LPIPS
+
+    model = LPIPS(device=device)
+    for i, p in enumerate(tree["net"]["convs"]):
+        _conv(model.convs[i], p, f"net.convs[{i}]")
+    for i, p in enumerate(tree["lins"]):
+        _set(model.lins[i].weight, _t(p["w"]).permute(3, 2, 0, 1), f"lins[{i}].w")
+    return model
+
+
+def load_jax_ppocr(tree: Mapping, cfg, *, device="cuda") -> nn.Module:
+    """The JAX PP-OCR tree (``init_ppocr_params`` / ``convert_ppocr_state_dict``
+    layout: convs HWIO without bias, BatchNorm {scale, bias, mean, var},
+    dense {"w": (in, out), "b"}, LayerNorm {scale, bias}) -> an
+    ``evaluation.ppocr.RecModel`` for `cfg` (a ``PPOCRConfig``)."""
+    from textflux_torch.evaluation.ppocr import RecModel
+
+    model = RecModel(cfg, device=device)
+
+    def conv_bn(mod, p, what):
+        conv, bn = (getattr(mod, n) for n in mod.names)
+        _set(conv.weight, _t(p["conv"]["w"]).permute(3, 2, 0, 1), what + ".conv.w")
+        for ours, theirs in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                             ("running_var", "var")):
+            _set(getattr(bn, ours), _t(p["bn"][theirs]), f"{what}.bn.{theirs}")
+
+    def layer_norm(mod, p, what):
+        _set(mod.weight, _t(p["scale"]), what + ".scale")
+        _set(mod.bias, _t(p["bias"]), what + ".bias")
+
+    bb, tb = model.backbone, tree["backbone"]
+    conv_bn(bb.conv1, tb["conv1"], "backbone.conv1")
+    for i, (blk, p) in enumerate(zip(bb.block_list, tb["blocks"])):
+        conv_bn(blk._depthwise_conv, p["dw"], f"backbone.blocks[{i}].dw")
+        conv_bn(blk._pointwise_conv, p["pw"], f"backbone.blocks[{i}].pw")
+        if blk._se is not None:
+            for name in ("conv1", "conv2"):
+                _conv(getattr(blk._se, name), p["se"][name], f"backbone.blocks[{i}].se.{name}")
+    enc, tn = model.neck.encoder, tree["neck"]
+    for name in ("conv1", "conv2", "conv3", "conv4", "conv1x1"):
+        conv_bn(getattr(enc, name), tn[name], f"neck.{name}")
+    layer_norm(enc.norm, tn["norm"], "neck.norm")
+    for i, (blk, p) in enumerate(zip(enc.svtr_block, tn["blocks"])):
+        what = f"neck.blocks[{i}]"
+        layer_norm(blk.norm1, p["norm1"], what + ".norm1")
+        layer_norm(blk.norm2, p["norm2"], what + ".norm2")
+        _dense(blk.mixer, "qkv", p["qkv"], what + ".qkv")
+        _dense(blk.mixer, "proj", p["proj"], what + ".proj")
+        _dense(blk.mlp, "fc1", p["fc1"], what + ".fc1")
+        _dense(blk.mlp, "fc2", p["fc2"], what + ".fc2")
+    _dense(model.head, "fc", tree["head"], "head")
     return model

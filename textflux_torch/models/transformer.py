@@ -308,7 +308,10 @@ def flux_apply(
     # AdaLN-continuous output head: chunk order is (scale, shift)
     scale, shift = final.chunk(2, dim=-1)
     x = layer_norm(x) * (1.0 + scale[:, None]) + shift[:, None]
-    return dense(model.final_proj, x)
+    # a product this narrow (out_channels columns) gets a split reduction
+    # from cuBLAS whose factor depends on the row count: per sample, a
+    # batch's rows are bitwise the single-sample call's
+    return torch.cat([dense(model.final_proj, x[i:i + 1]) for i in range(x.shape[0])])
 
 
 @torch.no_grad()

@@ -371,9 +371,11 @@ class FillPipeline:
         while the text encoders are resident, then release_text_encoders()."""
         if self.clip is None or self.t5 is None:
             raise ValueError("text encoders were released or never loaded")
-        clip_ids = np.concatenate([self.clip_tokenize(GENERIC_TEMPLATE)] * len(words_list))
+        # one CLIP row for the shared prompt: the same pooled vector as a
+        # single-item call's (a batch of rows may take other cuBLAS splits)
         t5_ids = np.concatenate([self.t5_tokenize(words_prompt(w)) for w in words_list])
-        return self._encode_ids(clip_ids, t5_ids, dtype)
+        pooled, txt = self._encode_ids(self.clip_tokenize(GENERIC_TEMPLATE), t5_ids, dtype)
+        return pooled.expand(len(words_list), -1).contiguous(), txt
 
     @torch.inference_mode()
     def generate_batch(
@@ -453,7 +455,10 @@ class FillPipeline:
             guidance_scale=guidance_scale, sampler=sampler,
             overshoot_c=overshoot_c, seq_pad_multiple=seq_pad_multiple,
             step_noise=step_noise, generator=generators)
-        images_np = self._decode(latents, lat_h, lat_w).float().cpu().numpy()
+        # decoded per sample: cuDNN picks its convolution algorithms by
+        # shape, so a batched decode's rows differ from a single-item call's
+        images_np = np.concatenate([self._decode(latents[i:i + 1], lat_h, lat_w).float()
+                                    .cpu().numpy() for i in range(b)])
         return improc.postprocess_image(images_np)
 
     # ------------------------------------------------------------------

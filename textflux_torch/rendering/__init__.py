@@ -1,4 +1,5 @@
 from textflux_torch.rendering.glyph import (  # noqa: F401
+    draw_glyph_beta,
     load_font,
     draw_glyph_flexible,
     draw_glyph_strip,

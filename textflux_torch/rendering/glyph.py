@@ -59,7 +59,7 @@ def _fit_font_size(font, text: str, width: int, height: int, max_font_size: int)
 
 def _draw_centered(font, text: str, width: int, height: int,
                    max_font_size: int, *, mode: str = "RGB") -> Image.Image:
-    """Shared probe-fit-draw core of the two strip renderers below: black
+    """Shared probe-fit-draw core of the three strip renderers below: black
     canvas, fitted font size (min 10), centered anchor-mm draw. mode='1'
     gives the hard-binary (no antialiasing) dataset distribution."""
     fill = 1 if mode == "1" else "white"
@@ -98,7 +98,7 @@ def draw_glyph_flexible(
 def draw_glyph_strip(
     font, text: str, width: int, height: int, max_font_size: int = 140,
 ) -> Image.Image:
-    """Dataset variant: strip height clamps to min(width//6, height) and
+    """Dataset/beta variant: strip height clamps to min(width//6, height) and
     the caps step 140 -> 180 (>1280px) -> 280 (>2048px).
 
     Renders on a mode-'1' canvas like the reference DATASET renderer
@@ -111,6 +111,16 @@ def draw_glyph_strip(
     return _draw_centered(font, text, width, height,
                           _dataset_caps(width, max_font_size),
                           mode="1").convert("RGB")
+
+
+def draw_glyph_beta(
+    font, text: str, width: int, height: int, max_font_size: int = 140,
+) -> Image.Image:
+    """Beta-demo variant: dataset font caps (140 -> 180 > 1280px -> 280 > 2048px)
+    but no strip-height clamp (the caller fixes the height; the reference's
+    demo_beta.py:181-224)."""
+    return _draw_centered(font, text, width, height,
+                          _dataset_caps(width, max_font_size))
 
 
 def insert_spaces(text: str, num_spaces: int) -> str:
