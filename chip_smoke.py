@@ -83,15 +83,31 @@ Phases, in order; any failure exits non-zero:
      full-config PP-OCRv3, InceptionV3 and LPIPS-alex weights written here;
      each metric network on the card held against the port on the CPU
      (EVAL_*_TOL), the features with TF32 allowed measured beside them,
-     and the networks' times.
+     and the networks' times;
+ 12. train_full: full-parameter training on phase 7's checkpoint (written
+     here when no earlier phase did) through textflux_torch.cli.train.main:
+     --mode attn (the reference's attention unfreeze, 3.945 B trainable
+     parameters as float32 masters beside the frozen bf16 weights) with
+     8-bit AdamW at lr 2e-5, full depth, the AnyWord json of phase 8 at
+     1024 px (joint 4,224), 4 steps, no checkpoint; the final float32
+     export goes to a sink that checks it on the card (the manifest's keys
+     and shapes, float32, the trained keys bitwise the live masters) and
+     writes nothing (the disk budget: phases 7, 8 and 11 write ~45.6 GB of
+     the 45 GiB a run may write, the export alone would be 47.6 GB). Step
+     ms, the DiT load, launches per step, the peak and the state's bytes by
+     part; every trainable parameter moved, every frozen parameter and
+     masked linear1 row bitwise as loaded; one more step profiled. Then
+     --mode attn with AdamW and --mode all with 8-bit AdamW through
+     train_full, 2 steps each, at full width and 2 + 4 blocks (at full
+     depth they need ~95 and ~119 GB).
 Phase 3 runs every kernel at its path's shapes and at the JAX package's
 multi-line serving shape (S = 8704). It also holds the four training
 kernels (flash forward, LSE, dQ, dK/dV) against their plain versions, the
 L that the forward writes against the plain LSE, and the fused kernel's
 norm+rope pass (timed alone) against its plain version; it checks that a
 second launch of the forward, dQ and dK/dV on the same inputs gives
-bitwise the same outputs. The train and qlora phases expect 114 / 0 / 57 /
-57 launches of forward / LSE / dQ / dK/dV per step: the forward hands its L
+bitwise the same outputs. The train, qlora and train_full phases expect 114 / 0 / 57
+/ 57 launches of forward / LSE / dQ / dK/dV per full-depth step: the forward hands its L
 to the backward. The line before the last holds the kernel table as JSON;
 the last line is {"ok": true, "device": {...}}.
 
@@ -122,7 +138,7 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BF16_TOL = 2e-2              # unit-scale inputs, bf16 rounding of q/k/p/out
 PHASES = ("device", "build", "kernels", "main", "profile", "train", "checkpoint",
-          "train_main", "quantized", "qlora", "eval")
+          "train_main", "quantized", "qlora", "eval", "train_full")
 
 
 def log(msg: str) -> None:
@@ -822,8 +838,8 @@ def phase_train(profile: bool = False) -> dict:
         batch = {"pixel_values": torch.as_tensor(sample["pixel_values"], device=dev).to(dt),
                  "mask": torch.as_tensor(sample["mask"], device=dev).to(dt),
                  "txt": txt, "pooled": pooled}
-        opt = TR.make_optimizer(tc, TR.lora_parameters(lora))
-        step_fn = TR.make_lora_train_step(tc)
+        opt = TR.make_optimizer(tc, TR.lora_named_parameters(lora))
+        step_fn = TR.make_train_step(tc)
         profile_step(lambda: step_fn(flux, vae, opt, batch, generator=gen),
                      what="train step", inference=False)
     del flux, vae, clip, t5, lora
@@ -1339,8 +1355,8 @@ class _TrainMainRecorder:
     - data.loader.BucketedLoader.__iter__: the host's seconds waiting in
       next() and each batch's bucket; a CUDA event when a batch is handed
       out (its step's start);
-    - training.train.make_lora_train_step: a CUDA event when each step
-      returns (its end) and the flash kernels' launch counts after it;
+    - training.train.make_train_step: a CUDA event when each step returns
+      (its end) and the flash kernels' launch counts after it;
     - io.params.load_checkpoint_dir: seconds and bytes by component;
     - training.train.lora_insert: the base checksum when the factors are
       attached, and each target's B checksum (the model and the factors
@@ -1476,7 +1492,7 @@ class _TrainMainRecorder:
             return linked
 
         self._patch(BucketedLoader, "__iter__", loader_iter)
-        self._patch(TR, "make_lora_train_step", make_step)
+        self._patch(TR, "make_train_step", make_step)
         self._patch(P, "load_checkpoint_dir", load)
         self._patch(TR, "lora_insert", insert)
         self._patch(TR, "make_optimizer", make_opt)
@@ -1496,6 +1512,18 @@ class _TrainMainRecorder:
             out.append({n: c[n] - prev[n] for n in FLASH_KERNELS})
             prev = c
         return out
+
+
+def train_main_json(work: str) -> str:
+    """The AnyWord json of TRAIN_MAIN_ITEMS under `work` (images: the
+    example directory)."""
+    data_json = os.path.join(work, "anyword.json")
+    with open(data_json, "w") as f:
+        json.dump({"data_list": [
+            {"img_name": name, "annotations": [
+                {"text": text, "polygon": [[x0, y0], [x1, y0], [x1, y1], [x0, y1]]}]}
+            for name, text, (x0, y0, x1, y1) in TRAIN_MAIN_ITEMS]}, f)
+    return data_json
 
 
 def _tree_mismatches(live, saved, path: str = "state") -> tuple:
@@ -1560,12 +1588,7 @@ def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
     work = os.path.join(CKPT_DIR, "train_main")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    data_json = os.path.join(work, "anyword.json")
-    with open(data_json, "w") as f:
-        json.dump({"data_list": [
-            {"img_name": name, "annotations": [
-                {"text": text, "polygon": [[x0, y0], [x1, y0], [x1, y1], [x0, y1]]}]}
-            for name, text, (x0, y0, x1, y1) in TRAIN_MAIN_ITEMS]}, f)
+    data_json = train_main_json(work)
     out_a, out_b = os.path.join(work, "a"), os.path.join(work, "b")
     disk_free, mem_free = _free_bytes(work)
     factor_bytes = 4 * sum(int(np.prod(v)) for k, v in manifest["lora"].items()
@@ -2483,6 +2506,416 @@ def phase_eval(smi: str, have_checkpoint: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. train_full: full-parameter training through cli.train.main and in memory
+# ---------------------------------------------------------------------------
+
+TRAIN_FULL_STEPS = 4
+TRAIN_FULL_LR = "2e-5"
+# the in-memory runs' depth (2 double + 4 single blocks, full width): at full
+# depth fp32 AdamW over the attention unfreeze needs ~95 GB and --mode all
+# with 8-bit moments ~119 GB, past one 80 GB card (they wait for sharding)
+TRAIN_FULL_REDUCED_DEPTH = (2, 4)
+TRAIN_FULL_REDUCED_STEPS = 2
+TRAIN_FULL_REDUCED_RUNS = (("attn", "adamw"), ("all", "adamw8bit"))
+
+
+def full_checksums(model, masks) -> dict:
+    """param_checksum of every frozen parameter, and of the trainable and
+    the masked elements of every trainable one."""
+    out = {"frozen": {}, "trained": {}, "masked": {}}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name not in masks:
+                out["frozen"][name] = param_checksum(p)
+            elif masks[name] is None:
+                out["trained"][name] = param_checksum(p)
+            else:
+                keep = torch.broadcast_to(masks[name] != 0, p.shape)
+                out["trained"][name] = param_checksum(p[keep])
+                if not bool(keep.all()):
+                    out["masked"][name] = param_checksum(p[~keep])
+    return out
+
+
+def _checksum_report(before: dict, after: dict) -> dict:
+    return dict(
+        frozen=len(before["frozen"]),
+        frozen_changed=[k for k, v in before["frozen"].items() if after["frozen"][k] != v],
+        masked=len(before["masked"]),
+        masked_changed=[k for k, v in before["masked"].items() if after["masked"][k] != v],
+        trained=len(before["trained"]),
+        trained_unmoved=[k for k, v in before["trained"].items() if after["trained"][k] == v])
+
+
+def _state_parts(model, masks, opt_state) -> dict:
+    """Device bytes of the training state by part."""
+    from textflux_torch.training.optim8bit import state_bytes
+
+    params = dict(model.named_parameters())
+    return dict(
+        frozen_bytes=sum(p.numel() * p.element_size() for k, p in params.items()
+                         if k not in masks),
+        master_bytes=sum(params[k].numel() * params[k].element_size() for k in masks),
+        grad_bytes=sum(p.grad.numel() * p.grad.element_size() for p in params.values()
+                       if p.grad is not None),
+        optimizer_state_bytes=state_bytes(opt_state))
+
+
+def _full_problems(label: str, r: dict, want_steps: list, per_step: dict) -> list:
+    problems = []
+    if r["steps"] != want_steps:
+        problems.append(f"{label} logged steps {r['steps']}, expected {want_steps}")
+    if not all(np.isfinite(r["loss"])) or not all(np.isfinite(r["grad_norm"])):
+        problems.append(f"{label}: non-finite loss or grad norm")
+    if len(r["launches_per_step"]) != len(want_steps) or any(
+            c != per_step for c in r["launches_per_step"]):
+        problems.append(f"{label} launched {r['launches_per_step']}, expected {per_step} a step")
+    c = r["checksums"]
+    if c["frozen_changed"] or c["masked_changed"]:
+        problems.append(f"{label} changed frozen parameters {c['frozen_changed'][:3]} or "
+                        f"masked rows {c['masked_changed'][:3]}")
+    if not c["trained"] or c["trained_unmoved"]:
+        problems.append(f"{label}: trainable parameters that did not move: "
+                        f"{c['trained_unmoved'][:3]}")
+    if r["max_memory_allocated"] > r["device_total_bytes"]:
+        problems.append(f"{label}: peak {r['max_memory_allocated']} past the card")
+    return problems
+
+
+class _TrainFullRecorder:
+    """Instruments one cli.train.main() run in --mode attn|all from outside,
+    while the block runs:
+    - data.loader.BucketedLoader.__iter__: each batch's bucket and a CUDA
+      event when it is handed out (its step's start);
+    - training.train.make_train_step: a CUDA event when each step returns
+      (its end), the flash launch counts after it, and the step's function
+      and arguments (for the profile after the run);
+    - io.params.load_checkpoint_dir: seconds, checkpoint bytes and device
+      bytes by component;
+    - training.train.make_optimizer: the optimizer and masks, the checksums
+      before the first step (of the model load_models built), and CUDA
+      events around each optimizer step (mask, clip, update);
+    - io.export.save_transformer_checkpoint: a sink that checks the export
+      on the device (the manifest's keys and shapes, float32, the trained
+      keys bitwise the live masters) and writes nothing."""
+
+    def __init__(self, manifest_transformer: dict):
+        self.manifest = manifest_transformer
+        self.buckets, self.starts, self.ends, self.counts = [], [], [], []
+        self.load, self.model, self.masks, self.opt, self.before = {}, None, None, None, None
+        self.last_step, self.export, self.opt_events = None, None, []
+        self._undo = []
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._undo.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def sink(self, model, out_dir, *, shards=1, dtype=None):
+        from textflux_torch.io.export import export_flux_state_dict
+        from textflux_torch.io.params import flux_key_map
+
+        t0 = time.perf_counter()
+        keys = flux_key_map(model)
+        trained = {id(p) for p in self.opt.params}
+        sd = export_flux_state_dict(model)
+        r = dict(out_dir=os.path.relpath(out_dir, REPO), dtype=str(dtype), keys=len(sd),
+                 keys_equal=set(sd) == set(self.manifest),
+                 shapes_equal=all(list(v.shape) == self.manifest.get(k) for k, v in sd.items()),
+                 not_float32=[], trained_keys=0, trained_differ=[], nonfinite=[],
+                 bytes_it_would_write=0, bytes_written=0)
+        with torch.no_grad():
+            for k, v in sd.items():
+                x = v.to(dtype) if dtype is not None else v
+                r["bytes_it_would_write"] += x.numel() * x.element_size()
+                if x.dtype != torch.float32:
+                    r["not_float32"].append(k)
+                if not bool(torch.isfinite(x).all()):
+                    r["nonfinite"].append(k)
+                param, rows = keys[k]
+                if id(param) in trained:
+                    r["trained_keys"] += 1
+                    if not torch.equal(x, param if rows is None else param[rows]):
+                        r["trained_differ"].append(k)
+                del x
+        r["seconds"] = time.perf_counter() - t0
+        self.export = r
+        return 0
+
+    def __enter__(self):
+        from textflux_torch.data.loader import BucketedLoader
+        from textflux_torch.io import export as E
+        from textflux_torch.io import params as P
+        from textflux_torch.io.quantize import quantized_bytes
+        from textflux_torch.ops import flash_attention as FA
+        from textflux_torch.training import train as TR
+
+        def loader_iter(orig):
+            def timed(loader):
+                for batch in orig(loader):
+                    self.buckets.append(list(batch["bucket"]))
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    self.starts.append(ev)
+                    yield batch
+            return timed
+
+        def make_step(orig):
+            def make(tc, **kw):
+                step = orig(tc, **kw)
+
+                def timed(*a, **k):
+                    metrics = step(*a, **k)
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    self.ends.append(ev)
+                    self.counts.append({n: getattr(FA, n).launches for n in FLASH_KERNELS})
+                    self.last_step = (step, a)
+                    return metrics
+                return timed
+            return make
+
+        def load(orig):
+            def timed(path, cfg, **kw):
+                t0 = time.perf_counter()
+                module = orig(path, cfg, **kw)
+                torch.cuda.synchronize()
+                name = os.path.basename(os.path.normpath(path))
+                self.load[name] = dict(seconds=time.perf_counter() - t0,
+                                       bytes=P.checkpoint_bytes(path),
+                                       device_bytes=quantized_bytes(module))
+                if name == "transformer":
+                    self.model = module
+                return module
+            return timed
+
+        def make_opt(orig):
+            def kept(tc, params, masks=None):
+                self.opt, self.masks = orig(tc, params, masks), masks
+                self.before = full_checksums(self.model, masks)
+                inner = self.opt.step
+
+                def timed():   # the mask, clip and update of each step
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    ev[0].record()
+                    norm = inner()
+                    ev[1].record()
+                    self.opt_events.append(ev)
+                    return norm
+                self.opt.step = timed
+                return self.opt
+            return kept
+
+        self._patch(BucketedLoader, "__iter__", loader_iter)
+        self._patch(TR, "make_train_step", make_step)
+        self._patch(P, "load_checkpoint_dir", load)
+        self._patch(TR, "make_optimizer", make_opt)
+        self._patch(E, "save_transformer_checkpoint", lambda orig: self.sink)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+
+    def per_step_launches(self) -> list:
+        prev, out = {n: 0 for n in FLASH_KERNELS}, []
+        for c in self.counts:
+            out.append({n: c[n] - prev[n] for n in FLASH_KERNELS})
+            prev = c
+        return out
+
+
+def _train_full_main(smi: str, manifest: dict, per_step: dict) -> dict:
+    """--mode attn with 8-bit AdamW through cli.train.main at full depth on
+    the checkpoint under CKPT_DIR; one more step profiled after the run."""
+    from textflux_torch.cli import train as CLI
+    from textflux_torch.ops import flash_attention as FA
+
+    work = os.path.join(CKPT_DIR, "train_full")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out_dir = os.path.join(work, "out")
+    argv = ["--model", CKPT_DIR, "--data-json", train_main_json(work),
+            "--data-images", os.path.join(EXAMPLE, "ori"), "--mode", "attn",
+            "--optimizer", "adamw8bit", "--learning-rate", TRAIN_FULL_LR,
+            "--resolution", str(TRAIN_RESOLUTION), "--train-batch-size", "1",
+            "--grad-accum", "1", "--max-train-steps", str(TRAIN_FULL_STEPS),
+            "--checkpointing-steps", str(TRAIN_FULL_STEPS + 1), "--log-every", "1",
+            "--seed", "0", "--output-dir", out_dir]
+    for k in FLASH_KERNELS:
+        getattr(FA, k).launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with byte_tokenizers("train_full"), _TrainFullRecorder(manifest["transformer"]) as rec:
+        CLI.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: getattr(FA, k).launches for k in FLASH_KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        after = full_checksums(rec.model, rec.masks)
+    train_log = _train_log(out_dir)
+    written = sum(os.path.getsize(os.path.join(d, f))
+                  for d, _, fs in os.walk(out_dir) for f in fs)
+    r = dict(card=smi, mode="attn", optimizer="adamw8bit", lr=float(TRAIN_FULL_LR),
+             seconds=seconds, steps=[e["step"] for e in train_log],
+             loss=[e["loss"] for e in train_log], grad_norm=[e["grad_norm"] for e in train_log],
+             step_ms=[s.elapsed_time(e) for s, e in zip(rec.starts, rec.ends)],
+             optimizer_ms=[s.elapsed_time(e) for s, e in rec.opt_events],
+             bucket_hw=rec.buckets,
+             joint_seq=[512 + (h // 16) * (w // 16) for h, w in rec.buckets],
+             load=rec.load, launches=launches, launches_per_step=rec.per_step_launches(),
+             expected_per_step=per_step, max_memory_allocated=peak,
+             device_total_bytes=torch.cuda.mem_get_info()[1],
+             state=_state_parts(rec.model, rec.masks, rec.opt.state_dict()),
+             checksums=_checksum_report(rec.before, after), export=rec.export,
+             output_bytes=written,
+             transformer_dir_written=os.path.exists(os.path.join(out_dir, "transformer")))
+    log("train_full main " + json.dumps(r))
+    step, (model, vae, opt, batch) = rec.last_step
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    profile_step(lambda: step(model, vae, opt, batch, generator=gen),
+                 what="train_full step (attn, adamw8bit, full depth)", inference=False)
+    del rec, step, model, vae, opt, batch
+    return r
+
+
+def _train_full_reduced(mode: str, optimizer: str, models, sample, smi: str) -> dict:
+    """TRAIN_FULL_REDUCED_STEPS steps of train_full (lr 2e-5) over a
+    full-width DiT of TRAIN_FULL_REDUCED_DEPTH blocks, bf16 weights made on
+    the card from seed 0 (train_full makes the trainable ones float32
+    masters)."""
+    from textflux_torch.cli.train import train_full
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.ops import flash_attention as FA
+    from textflux_torch.training import train as TR
+
+    vae, clip, t5 = models
+    n_double, n_single = TRAIN_FULL_REDUCED_DEPTH
+    cfg = dataclasses.replace(flux_fill_config(), num_double_layers=n_double,
+                              num_single_layers=n_single)
+    flux = FluxTransformer(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    tc = TR.TrainConfig(mode=mode, optimizer=optimizer)
+    masks = TR.trainable_mask(flux, tc)
+    before = full_checksums(flux, masks)
+    starts, ends, counts = [], [], []
+
+    def batches():
+        while True:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            yield sample
+
+    def on_step(step, metrics, model):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        counts.append({k: getattr(FA, k).launches for k in FLASH_KERNELS})
+
+    for k in FLASH_KERNELS:
+        getattr(FA, k).launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = {}
+    flux, history = train_full(flux, vae, clip, t5, batches(), tc=tc,
+                               clip_tokenize=clip_byte_tokenize, t5_tokenize=t5_byte_tokenize,
+                               steps=TRAIN_FULL_REDUCED_STEPS, seed=0, log_every=1,
+                               on_step=on_step, state=state)
+    torch.cuda.synchronize()
+    prev, by_step = {k: 0 for k in FLASH_KERNELS}, []
+    for c in counts:
+        by_step.append({k: c[k] - prev[k] for k in FLASH_KERNELS})
+        prev = c
+    r = dict(card=smi, mode=mode, optimizer=optimizer, lr=tc.learning_rate,
+             depth=dict(double=n_double, single=n_single, hidden=cfg.hidden_dim),
+             steps=[e["step"] for e in history], loss=[e["loss"] for e in history],
+             grad_norm=[e["grad_norm"] for e in history],
+             step_ms=[s.elapsed_time(e) for s, e in zip(starts, ends)],
+             launches={k: getattr(FA, k).launches for k in FLASH_KERNELS},
+             launches_per_step=by_step, max_memory_allocated=torch.cuda.max_memory_allocated(),
+             device_total_bytes=torch.cuda.mem_get_info()[1],
+             params=sum(p.numel() for p in flux.parameters()),
+             trainable=sum(p.numel() for n, p in flux.named_parameters() if n in masks),
+             state=_state_parts(flux, masks, state["opt_state"]),
+             checksums=_checksum_report(before, full_checksums(flux, masks)))
+    del flux, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_train_full(smi: str, have_checkpoint: bool) -> dict:
+    """Phase 12. Full-parameter training: --mode attn with 8-bit AdamW
+    through cli.train.main at full depth on phase 7's checkpoint (written
+    here when no earlier phase did), 4 steps at 4,224 tokens, the export
+    checked by a sink that writes nothing, one more step profiled; then
+    --mode attn with AdamW and --mode all with 8-bit AdamW through
+    train_full at full width and reduced depth. Fails on a launch count
+    other than 114/0/57/57 a full-depth step, a trainable parameter that
+    did not move, a frozen parameter or masked row that did, a non-finite
+    loss, or an export that is not the manifest's keys in float32 with the
+    live masters' values."""
+    from textflux_torch.config import clip_l_config, flux_fill_config, flux_vae_config, t5_xxl_config
+    from textflux_torch.models.clip import CLIPTextModel
+    from textflux_torch.models.t5 import T5Encoder
+    from textflux_torch.models.vae import FluxVAE
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    manifest = load_manifest()
+    if not have_checkpoint:
+        _, flux = write_checkpoint(manifest)
+        del flux
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+
+    def expected(blocks):
+        return {"flash_attention": 2 * blocks, "flash_attention_lse": 0,
+                "flash_attention_dq": blocks, "flash_attention_dkv": blocks}
+
+    cfg = flux_fill_config()
+    out, problems = {}, []
+    r = _train_full_main(smi, manifest, expected(cfg.num_double_layers + cfg.num_single_layers))
+    out["main"] = r
+    problems += _full_problems("main", r, list(range(1, TRAIN_FULL_STEPS + 1)),
+                               r["expected_per_step"])
+    e = r["export"] or {}
+    if not (e.get("keys_equal") and e.get("shapes_equal")) or e.get("not_float32") \
+            or e.get("trained_differ") or e.get("nonfinite") or not e.get("trained_keys"):
+        problems.append(f"main's export: {e}")
+    if r["transformer_dir_written"] or e.get("bytes_written"):
+        problems.append("main wrote its export to disk")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt = torch.bfloat16
+    models = (FluxVAE(flux_vae_config(), device="cuda", dtype=dt, generator=gen),
+              CLIPTextModel(clip_l_config(), device="cuda", dtype=dt, generator=gen),
+              T5Encoder(t5_xxl_config(), device="cuda", dtype=dt, generator=gen))
+    sample = training_sample()
+    for mode, optimizer in TRAIN_FULL_REDUCED_RUNS:
+        r = _train_full_reduced(mode, optimizer, models, sample, smi)
+        r["expected_per_step"] = expected(sum(TRAIN_FULL_REDUCED_DEPTH))
+        name = f"{mode}_{optimizer}"
+        log(f"train_full {name} " + json.dumps(r))
+        out[name] = r
+        problems += _full_problems(name, r, list(range(1, TRAIN_FULL_REDUCED_STEPS + 1)),
+                                   r["expected_per_step"])
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train_full phase: {time.perf_counter() - t0:.1f} s")
+    if problems:
+        raise AssertionError("train_full phase: " + "; ".join(problems))
+    return out
+
+
 def _ckpt_launches(ckpt_rec) -> dict:
     if not ckpt_rec:
         return {}
@@ -2545,10 +2978,12 @@ FLASH_FUNCTIONS = {"flash_attention": "flash_fwd_sm90_kernel",
                    "flash_attention_dkv": "flash_dkv_sm90_kernel"}
 
 
-def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None) -> list:
+def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None,
+                   tf_rec=None) -> list:
     """One JSON entry per training kernel: times at the `train` case,
-    launches from the train phase, the train_main phase's runs A and B and
-    the qlora phase's runs (all steps, by run, and per step)."""
+    launches from the train phase, the train_main phase's runs A and B, the
+    qlora phase's runs and the train_full phase's (all steps, by run, and
+    per step)."""
     train = flash_rows.get("train")
     runs = {}
     if train_rec:
@@ -2557,6 +2992,8 @@ def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None
         runs[f"train_main_{key}"] = tm_rec[key]
     for key, r in (qlora_rec or {}).items():
         runs[f"qlora_{key}"] = r
+    for key, r in (tf_rec or {}).items():
+        runs[f"train_full_{key}"] = r
     out = []
     for name in FLASH_KERNELS:
         by_run = {k: r["launches"][name] for k, r in runs.items()}
@@ -2617,12 +3054,15 @@ def main() -> int:
         qlora_rec = phase_qlora(smi) if "qlora" in phases else None
         eval_rec = (phase_eval(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec))
                     if "eval" in phases else None)
+        tf_rec = (phase_train_full(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec
+                                                              or eval_rec))
+                  if "train_full" in phases else None)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
     kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec, tm_rec, q_rec,
                                    eval_rec)]
-    kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec, qlora_rec)
+    kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec, qlora_rec, tf_rec)
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

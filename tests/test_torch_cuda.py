@@ -338,3 +338,58 @@ def test_eval_network_on_the_card_matches_the_cpu(name, cuda):
             ref_rec, rec = TP.PPOCRRecognizer(cpu, charset), TP.PPOCRRecognizer(card, charset)
             np.testing.assert_allclose(rec.logits(crop), ref_rec.logits(crop), atol=1e-4)
             assert rec(crop) == ref_rec(crop)
+
+
+def test_attn_mode_step_on_the_card_matches_the_cpu(cuda):
+    """One --mode attn step (bf16 compute, AdamW; float32 masters beside
+    bf16 frozen weights) of a small DiT (hidden 256: 2 heads of 128, one
+    double and one single block; 16 text + 256 image tokens) on the card,
+    through the flash kernels, against the same step through the plain
+    versions on the CPU: the loss and every trainable parameter's gradient
+    within 2e-2 of its largest |value|, the q/k norm scales' gradients
+    (which flow out of dQ and dK through the plain RMSNorm and RoPE) finite
+    and nonzero, and 4 / 0 / 2 / 2 launches."""
+    from textflux_torch.config import FluxConfig, VAEConfig
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.models.vae import FluxVAE
+    from textflux_torch.training import train as TR
+
+    cfg = FluxConfig(in_channels=288, out_channels=16, num_double_layers=1, num_single_layers=1,
+                     num_heads=2, head_dim=128, joint_dim=64, pooled_dim=32,
+                     axes_dims_rope=(16, 56, 56))
+    vae_cfg = VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1, latent_channels=4,
+                        norm_num_groups=4, scaling_factor=0.5, shift_factor=0.1)
+    g = torch.Generator().manual_seed(0)
+    batch = {"pixel_values": torch.rand(1, 1, 256, 256, 3, generator=g) * 2 - 1,
+             "mask": (torch.rand(1, 1, 256, 256, generator=g) > 0.7).float(),
+             "txt": torch.randn(1, 1, 16, 64, generator=g),
+             "pooled": torch.randn(1, 1, 32, generator=g)}
+    noise = {"vae": torch.randn(1, 32, 32, 4, generator=g),
+             "cond_vae": torch.randn(1, 32, 32, 4, generator=g),
+             "u": torch.rand(1, generator=g), "noise": torch.randn(1, 32, 32, 4, generator=g)}
+    tc = TR.TrainConfig(mode="attn")
+    names = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
+             "flash_attention_dkv")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gen = torch.Generator().manual_seed(1)
+        flux = FluxTransformer(cfg, device="cpu", generator=gen).to(dev)
+        vae = FluxVAE(vae_cfg, device="cpu", generator=gen).to(dev, torch.bfloat16)
+        masks = TR.trainable_mask(flux, tc)
+        TR.cast_params(flux, TR.mask_dtypes(masks, lambda name: torch.bfloat16))
+        opt = TR.make_optimizer(tc, TR.freeze_to_mask(flux, masks), masks)
+        before = [getattr(FA, x).launches for x in names]
+        metrics = TR.make_train_step(tc)(flux, vae, opt, {k: v.to(dev) for k, v in batch.items()},
+                                         noise=[{k: v.to(dev) for k, v in noise.items()}])
+        launches = [getattr(FA, x).launches - b for x, b in zip(names, before)]
+        out[dev] = (float(metrics["loss"]), launches,
+                    {k: p.grad.float().cpu() for k, p in flux.named_parameters() if k in masks})
+    (cpu_loss, _, cpu_grads), (loss, launches, grads) = out["cpu"], out["cuda"]
+    assert launches == [4, 0, 2, 2]
+    assert abs(loss - cpu_loss) <= BF16_TOL * abs(cpu_loss)
+    assert set(grads) == set(cpu_grads) and len(grads) == 16
+    for k, ref in cpu_grads.items():
+        assert torch.isfinite(grads[k]).all(), k
+        assert float((grads[k] - ref).abs().max()) <= BF16_TOL * float(ref.abs().max()), k
+    scales = [k for k in grads if k.endswith(("q_scale", "k_scale"))]
+    assert len(scales) == 6 and all(float(grads[k].abs().max()) > 0 for k in scales)

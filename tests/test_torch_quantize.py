@@ -425,7 +425,7 @@ def test_adamw8bit_matches_jax_over_20_steps(rng):
     params = [jnp.asarray(x) for x in p0]
     state = tx.init(params)
     ours = [torch.nn.Parameter(t(x)) for x in p0]
-    opt = TR.make_optimizer(tc, ours)
+    opt = TR.make_optimizer(tc, {f"p{i}": p for i, p in enumerate(ours)})
     assert isinstance(opt, TR.ClippedAdamW8bit)
     differing = compared = 0
     for _ in range(20):
@@ -463,8 +463,9 @@ def test_adamw8bit_matches_jax_over_20_steps(rng):
 def test_adamw8bit_state_is_a_quarter_of_adamw(rng):
     params = [torch.nn.Parameter(torch.zeros(s)) for s in ((1000, 24), (300,))]
     n_params = sum(p.numel() for p in params)
-    opt = TR.make_optimizer(TR.TrainConfig(optimizer="adamw8bit"), params)
-    adamw = TR.make_optimizer(TR.TrainConfig(optimizer="adamw"), params)
+    named = {f"p{i}": p for i, p in enumerate(params)}
+    opt = TR.make_optimizer(TR.TrainConfig(optimizer="adamw8bit"), named)
+    adamw = TR.make_optimizer(TR.TrainConfig(optimizer="adamw"), named)
     for p in params:
         p.grad = torch.ones_like(p)
     opt.step()

@@ -3,7 +3,8 @@ LoRA warm start against the JAX package's import, the checkpoint manager,
 the per-step noise stream over a resume (train_lora and main()), and
 cli.train.main() end to end on a tiny diffusers-layout checkpoint: export
 and serving round trip (AdamW, Prodigy and 8-bit AdamW), SIGTERM
-preemption, its SystemExits and the choices that are not ported yet."""
+preemption, its SystemExits and the choices that are not ported yet (the
+full-parameter modes: tests/test_torch_full_train.py)."""
 
 import dataclasses
 import json
@@ -69,7 +70,7 @@ def _run_both(tc, tx, p0, targets, steps=5):
     params = [jnp.asarray(x) for x in p0]
     state = tx.init(params)
     ours = [torch.nn.Parameter(torch.tensor(x)) for x in p0]
-    opt = TR.make_optimizer(tc, ours)
+    opt = TR.make_optimizer(tc, {f"p{i}": p for i, p in enumerate(ours)})
     for _ in range(steps):
         grads = [3 * (np.asarray(p) - y) for p, y in zip(params, targets)]
         updates, state = tx.update([jnp.asarray(g) for g in grads], state, params)
@@ -123,9 +124,9 @@ def test_make_optimizer_refuses_adamw8bit():
     """adamw8bit is ported (held to JAX in test_torch_quantize.py): it gives
     the 8-bit optimizer; an optimizer name the trainer lacks is refused."""
     assert isinstance(TR.make_optimizer(TR.TrainConfig(optimizer="adamw8bit"),
-                                        [torch.zeros(2)]), TR.ClippedAdamW8bit)
+                                        {"p": torch.zeros(2)}), TR.ClippedAdamW8bit)
     with pytest.raises(ValueError, match="unknown optimizer 'adamw4bit'"):
-        TR.make_optimizer(TR.TrainConfig(optimizer="adamw4bit"), [torch.zeros(2)])
+        TR.make_optimizer(TR.TrainConfig(optimizer="adamw4bit"), {"p": torch.zeros(2)})
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +210,7 @@ def _trained_state(optimizer, seed):
             "single_blocks.0.linear1": {"a": torch.nn.Parameter(torch.randn(4, 2, generator=g)),
                                         "b": torch.nn.Parameter(torch.randn(2, 4, generator=g))}}
     opt = TR.make_optimizer(TR.TrainConfig(optimizer=optimizer, learning_rate=0.1),
-                            TR.lora_parameters(lora))
+                            TR.lora_named_parameters(lora))
     for _ in range(2):
         for p in TR.lora_parameters(lora):
             p.grad = torch.randn(p.shape, generator=g)
@@ -474,9 +475,10 @@ def test_main_exits_on_data_it_cannot_batch(checkpoint, tmp_path, rng):
                        "--train-batch-size", "2", "--bucket-quant", "32"))
 
 
-# each trainer choice beside the ROADMAP item that ports it; items 4 and the
-# adamw8bit half of 2 are ported
-PORTED_CHOICES = (["--optimizer", "adamw8bit"], ["--use-8bit-adam"], ["--quantize-base", "nf4"])
+# each trainer choice beside the ROADMAP item that ports it; items 2 and 4
+# are ported
+PORTED_CHOICES = (["--mode", "attn"], ["--mode", "all"], ["--optimizer", "adamw8bit"],
+                  ["--use-8bit-adam"], ["--quantize-base", "nf4"])
 
 
 @pytest.mark.parametrize("extra,item", [
@@ -486,8 +488,12 @@ PORTED_CHOICES = (["--optimizer", "adamw8bit"], ["--use-8bit-adam"], ["--quantiz
     (["--loader-procs", "2"], "item 7")])
 def test_main_refuses_unported_choices(extra, item, tmp_path):
     """An unported choice raises naming its item; a ported one passes the
-    check and main() goes on to read the (absent) data."""
+    check and main() goes on to read the (absent) data. The full-parameter
+    modes with --quantize-base exit with the JAX trainer's own message."""
     argv = _argv("unused", str(tmp_path), tmp_path / "out") + extra
+    if extra[0] == "--mode":
+        with pytest.raises(SystemExit, match="--quantize-base requires --mode lora"):
+            CLI.main(argv + ["--quantize-base", "weight_only"])
     if extra in PORTED_CHOICES:
         CLI.check_ported(CLI.parse_args(argv))
         with pytest.raises(FileNotFoundError):
@@ -495,9 +501,6 @@ def test_main_refuses_unported_choices(extra, item, tmp_path):
         return
     with pytest.raises(NotImplementedError, match=item):
         CLI.main(argv)
-    if extra[0] == "--mode":   # with --quantize-base, the JAX trainer's own message
-        with pytest.raises(SystemExit, match="--quantize-base requires --mode lora"):
-            CLI.main(argv + ["--quantize-base", "weight_only"])
 
 
 def test_main_defaults_to_cuda(tmp_path, monkeypatch):
@@ -506,6 +509,6 @@ def test_main_defaults_to_cuda(tmp_path, monkeypatch):
             if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         CLI.main(argv)
-    # the JAX parser's default --mode attn is not ported
-    with pytest.raises(NotImplementedError, match="item 2"):
+    # the JAX parser's default --mode attn reaches the CUDA check too
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         CLI.main(["--model", "m", "--data-dir", str(tmp_path), "--output-dir", "o"])

@@ -219,7 +219,7 @@ def test_clipped_adamw_matches_optax(max_norm, rng):
     state = tx.init(params)
     jp = [jnp.asarray(p) for p in params]
     tp = [torch.nn.Parameter(t(p)) for p in params]
-    opt = TR.make_optimizer(port_train_config(tc), tp)
+    opt = TR.make_optimizer(port_train_config(tc), {f"p{i}": p for i, p in enumerate(tp)})
     for g in grads:
         updates, state = tx.update([jnp.asarray(x) for x in g], state, jp)
         jp = optax.apply_updates(jp, updates)
@@ -264,8 +264,8 @@ def test_two_lora_steps_match_jax(impl, rng):
 
     model, vae, factors = _port((params, vae_params, jax_lora))
     tc = port_train_config(jtc)
-    opt = TR.make_optimizer(tc, TR.lora_parameters(factors))
-    port_step = TR.make_lora_train_step(tc, attn_impl=impl)
+    opt = TR.make_optimizer(tc, TR.lora_named_parameters(factors))
+    port_step = TR.make_train_step(tc, attn_impl=impl)
     for i in range(2):
         batch = _batch(rng)
         key = jax.random.PRNGKey(10 + i)
@@ -312,9 +312,9 @@ def test_grad_accum_is_the_mean_of_its_microbatches(jax_models, rng):
     noise = jax_loss_noise(jax.random.PRNGKey(6), b=1, height=H, width=W, vae_cfg=VAE_TINY,
                            accum=2)
     params = TR.lora_parameters(factors)
-    opt = TR.make_optimizer(tc, params)
-    metrics = TR.make_lora_train_step(tc)(model, vae, opt, {k: t(v) for k, v in batch.items()},
-                                          noise=noise)
+    opt = TR.make_optimizer(tc, TR.lora_named_parameters(factors))
+    metrics = TR.make_train_step(tc)(model, vae, opt, {k: t(v) for k, v in batch.items()},
+                                     noise=noise)
     accumulated = [p.grad.clone() for p in params]
     losses, singles = [], []
     for i in range(2):
@@ -336,8 +336,8 @@ def test_step_draws_from_a_generator_and_freezes_the_base(jax_models, rng):
     model, vae, factors = _port(jax_models)
     tc = port_train_config(_tc(cond_dropout_prob=0.2, weighting_scheme="logit_normal"))
     before = TR.base_checksum(model)
-    opt = TR.make_optimizer(tc, TR.lora_parameters(factors))
-    step = TR.make_lora_train_step(tc)
+    opt = TR.make_optimizer(tc, TR.lora_named_parameters(factors))
+    step = TR.make_train_step(tc)
     batch = {k: t(v) for k, v in _batch(rng).items()}
     m1 = step(model, vae, opt, batch, generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(m1["loss"])) and float(m1["grad_norm"]) > 0

@@ -1,12 +1,12 @@
-"""LoRA fine-tuning of the fill DiT: the training CLI.
+"""Fine-tuning of the fill DiT: the training CLI.
 
-The port of ``textflux_tpu/cli/train.py``'s LoRA path (``--mode lora``):
+The port of ``textflux_tpu/cli/train.py``:
 
   python -m textflux_torch.cli.train \\
       --model /path/to/FLUX.1-Fill-dev [--transformer path] \\
       --data-json data.json --data-images imgs/      (AnyWord single-line)
       | --data-dir combined/ [--multi-dataset]       (pre-combined folders)
-      --output-dir out/ --mode lora [--lora-rank 128]
+      --output-dir out/ [--mode attn|all|lora] [--lora-rank 128]
       [--optimizer adamw|adamw8bit|prodigy] [--use-8bit-adam]
       [--quantize-base none|weight_only|nf4]
       [--learning-rate 2e-5] [--train-batch-size 1] [--grad-accum 8]
@@ -15,29 +15,38 @@ The port of ``textflux_tpu/cli/train.py``'s LoRA path (``--mode lora``):
       [--profile-steps N] [--device cuda|cpu]
 
 Per optimizer step: the batch's prompts are encoded (CLIP pooled + T5,
-frozen), then one step of ``training.train.make_lora_train_step`` runs over
-the frozen base with the LoRA factors attached. ``--quantize-base`` stores
-the frozen DiT int8 weight-only or NF4, quantised as it loads (QLoRA);
-``--optimizer adamw8bit`` (or ``--use-8bit-adam``) keeps Adam's moments in
-blockwise int8. Each step draws its noise
-from a generator seeded from (seed, step), as the JAX trainer folds the step
-into its key, so a resumed run continues the stream. Checkpoints (factors,
-optimizer state, step) rotate under ``<output>/checkpoints/``; SIGTERM
-finishes the step, saves and exits; the trained factors are written as
+frozen), then one step of ``training.train.make_train_step`` runs.
+``--mode attn`` (the default) trains the reference's attention unfreeze
+(``attn_only_mask``: the double blocks' qkv and out projections, the single
+blocks' q|k|v rows of linear1, the q/k norm scales), ``--mode all`` every
+DiT weight: the trainable parameters load as float32 masters, the frozen
+ones in the compute dtype where the checkpoint stores them so (bf16 under
+``--mixed-precision bf16``), else in float32, and the trained DiT is
+written as ``<output>/transformer/`` in float32 (the checkpoint's
+interleaved q/k layout), which ``FillPipeline.from_pretrained(
+transformer_path=...)`` serves. ``--mode lora`` trains LoRA factors over
+the frozen base (``--quantize-base`` stores it int8 weight-only or NF4,
+quantised as it loads: QLoRA) and writes them as
 ``<output>/pytorch_lora_weights.safetensors``, which
-``FillPipeline.from_pretrained(lora_path=...)`` serves.
+``FillPipeline.from_pretrained(lora_path=...)`` serves. ``--optimizer
+adamw8bit`` (or ``--use-8bit-adam``, the reference's full-parameter
+optimizer) keeps Adam's moments in blockwise int8. Each step draws its
+noise from a generator seeded from (seed, step), as the JAX trainer folds
+the step into its key, so a resumed run continues the stream. Checkpoints
+(the trained tensors, optimizer state, step) rotate under
+``<output>/checkpoints/``; SIGTERM finishes the step, saves and exits.
 
 Runs on CUDA unless ``--device cpu`` is asked. The JAX flags parse
-unchanged; the choices not ported yet raise, naming their ROADMAP item:
-``--mode attn|all`` (Queue 1 item 2, which waits for multi-GPU: the
-full-parameter modes need more memory than one card holds), a ``--mesh``
-over more than one device (item 6), ``--loader-procs > 0`` (item 7). ``train_lora`` is the
-in-memory entry: built models and collated batches in, factors out.
+unchanged; the choices not ported yet raise, naming their ROADMAP item: a
+``--mesh`` over more than one device (item 6), ``--loader-procs > 0``
+(item 7). ``train_lora`` and ``train_full`` are the in-memory entries:
+built models and collated batches in, the trained factors or model out.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -53,6 +62,7 @@ from textflux_torch.models.t5 import T5Encoder, t5_encode
 from textflux_torch.models.transformer import FluxTransformer
 from textflux_torch.models.vae import FluxVAE
 from textflux_torch.training import train as TR
+from textflux_torch.training.checkpoint import copy_into
 
 
 @torch.no_grad()
@@ -79,16 +89,17 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
-def lora_steps(flux: FluxTransformer, vae: FluxVAE, clip: CLIPTextModel, t5: T5Encoder,
-               batches: Iterable[Mapping], opt: TR.ClippedOptimizer, *, tc: TR.TrainConfig,
-               clip_tokenize: Callable, t5_tokenize: Callable, seed: int,
-               start_step: int = 0) -> Iterator[Tuple[int, dict]]:
-    """The step loop both entry points share: one optimizer step per batch
-    of `batches` (``BucketedLoader._collate``'s format), yielding (the step
-    count after it, its metrics as 0-d device tensors). The caller stops by
-    leaving the loop; no batch is fetched past the last step it takes."""
+def train_steps(flux: FluxTransformer, vae: FluxVAE, clip: CLIPTextModel, t5: T5Encoder,
+                batches: Iterable[Mapping], opt: TR.ClippedOptimizer, *, tc: TR.TrainConfig,
+                clip_tokenize: Callable, t5_tokenize: Callable, seed: int,
+                start_step: int = 0) -> Iterator[Tuple[int, dict]]:
+    """The step loop every entry point shares: one optimizer step of
+    ``make_train_step`` per batch of `batches` (``BucketedLoader._collate``'s
+    format), yielding (the step count after it, its metrics as 0-d device
+    tensors). The caller stops by leaving the loop; no batch is fetched
+    past the last step it takes."""
     dev = next(flux.parameters()).device
-    step_fn = TR.make_lora_train_step(tc)
+    step_fn = TR.make_train_step(tc)
     cdt = getattr(torch, tc.compute_dtype)
     step = start_step
     for batch in batches:
@@ -106,7 +117,8 @@ def lora_steps(flux: FluxTransformer, vae: FluxVAE, clip: CLIPTextModel, t5: T5E
 
 
 def train_state(lora: TR.Lora, opt: TR.ClippedOptimizer, step: int) -> dict:
-    """What a checkpoint holds: the factors, the optimizer state, the step."""
+    """What a LoRA checkpoint holds: the factors, the optimizer state, the
+    step."""
     return {"lora": {p: {k: f[k].detach() for k in ("a", "b")} for p, f in lora.items()},
             "opt_state": opt.state_dict(), "step": step}
 
@@ -126,6 +138,45 @@ def load_train_state(lora: TR.Lora, opt: TR.ClippedOptimizer, state: Mapping) ->
                 f[k].copy_(state["lora"][path][k])
     opt.load_state_dict(state["opt_state"])
     return int(state["step"])
+
+
+def full_train_state(flux: FluxTransformer, opt: TR.ClippedOptimizer, step: int) -> dict:
+    """What a full-parameter checkpoint holds, as the JAX trainer's does:
+    every DiT parameter (frozen ones too) in its dtype, the optimizer
+    state, the step."""
+    return {"params": {n: p.detach() for n, p in flux.named_parameters()},
+            "opt_state": opt.state_dict(), "step": step}
+
+
+def load_full_train_state(flux: FluxTransformer, opt: TR.ClippedOptimizer,
+                          state: Mapping) -> int:
+    """Copy a full-parameter checkpoint into the live model and optimizer,
+    in place and in their dtypes (``checkpoint.copy_into``: the names,
+    shapes and dtypes must match); returns its step."""
+    copy_into({n: p.detach() for n, p in flux.named_parameters()}, state["params"], "params")
+    opt.load_state_dict(state["opt_state"])
+    return int(state["step"])
+
+
+def _run_steps(steps: Iterator[Tuple[int, dict]], n: int, start: int, log_every: int,
+               on_step: Optional[Callable], trained) -> Tuple[int, List[dict]]:
+    """Take `n` steps of `steps`, logging each; returns (the last step, the
+    history)."""
+    history, step, t_start = [], start, time.time()
+    if n <= 0:
+        return step, history
+    for step, metrics in steps:
+        if on_step is not None:
+            on_step(step, metrics, trained)
+        entry = {"step": step, "loss": float(metrics["loss"]),
+                 "grad_norm": float(metrics["grad_norm"]),
+                 "elapsed_s": round(time.time() - t_start, 1)}
+        history.append(entry)
+        if step % log_every == 0:
+            print(json.dumps(entry), flush=True)
+        if step - start >= n:
+            break
+    return step, history
 
 
 def train_lora(
@@ -163,43 +214,73 @@ def train_lora(
 
     Returns (the factors, one {"step", "loss", "grad_norm", "elapsed_s"}
     dict per step)."""
+    tc = dataclasses.replace(tc, mode="lora")
     dev = next(flux.parameters()).device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     lora = TR.lora_init(flux, tc.lora_rank, generator=generator)
     TR.lora_insert(flux, lora, tc.lora_alpha / tc.lora_rank)
-    opt = TR.make_optimizer(tc, TR.lora_parameters(lora))
+    opt = TR.make_optimizer(tc, TR.lora_named_parameters(lora))
     start = load_train_state(lora, opt, state) if state else 0
-
-    history = []
-    t_start = time.time()
-    step = start
-    if steps > 0:
-        for step, metrics in lora_steps(flux, vae, clip, t5, batches, opt, tc=tc,
-                                        clip_tokenize=clip_tokenize, t5_tokenize=t5_tokenize,
-                                        seed=seed, start_step=start):
-            if on_step is not None:
-                on_step(step, metrics, lora)
-            entry = {"step": step, "loss": float(metrics["loss"]),
-                     "grad_norm": float(metrics["grad_norm"]),
-                     "elapsed_s": round(time.time() - t_start, 1)}
-            history.append(entry)
-            if step % log_every == 0:
-                print(json.dumps(entry), flush=True)
-            if step - start >= steps:
-                break
+    step, history = _run_steps(
+        train_steps(flux, vae, clip, t5, batches, opt, tc=tc, clip_tokenize=clip_tokenize,
+                    t5_tokenize=t5_tokenize, seed=seed, start_step=start),
+        steps, start, log_every, on_step, lora)
     if state is not None:
         state.update(train_state(lora, opt, step))
     return lora, history
+
+
+def train_full(
+    flux: FluxTransformer,
+    vae: FluxVAE,
+    clip: CLIPTextModel,
+    t5: T5Encoder,
+    batches: Iterable[Mapping],
+    *,
+    tc: TR.TrainConfig,
+    clip_tokenize: Callable,
+    t5_tokenize: Callable,
+    steps: int,
+    seed: int = 42,
+    log_every: int = 10,
+    on_step: Optional[Callable[[int, dict, FluxTransformer], None]] = None,
+    state: Optional[dict] = None,
+) -> Tuple[FluxTransformer, List[dict]]:
+    """Train `flux` itself, in place, for `steps` optimizer steps:
+    ``tc.mode`` "attn" (the attention unfreeze) or "all". The trainable
+    parameters become float32 masters; a frozen one stays in the compute
+    dtype where it is in it already, else it is kept float32
+    (``frozen_dtype``), and stops requiring gradients.
+
+    `batches`, `on_step(step, metrics, flux)` and step s's draws are as in
+    ``train_lora``. `state`, when given, is a training state ({"params",
+    "opt_state", "step"}, as a checkpoint holds it) to continue from, copied
+    in place; an empty dict starts afresh. Either way it holds the state
+    after the last step (the live tensors) when the call returns.
+
+    Returns (the model, one {"step", "loss", "grad_norm", "elapsed_s"} dict
+    per step)."""
+    masks = TR.trainable_mask(flux, tc)
+    compute = getattr(torch, tc.compute_dtype)
+    stored = {name: p.dtype for name, p in flux.named_parameters()}
+    TR.cast_params(flux, TR.mask_dtypes(masks, lambda name: TR.frozen_dtype(compute,
+                                                                         stored[name])))
+    opt = TR.make_optimizer(tc, TR.freeze_to_mask(flux, masks), masks)
+    start = load_full_train_state(flux, opt, state) if state else 0
+    step, history = _run_steps(
+        train_steps(flux, vae, clip, t5, batches, opt, tc=tc, clip_tokenize=clip_tokenize,
+                    t5_tokenize=t5_tokenize, seed=seed, start_step=start),
+        steps, start, log_every, on_step, flux)
+    if state is not None:
+        state.update(full_train_state(flux, opt, step))
+    return flux, history
 
 
 # ---------------------------------------------------------------------------
 # the command line
 # ---------------------------------------------------------------------------
 
-# --mode attn|all loads the DiT in fp32 (~95 GB before activations): it waits
-# for multi-GPU training
-ITEM_FULL_PARAM = "ROADMAP Queue 1 item 2"
 ITEM_MULTI_GPU = "ROADMAP Queue 1 item 6"
 
 
@@ -215,8 +296,8 @@ def parse_args(argv=None):
     p.add_argument("--resolution", type=int, nargs="*", default=None)
     p.add_argument("--output-dir", required=True)
     p.add_argument("--mode", choices=["attn", "all", "lora"], default="attn",
-                   help="the port trains 'lora' only (attn/all: not ported yet, "
-                        f"{ITEM_FULL_PARAM})")
+                   help="attn: the attention unfreeze (the reference's full-parameter "
+                        "recipe); all: every DiT weight; lora: LoRA factors")
     p.add_argument("--lora-rank", type=int, default=128)
     p.add_argument("--lora-alpha", type=float, default=128.0)
     p.add_argument("--quantize-base", choices=["none", "weight_only", "nf4"],
@@ -317,9 +398,6 @@ def check_ported(args) -> None:
     if args.quantize_base != "none" and args.mode != "lora":
         raise SystemExit("--quantize-base requires --mode lora (full-param "
                          "training cannot update a quantized base)")
-    if args.mode != "lora":
-        raise NotImplementedError(f"--mode {args.mode} (full-parameter training) is not "
-                                  f"ported yet: {ITEM_FULL_PARAM}; pass --mode lora")
     if args.mesh and math.prod(int(x) for x in args.mesh.split(",")) > 1:
         raise NotImplementedError(f"--mesh {args.mesh} spans more than one device; "
                                   f"multi-GPU training is not ported yet: {ITEM_MULTI_GPU}")
@@ -376,20 +454,32 @@ def resume_step(want: str, ckpt) -> Optional[int]:
     return step
 
 
-def load_models(args, dev: torch.device):
-    """The frozen models from a diffusers-layout directory: the DiT in bf16
-    (quantised as it streams in with ``--quantize-base``) in the
+def load_models(args, dev: torch.device, tc: TR.TrainConfig):
+    """The models from a diffusers-layout directory: the DiT in the
     checkpoint's interleaved q/k layout (the training attention takes it as
-    it is), the VAE, CLIP and T5 in bf16; and the tokenizers."""
+    it is) -- in bf16 for LoRA (quantised as it streams in with
+    ``--quantize-base``), and for ``--mode attn|all`` with its trainable
+    parameters (``trainable_mask`` of a DiT on the meta device) in float32
+    and each frozen one in the compute dtype where the checkpoint stores it
+    so, else in float32 (``frozen_dtype``: a float32 checkpoint's frozen
+    weights come back unchanged in the export, as the JAX trainer's do),
+    each loaded once in its dtype; the VAE, CLIP and T5 in bf16; and the
+    tokenizers."""
     from textflux_torch.io.config_io import (clip_config_from, flux_config_from,
                                              t5_config_from, vae_config_from)
-    from textflux_torch.io.params import load_checkpoint_dir, load_flux_transformer
+    from textflux_torch.io.params import (checkpoint_dtypes, load_checkpoint_dir,
+                                          load_flux_transformer)
     from textflux_torch.pipeline.tokenizers import load_tokenizers
 
     t_path = args.transformer or os.path.join(args.model, "transformer")
     flux_cfg = flux_config_from(t_path)
+    dtype = torch.bfloat16
+    if tc.mode != "lora":
+        masks = TR.trainable_mask(FluxTransformer(flux_cfg, device="meta"), tc)
+        compute, stored = getattr(torch, tc.compute_dtype), checkpoint_dtypes(t_path, flux_cfg)
+        dtype = TR.mask_dtypes(masks, lambda name: TR.frozen_dtype(compute, stored[name]))
     flux = load_flux_transformer(
-        t_path, flux_cfg, dtype=torch.bfloat16, device=dev,
+        t_path, flux_cfg, dtype=dtype, device=dev,
         quantize=None if args.quantize_base == "none" else args.quantize_base)
     parts = []
     for sub, cfg_from in (("vae", vae_config_from), ("text_encoder", clip_config_from),
@@ -406,7 +496,8 @@ def main(argv=None):
     check_ported(args)
     from textflux_torch.data import BucketedLoader
     from textflux_torch.device import resolve_device
-    from textflux_torch.io.export import export_lora_state_dict, save_safetensors
+    from textflux_torch.io.export import (export_lora_state_dict, save_safetensors,
+                                          save_transformer_checkpoint)
     from textflux_torch.io.params import load_safetensors_dir
     from textflux_torch.training.checkpoint import CheckpointManager
     from textflux_torch.utils.tracking import Tracker, profile_trace
@@ -441,6 +532,7 @@ def main(argv=None):
         logit_mean=args.logit_mean,
         logit_std=args.logit_std,
         mode_scale=args.mode_scale,
+        mode=args.mode,
         lora_rank=args.lora_rank,
         lora_alpha=args.lora_alpha,
         cond_dropout_prob=args.cond_dropout_prob,
@@ -452,32 +544,49 @@ def main(argv=None):
         lr_power=args.lr_power,
     )
 
-    flux_cfg, flux, vae, clip, t5, clip_tok, t5_tok = load_models(args, dev)
+    flux_cfg, flux, vae, clip, t5, clip_tok, t5_tok = load_models(args, dev, tc)
     ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
                              max_to_keep=args.checkpoints_total_limit)
 
-    lora = TR.lora_init(flux, tc.lora_rank,
-                        generator=torch.Generator(device=dev).manual_seed(args.seed))
-    if args.pretrained_lora:
-        # warm start (reference train_lora.py:536-553): imported targets
-        # replace their fresh init; grouped targets keep their file's rank
-        from textflux_torch.io.lora import import_lora_factors, resolve_lora_path
+    if args.mode == "lora":
+        lora = TR.lora_init(flux, tc.lora_rank,
+                            generator=torch.Generator(device=dev).manual_seed(args.seed))
+        if args.pretrained_lora:
+            # warm start (reference train_lora.py:536-553): imported targets
+            # replace their fresh init; grouped targets keep their file's rank
+            from textflux_torch.io.lora import import_lora_factors, resolve_lora_path
 
-        imported = import_lora_factors(
-            load_safetensors_dir(resolve_lora_path(args.pretrained_lora)), flux_cfg,
-            tc.lora_alpha / tc.lora_rank)
-        for path, f in imported.items():
-            lora[path] = {k: torch.nn.Parameter(v.to(dev)) for k, v in f.items()}
-        n_targets = len({path.split(".", 2)[2] for path in imported})
-        print(f"warm-started {n_targets} LoRA targets from {args.pretrained_lora}")
-    TR.lora_insert(flux, lora, tc.lora_alpha / tc.lora_rank)
-    opt = TR.make_optimizer(tc, TR.lora_parameters(lora))
+            imported = import_lora_factors(
+                load_safetensors_dir(resolve_lora_path(args.pretrained_lora)), flux_cfg,
+                tc.lora_alpha / tc.lora_rank)
+            for path, f in imported.items():
+                lora[path] = {k: torch.nn.Parameter(v.to(dev)) for k, v in f.items()}
+            n_targets = len({path.split(".", 2)[2] for path in imported})
+            print(f"warm-started {n_targets} LoRA targets from {args.pretrained_lora}")
+        TR.lora_insert(flux, lora, tc.lora_alpha / tc.lora_rank)
+        opt = TR.make_optimizer(tc, TR.lora_named_parameters(lora))
+
+        def state_at(step):
+            return train_state(lora, opt, step)
+
+        def load_state(state):
+            return load_train_state(lora, opt, state)
+    else:
+        masks = TR.trainable_mask(flux, tc)
+        opt = TR.make_optimizer(tc, TR.freeze_to_mask(flux, masks), masks)
+
+        def state_at(step):
+            return full_train_state(flux, opt, step)
+
+        def load_state(state):
+            return load_full_train_state(flux, opt, state)
 
     step = 0
     if args.resume_from_checkpoint:
         restored = ckpt.restore(resume_step(args.resume_from_checkpoint, ckpt))
         if restored is not None:
-            step = load_train_state(lora, opt, restored)
+            step = load_state(restored)
+            del restored
             print(f"resumed from step {step}")
 
     samples_per_batch = args.train_batch_size * args.grad_accum
@@ -523,9 +632,9 @@ def main(argv=None):
     try:
         while step < args.max_train_steps:
             epoch_batches = 0
-            for step, metrics in lora_steps(flux, vae, clip, t5, loader, opt, tc=tc,
-                                            clip_tokenize=clip_tok, t5_tokenize=t5_tok,
-                                            seed=args.seed, start_step=step):
+            for step, metrics in train_steps(flux, vae, clip, t5, loader, opt, tc=tc,
+                                             clip_tokenize=clip_tok, t5_tokenize=t5_tok,
+                                             seed=args.seed, start_step=step):
                 epoch_batches += 1
                 if profiler is not None and step - first_step == args.profile_steps:
                     profiler.__exit__(None, None, None)
@@ -540,7 +649,7 @@ def main(argv=None):
                     tracker.log({"loss": entry["loss"], "grad_norm": entry["grad_norm"]},
                                 step)
                 if step % args.checkpointing_steps == 0 or preempt["seen"]:
-                    ckpt.save(step, train_state(lora, opt, step), wait=preempt["seen"])
+                    ckpt.save(step, state_at(step), wait=preempt["seen"])
                 if preempt["seen"] or step >= args.max_train_steps:
                     break
             if preempt["seen"]:
@@ -569,9 +678,12 @@ def main(argv=None):
               "--resume-from-checkpoint latest")
         return
 
-    # the trained factors in the diffusers/peft layout
-    sd = export_lora_state_dict(lora, flux_cfg, tc.lora_alpha, rank=tc.lora_rank)
-    save_safetensors(sd, os.path.join(args.output_dir, "pytorch_lora_weights.safetensors"))
+    if args.mode == "lora":   # the trained factors in the diffusers/peft layout
+        sd = export_lora_state_dict(lora, flux_cfg, tc.lora_alpha, rank=tc.lora_rank)
+        save_safetensors(sd, os.path.join(args.output_dir, "pytorch_lora_weights.safetensors"))
+    else:   # the DiT in the diffusers layout, float32 as the JAX trainer writes it
+        save_transformer_checkpoint(flux, os.path.join(args.output_dir, "transformer"),
+                                    dtype=torch.float32)
     ckpt.wait()  # drain an in-flight checkpoint write before exit
     print("training complete")
 

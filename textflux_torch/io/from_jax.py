@@ -29,6 +29,8 @@ model)`` carries a JAX LoRA factor tree
 (``training.train.lora_init``'s: stacked (L, ...) factors per target name)
 across as the port's per-layer factors, in the same (in, r) / (r, out)
 layout, ready for ``textflux_torch.training.train.lora_insert``.
+``load_jax_moments(opt, mu, nu, count)`` carries the JAX trainer's (masked)
+AdamW or 8-bit AdamW moments into a port optimizer.
 """
 
 from __future__ import annotations
@@ -227,7 +229,13 @@ def load_jax_dense(p: Mapping, *, device="cuda", dtype=torch.float32) -> nn.Modu
 
 def load_jax_params(tree: Mapping, cfg, *, device="cuda", dtype=torch.float32) -> nn.Module:
     """Build the port's module for `cfg` (a textflux_torch.config dataclass)
-    and fill it from the JAX-layout parameter tree."""
+    and fill it from the JAX-layout parameter tree. `dtype` is one dtype
+    for every parameter, or a function of the parameter's name giving each
+    its own (``io.params.empty_module``'s policy, ``*scale`` parameters
+    float32: e.g. a full-parameter JAX tree, float32 throughout, carried
+    across as float32 masters beside frozen bf16 weights,
+    ``training.train.mask_dtypes``)."""
+    from textflux_torch.io.params import empty_module
     from textflux_torch.models.clip import CLIPTextModel
     from textflux_torch.models.t5 import T5Encoder
     from textflux_torch.models.transformer import FluxTransformer
@@ -238,9 +246,50 @@ def load_jax_params(tree: Mapping, cfg, *, device="cuda", dtype=torch.float32) -
     if type(cfg) not in table:
         raise TypeError(f"no port module for config type {type(cfg).__name__}")
     cls, fill = table[type(cfg)]
-    model = cls(cfg, device=device, dtype=dtype)
+    model = (empty_module(cfg, device=device, dtype=dtype) if callable(dtype)
+             else cls(cfg, device=device, dtype=dtype))
     fill(model, tree)
     return model
+
+
+def _leaf(tree: Mapping, path: str):
+    for part in path.split("."):
+        tree = tree[part]
+    return tree
+
+
+@torch.no_grad()
+def load_jax_moments(opt, mu: Mapping, nu: Mapping, count: int) -> None:
+    """Carry the JAX trainer's Adam moments into a port optimizer that
+    ``training.train.make_optimizer`` made over named parameters: the
+    ``mu`` / ``nu`` trees (params structure) of optax.adamw's state for a
+    ``ClippedAdamW`` (each leaf's layer, transposed where the port stores
+    (out, in)), or of ``optim8bit``'s 8-bit state for a
+    ``ClippedAdamW8bit`` (leaves (q, scale), taken as they are: the port
+    keeps its moments per JAX leaf), and the update count. The leaves the
+    JAX mask left without state (optax.masked) are never read."""
+    from textflux_torch.training.train import ClippedAdamW, ClippedAdamW8bit, jax_leaf
+
+    opt.count = int(count)
+    if isinstance(opt, ClippedAdamW8bit):
+        for j, (idx, _, _) in enumerate(opt.leaves):
+            leaf = jax_leaf(opt.names[idx[0]])[0]
+            for m, tree in (("mu", mu), ("nu", nu)):
+                q, scale = _leaf(tree, leaf)
+                _set(opt.state[f"{m}_q"][j], torch.from_numpy(np.array(q, copy=True)),
+                     f"{m}.{leaf}.q")
+                _set(opt.state[f"{m}_scale"][j], _t(scale), f"{m}.{leaf}.scale")
+        return
+    if not isinstance(opt, ClippedAdamW):
+        raise TypeError(f"no JAX Adam moments for {type(opt).__name__}")
+    for name, p in zip(opt.names, opt.params):
+        leaf, layer, transpose = jax_leaf(name)
+        state = opt.opt.state[p]
+        state["step"] = torch.tensor(float(count))
+        for key, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
+            x = np.asarray(_leaf(tree, leaf))
+            x = _t(x if layer is None else x[layer])
+            state[key] = (x.T if transpose and x.dim() == 2 else x).contiguous().to(p.device)
 
 
 # ---------------------------------------------------------------------------

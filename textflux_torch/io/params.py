@@ -16,7 +16,9 @@ allocates it with ``to_empty`` (no random-init pass), then copies tensor by
 tensor from the mapped files into place: no host copy of the state dict is
 made. Parameters whose name ends in ``scale`` (the RMSNorm/LayerNorm/
 GroupNorm scales) stay float32, the rest take ``dtype``, as the JAX
-package's ``to_device_params`` does. A checkpoint key the module does not
+package's ``to_device_params`` does; ``dtype`` may also be a function of
+the parameter's name (full-parameter training's float32 masters beside
+frozen bf16 weights). A checkpoint key the module does not
 take, or a module parameter the checkpoint lacks, raises: a dropped tensor
 would give wrong images and no error.
 
@@ -39,13 +41,15 @@ from torch import nn
 from textflux_torch.config import CLIPTextConfig, FluxConfig, T5Config, VAEConfig
 from textflux_torch.device import resolve_device
 from textflux_torch.io.quantize import QuantLinear, quantize_tree
-from textflux_torch.io.safetensors import SafetensorsFile, read_header
+from textflux_torch.io.safetensors import DTYPES, SafetensorsFile, read_header
 
 # checkpoint key -> (parameter, or the QuantLinear a weight quantises into;
 # rows of it or None)
 KeyMap = Dict[str, Tuple[Union[torch.Tensor, QuantLinear], Optional[slice]]]
 # (checkpoint key, tensor as stored) -> the tensor to copy in
 Transform = Callable[[str, torch.Tensor], torch.Tensor]
+# a module's parameter dtype: one for all, or one per parameter name
+DType = Union[torch.dtype, Callable[[str], torch.dtype]]
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +91,24 @@ def checkpoint_keys(path: str) -> List[str]:
 
 def checkpoint_bytes(path: str) -> int:
     return sum(os.path.getsize(f) for f in safetensors_files(path))
+
+
+def checkpoint_dtypes(path: str, cfg) -> Dict[str, torch.dtype]:
+    """From the headers alone: the dtype each parameter of the port's
+    module for `cfg` is stored in under `path` (parameter name -> the dtype
+    of the checkpoint tensors that fill it; float32 where they differ)."""
+    model = _modules()[type(cfg)][0](cfg, device="meta")
+    keys = key_map(model)
+    name_of = {id(p): name for name, p in model.named_parameters()}
+    use = _resolve_keys(keys, checkpoint_keys(path))
+    found: Dict[str, set] = {}
+    for f in safetensors_files(path):
+        header, _ = read_header(f)
+        for src_key, entry in header.items():
+            if src_key in use:
+                name = name_of[id(keys[use[src_key]][0])]
+                found.setdefault(name, set()).add(DTYPES[entry["dtype"]])
+    return {name: d.pop() if len(d) == 1 else torch.float32 for name, d in found.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -270,22 +292,29 @@ def key_map(model) -> KeyMap:
 # Loading
 # ---------------------------------------------------------------------------
 
-def empty_module(cfg, *, device="cuda", dtype=torch.bfloat16,
+def empty_module(cfg, *, device="cuda", dtype: DType = torch.bfloat16,
                  quantize: Optional[str] = None) -> nn.Module:
     """The port's module for `cfg` with uninitialised storage on `device`:
     built on the meta device, then allocated. Parameters named ``*scale``
-    are float32, the rest `dtype`. With `quantize` (a ``quantize_tree``
-    mode), the linears it picks are empty ``QuantLinear``s."""
+    are float32, the rest `dtype`: one dtype, or a function of the
+    parameter's name (``"double_blocks.3.img_qkv.weight"``) giving each its
+    own, allocated once in it. With `quantize` (a ``quantize_tree`` mode),
+    the linears it picks are empty ``QuantLinear``s."""
     table = _modules()
     if type(cfg) not in table:
         raise TypeError(f"no port module for config type {type(cfg).__name__}")
     device = resolve_device(device)
-    model = table[type(cfg)][0](cfg, device="meta", dtype=dtype)
-    for mod in model.modules():
+    model = table[type(cfg)][0](cfg, device="meta",
+                                dtype=torch.float32 if callable(dtype) else dtype)
+    for prefix, mod in model.named_modules():
         for name, p in list(mod._parameters.items()):
-            if p is not None and name.endswith("scale"):
-                mod._parameters[name] = nn.Parameter(p.to(torch.float32),
-                                                     requires_grad=p.requires_grad)
+            if p is None:
+                continue
+            want = (torch.float32 if name.endswith("scale")
+                    else dtype(f"{prefix}.{name}" if prefix else name) if callable(dtype)
+                    else dtype)
+            if p.dtype != want:
+                mod._parameters[name] = nn.Parameter(p.to(want), requires_grad=p.requires_grad)
     if quantize:
         quantize_tree(model, mode=quantize)
     return model.to_empty(device=device)
@@ -329,7 +358,7 @@ def _copy(keys: KeyMap, key: str, src_key: str, tensor: torch.Tensor,
 
 
 def convert_state_dict(sd: Mapping[str, torch.Tensor], cfg, *, device="cuda",
-                       dtype=torch.bfloat16, transform: Optional[Transform] = None):
+                       dtype: DType = torch.bfloat16, transform: Optional[Transform] = None):
     """The port's module for `cfg`, filled from a state dict in the
     diffusers/transformers naming."""
     model = empty_module(cfg, device=device, dtype=dtype)
@@ -360,13 +389,14 @@ def convert_t5_state_dict(sd, cfg: T5Config, **kw):
     return convert_state_dict(sd, cfg, **kw)
 
 
-def load_checkpoint_dir(path: str, cfg, *, device="cuda", dtype=torch.bfloat16,
+def load_checkpoint_dir(path: str, cfg, *, device="cuda", dtype: DType = torch.bfloat16,
                         transform: Optional[Transform] = None,
                         quantize: Optional[str] = None):
     """The port's module for `cfg`, streamed from the safetensors shards of
     `path` (a directory or one file): shard by shard, tensor by tensor in
     file order, each copied from the mapping straight into its parameter
-    (or quantised into its ``QuantLinear`` with `quantize`). Each shard's
+    (or quantised into its ``QuantLinear`` with `quantize`), cast on the way
+    to its parameter's dtype (`dtype`, see ``empty_module``). Each shard's
     mapping is dropped once its tensors are in."""
     model = empty_module(cfg, device=device, dtype=dtype, quantize=quantize)
     keys = key_map(model)
@@ -405,12 +435,14 @@ def check_flux_config(path: str, cfg: FluxConfig) -> None:
             raise ValueError(f"checkpoint {k}={ref[k]} != config {ours}")
 
 
-def load_flux_transformer(path: str, cfg: FluxConfig, *, dtype=torch.bfloat16,
+def load_flux_transformer(path: str, cfg: FluxConfig, *, dtype: DType = torch.bfloat16,
                           device="cuda", transform: Optional[Transform] = None,
                           quantize: Optional[str] = None):
     """Load a diffusers-format transformer checkpoint (a directory of
     safetensors shards, optionally with a config.json that is validated
-    against `cfg`) onto `device`, quantised as it streams in with
+    against `cfg`) onto `device` in `dtype` (one, or one per parameter
+    name: full-parameter training keeps its masters float32 and the frozen
+    weights in the compute dtype), quantised as it streams in with
     `quantize`. Returns the FluxTransformer in the checkpoint's
     ("interleaved") q/k layout."""
     check_flux_config(path, cfg)

@@ -2,9 +2,12 @@
 ``textflux_tpu/training/checkpoint.py`` with torch's own serialisation
 (orbax is the JAX side's).
 
-A checkpoint is a nested dict of tensors and numbers (the LoRA factors, the
-optimizer's state dict, the step), written with ``torch.save`` to
-``<directory>/<step>/state.pt``. Saving copies every tensor to the host at
+A checkpoint is a nested dict of tensors and numbers (the LoRA factors or
+the DiT's parameters, the optimizer's state dict, the step), with tensors
+of any dtype side by side (bf16 frozen weights, float32 masters, int8
+moment blocks), written with ``torch.save`` to ``<directory>/<step>/
+state.pt``; each comes back in its own dtype (``copy_into``, or a
+template). Saving copies every tensor to the host at
 once (so training can go on changing the originals), then writes in a
 background thread into a temporary directory that is renamed to the step
 when the file is complete: a crash mid-write leaves no directory that looks
@@ -59,6 +62,33 @@ def _like(tree: Any, template: Any, path: str = "") -> Any:
         return type(template)(_like(x, y, f"{path}[{i}]")
                               for i, (x, y) in enumerate(zip(tree, template)))
     return tree
+
+
+@torch.no_grad()
+def copy_into(live: Any, saved: Any, path: str = "state") -> None:
+    """Copy a restored state into the live one in place, tensor by tensor:
+    each live tensor keeps its device and its dtype, which the saved one
+    must share with its shape (a frozen bf16 weight comes back bf16, a
+    float32 master float32, 8-bit moment blocks int8); a difference in
+    structure, shape or dtype raises, naming the entry."""
+    if isinstance(live, torch.Tensor):
+        if (not isinstance(saved, torch.Tensor) or saved.shape != live.shape
+                or saved.dtype != live.dtype):
+            got = (f"{tuple(saved.shape)} {saved.dtype}" if isinstance(saved, torch.Tensor)
+                   else type(saved).__name__)
+            raise ValueError(f"checkpoint entry {path} is {got}, expected "
+                             f"{tuple(live.shape)} {live.dtype}")
+        live.copy_(saved)
+    elif isinstance(live, dict):
+        if not isinstance(saved, dict) or set(saved) != set(live):
+            raise ValueError(f"checkpoint entry {path} has other keys than expected")
+        for k in live:
+            copy_into(live[k], saved[k], f"{path}.{k}")
+    elif isinstance(live, (list, tuple)):
+        if not isinstance(saved, (list, tuple)) or len(saved) != len(live):
+            raise ValueError(f"checkpoint entry {path} has another length than expected")
+        for i, (x, y) in enumerate(zip(live, saved)):
+            copy_into(x, y, f"{path}[{i}]")
 
 
 class CheckpointManager:
@@ -126,7 +156,8 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        # our own files: the state holds only tensors, dicts, lists and numbers
+        # our own files: the state holds only tensors, dicts, lists and numbers;
+        # mapped, so a full-parameter state is read as it is copied in
         state = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
-                           map_location="cpu", weights_only=True)
+                           map_location="cpu", weights_only=True, mmap=True)
         return state if template is None else _like(state, template)

@@ -1,20 +1,26 @@
-"""Flow-matching LoRA training for the fill DiT.
+"""Flow-matching training for the fill DiT: full-parameter (the attention
+unfreeze, or every weight) and LoRA.
 
-The port of the LoRA path of ``textflux_tpu/training/train.py``: the train
-config, the LoRA targets and factors (``lora_init``, ``lora_insert``,
-``lora_merge``), the learning-rate schedules, AdamW, 8-bit AdamW
-(``training.optim8bit``) and Prodigy (``optax.contrib.prodigy``) behind
-optax's global-norm clipping, ``flow_matching_loss`` and
-``make_lora_train_step`` with its gradient accumulation written out as a
-loop. The full-parameter masked path (``make_train_step``, ``--mode
-attn|all``) is not ported yet: ROADMAP Queue 1 item 2.
+The port of ``textflux_tpu/training/train.py``: the train config, the
+trainable masks (``attn_only_mask``, ``all_trainable_mask``, one mask per
+``nn.Parameter``), the LoRA targets and factors (``lora_init``,
+``lora_insert``, ``lora_merge``), the learning-rate schedules, AdamW, 8-bit
+AdamW (``training.optim8bit``) and Prodigy (``optax.contrib.prodigy``)
+behind optax's global-norm clipping, with the masks applied to the
+gradients before the clip and to the updates after it,
+``flow_matching_loss`` and ``make_train_step`` (for every mode: the JAX
+``make_lora_train_step`` too) with its gradient accumulation written out as
+a loop.
 
 The factors live beside a frozen base: ``lora_insert`` attaches them to the
 target linears (``nn.Linear``, or a weight_only / nf4 ``io.quantize.
 QuantLinear``: QLoRA) as fp32 parameters, and ``models.layers.dense`` adds
-the parallel branch y += (x @ A*s) @ B. Randomness comes from a
-``torch.Generator`` or is handed in (``flow_matching_loss(noise=...)``), so
-a test can give the port the JAX package's draws.
+the parallel branch y += (x @ A*s) @ B. The full-parameter modes train the
+DiT's own parameters: fp32 masters for the trainable ones, the frozen ones
+in any dtype (``dense`` casts every weight to the activation dtype per
+product). Randomness comes from a ``torch.Generator`` or is handed in
+(``flow_matching_loss(noise=...)``), so a test can give the port the JAX
+package's draws.
 """
 
 from __future__ import annotations
@@ -38,11 +44,11 @@ from textflux_torch.training import optim8bit
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the JAX package's TrainConfig that the LoRA step and the
-    training CLI read, with its defaults (scripts/train.sh + parser_helper.py
-    of the reference). The step takes the gradient accumulation count from
-    the batch's leading axis, as the JAX step does, and trains LoRA factors
-    only, so the JAX fields ``grad_accum`` and ``mode`` have no place here."""
+    """The fields of the JAX package's TrainConfig that the train steps and
+    the training CLI read, with its defaults (scripts/train.sh +
+    parser_helper.py of the reference). The step takes the gradient
+    accumulation count from the batch's leading axis, as the JAX step does,
+    so the JAX field ``grad_accum`` has no place here."""
 
     learning_rate: float = 2e-5
     optimizer: str = "adamw"              # "adamw" | "adamw8bit" | "prodigy"
@@ -61,6 +67,7 @@ class TrainConfig:
     mode_scale: float = 1.29
     schedule_shift: float = 3.0
     remat: bool = True
+    mode: str = "attn"                    # "attn" | "all" | "lora"
     lora_rank: int = 128
     lora_alpha: float = 128.0
     compute_dtype: str = "bfloat16"
@@ -71,6 +78,116 @@ class TrainConfig:
     prodigy_safeguard_warmup: bool = False
     lr_num_cycles: int = 1
     lr_power: float = 1.0
+
+
+# ---------------------------------------------------------------------------
+# Trainable masks
+# ---------------------------------------------------------------------------
+
+# parameter name -> its mask: None, the whole tensor trains; a 0/1 float
+# tensor that broadcasts onto it, the elements that train. A parameter
+# without an entry is frozen.
+Masks = Dict[str, Optional[torch.Tensor]]
+
+ATTN_DOUBLE = ("img_qkv", "txt_qkv", "img_proj", "txt_proj",
+               "img_q_scale", "img_k_scale", "txt_q_scale", "txt_k_scale")
+ATTN_SINGLE = ("linear1", "q_scale", "k_scale")
+
+
+def jax_leaf(name: str) -> Tuple[str, Optional[int], bool]:
+    """Where a port parameter lives in the JAX package's trees: (the leaf's
+    dotted path, the layer in its stacked (L, ...) leaf or None, whether
+    the port stores it transposed). "double_blocks.3.img_qkv.weight" ->
+    ("double.img_qkv.w", 3, True); a LoRA factor "single_blocks.0.linear1.a"
+    -> ("single.linear1.a", 0, False)."""
+    parts = name.split(".")
+    layer = None
+    if parts[0] in ("double_blocks", "single_blocks"):
+        layer, parts = int(parts[1]), [parts[0].split("_")[0]] + parts[2:]
+    transpose = parts[-1] == "weight"   # nn.Linear keeps (out, in)
+    parts[-1] = {"weight": "w", "bias": "b"}.get(parts[-1], parts[-1])
+    return ".".join(parts), layer, transpose
+
+
+def attn_only_mask(model: FluxTransformer) -> Masks:
+    """The reference's "attn"-substring unfreeze (the JAX attn_only_mask,
+    which unfreezes every layer): the double blocks' qkv and out
+    projections and q/k norm scales train whole; each single block's fused
+    linear1 trains its leading 3*hidden output rows (q | k | v; the MLP
+    rows are masked), with its q/k scales. Masks are made on the
+    parameters' device (the CPU for a model on the meta device, whose masks
+    serve to name the trainable parameters)."""
+    d, m = model.cfg.hidden_dim, model.cfg.mlp_dim
+    masks: Masks = {}
+    for name, p in model.named_parameters():
+        group, _, target = jax_leaf(name)[0].partition(".")
+        target = target.split(".")[0]
+        if group == "double" and target in ATTN_DOUBLE:
+            masks[name] = None
+        elif group == "single" and target == "linear1":
+            rows = torch.zeros(3 * d + m, device="cpu" if p.is_meta else p.device)
+            rows[:3 * d] = 1.0
+            masks[name] = rows[:, None] if p.dim() == 2 else rows
+        elif group == "single" and target in ATTN_SINGLE:
+            masks[name] = None
+    return masks
+
+
+def all_trainable_mask(model: nn.Module) -> Masks:
+    return {name: None for name, _ in model.named_parameters()}
+
+
+def trainable_mask(model: FluxTransformer, tc: TrainConfig) -> Masks:
+    """The mask of ``tc.mode``: "attn" or "all"."""
+    if tc.mode == "attn":
+        return attn_only_mask(model)
+    if tc.mode == "all":
+        return all_trainable_mask(model)
+    raise ValueError(f"no parameter mask for mode {tc.mode!r}")
+
+
+@torch.no_grad()
+def apply_mask(tensors: Sequence[Optional[torch.Tensor]],
+               masks: Sequence[Optional[torch.Tensor]]) -> None:
+    """tensor *= mask, in place, for each pair with a mask (None tensors
+    are skipped)."""
+    for x, m in zip(tensors, masks, strict=True):
+        if x is not None and m is not None:
+            x.mul_(m)
+
+
+def freeze_to_mask(model: nn.Module, masks: Masks) -> Dict[str, torch.Tensor]:
+    """requires_grad on the parameters with a mask entry and off on every
+    other (the JAX ``trainable_leaves`` stop-gradient: a frozen weight
+    emits no weight-gradient product). Returns the trainable parameters by
+    name, in the model's order."""
+    for name, p in model.named_parameters():
+        p.requires_grad_(name in masks)
+    return {name: p for name, p in model.named_parameters() if name in masks}
+
+
+@torch.no_grad()
+def cast_params(model: nn.Module, dtype_of: Callable[[str], torch.dtype]) -> None:
+    """Give each parameter the dtype ``dtype_of(name)``, in place (the
+    ``nn.Parameter`` stays, its data is replaced)."""
+    for name, p in model.named_parameters():
+        if p.dtype != dtype_of(name):
+            p.data = p.data.to(dtype_of(name))
+
+
+def mask_dtypes(masks: Masks, frozen: Callable[[str], torch.dtype]) -> Callable[[str], torch.dtype]:
+    """The per-parameter dtype of full-parameter training: float32 masters
+    for the parameters of `masks`, ``frozen(name)`` for the rest."""
+    return lambda name: torch.float32 if name in masks else frozen(name)
+
+
+def frozen_dtype(compute: torch.dtype, stored: torch.dtype) -> torch.dtype:
+    """The dtype a frozen weight stored in `stored` is kept in: the compute
+    dtype where it is already stored in it (``dense`` casts every weight to
+    the activation dtype per product, so nothing is lost), float32
+    otherwise, so the float32 export writes it back unchanged, as the JAX
+    trainer (which holds the whole DiT in float32) does."""
+    return compute if stored == compute else torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +247,13 @@ def lora_init(model: FluxTransformer, rank: int, *,
 
 
 def lora_parameters(lora: Lora) -> List[torch.Tensor]:
-    return [f[k] for f in lora.values() for k in ("a", "b")]
+    return list(lora_named_parameters(lora).values())
+
+
+def lora_named_parameters(lora: Lora) -> Dict[str, torch.Tensor]:
+    """{"double_blocks.3.img_qkv.a": A, ...}: the factors under names that
+    ``jax_leaf`` places in the JAX factor tree."""
+    return {f"{path}.{k}": f[k] for path, f in lora.items() for k in ("a", "b")}
 
 
 def lora_insert(model: FluxTransformer, lora: Lora, scale: float) -> FluxTransformer:
@@ -242,24 +365,40 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 class ClippedOptimizer:
     """optax.chain(clip_by_global_norm(max_grad_norm), <update>(schedule))
-    over parameters whose gradients are in ``.grad``; subclasses give the
-    update (``_update(lr)``) and its state.
+    over parameters by name (names ``jax_leaf`` places in the JAX trees)
+    whose gradients are in ``.grad``; subclasses give the update
+    (``_update(lr)``) and its state.
+
+    `masks` (by name, None for a tensor that trains whole) are applied as
+    the JAX full-parameter step applies its mask tree: to the gradients
+    before the global norm and the clip, and to the updates after, so a
+    masked element stays bitwise as it was (weight decay included).
+    A parameter without a gradient gets a zero one, as in JAX.
 
     The clip is optax's: gradients are scaled by max/||g|| only when
     ||g|| > max (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm).
     The learning rate is the schedule's at the update count."""
 
-    def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
-        self.params = list(params)
+    def __init__(self, params: Mapping[str, torch.Tensor], tc: TrainConfig,
+                 masks: Optional[Masks] = None):
+        self.names = list(params)
+        self.params = list(params.values())
+        self.masks = [None if masks is None else masks[name] for name in self.names]
         self.schedule = make_lr_schedule(tc)
         self.max_grad_norm = tc.max_grad_norm
+        self.weight_decay = tc.weight_decay
         self.count = 0
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """Clip, update, advance the schedule. Returns the global norm of the
-        gradients before clipping (a 0-d tensor, no host sync)."""
+        """Mask, clip, update, advance the schedule. Returns the global norm
+        of the masked gradients before clipping (a 0-d tensor, no host
+        sync)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        apply_mask(grads, self.masks)
         norm = global_norm(grads)
         factor = torch.where(norm > self.max_grad_norm, self.max_grad_norm / norm,
                              torch.ones_like(norm))
@@ -280,17 +419,27 @@ class ClippedOptimizer:
 
 class ClippedAdamW(ClippedOptimizer):
     """Clipped AdamW: ``torch.optim.AdamW``'s decoupled decay, p <- p -
-    lr*wd*p, and its bias corrections equal optax's adamw."""
+    lr*wd*p, and its bias corrections equal optax's adamw. The masked
+    tensors sit in a group without torch's decay and take it here, on
+    their trainable elements only; their masked elements have zero moments,
+    so Adam's step leaves them as they are."""
 
-    def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
-        super().__init__(params, tc)
-        self.opt = torch.optim.AdamW(self.params, lr=self.schedule(0),
+    def __init__(self, params, tc: TrainConfig, masks=None):
+        super().__init__(params, tc, masks)
+        whole = [p for p, m in zip(self.params, self.masks) if m is None]
+        masked = [p for p, m in zip(self.params, self.masks) if m is not None]
+        groups = [{"params": ps, "weight_decay": wd}
+                  for ps, wd in ((whole, tc.weight_decay), (masked, 0.0)) if ps]
+        self.opt = torch.optim.AdamW(groups, lr=self.schedule(0),
                                      betas=(tc.adam_b1, tc.adam_b2), eps=tc.adam_eps,
                                      weight_decay=tc.weight_decay)
 
     def _update(self, lr: float) -> None:
         for group in self.opt.param_groups:
             group["lr"] = lr
+        for p, m in zip(self.params, self.masks):
+            if m is not None:
+                p.mul_(1 - lr * self.weight_decay * m)
         self.opt.step()
 
     def state_dict(self) -> dict:
@@ -307,21 +456,47 @@ class ClippedAdamW8bit(ClippedOptimizer):
     ``optim8bit.BLOCK``; optax's decoupled decay p <- p - lr*(u + wd*p)).
     Each step dequantises the moments to float32 (the second with its
     floor), updates them, computes the step from those fresh float32
-    values and requantises them after."""
+    values and requantises them after.
 
-    def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
-        super().__init__(params, tc)
+    The blocks hold the elements the JAX optimizer's hold: it quantises each
+    leaf of its tree, flattened in the JAX layout (stacked over layers,
+    linears stored (in, out)). The moments are kept per JAX leaf
+    (``jax_leaf`` of each parameter's name), each parameter's elements in
+    that order (transposed where the port stores (out, in)); a leaf whose
+    per-layer slices are whole blocks is updated layer by layer, any other
+    is stacked for its update (no stacked copy of a large leaf is made: at
+    FLUX width every matrix and bias is whole blocks, only the 128-wide
+    q/k scales stack)."""
+
+    def __init__(self, params, tc: TrainConfig, masks=None):
+        super().__init__(params, tc, masks)
         self.betas = (tc.adam_b1, tc.adam_b2)
         self.eps = tc.adam_eps
-        self.weight_decay = tc.weight_decay
+        leaves: Dict[str, list] = {}
+        for i, p in enumerate(self.params):
+            key, layer, transpose = jax_leaf(self.names[i])
+            leaves.setdefault(key, []).append((layer or 0, i, transpose and p.dim() == 2))
+        # (parameter indices in layer order, transposed, updated layer by layer)
+        self.leaves = []
+        for members in leaves.values():
+            idx = [i for _, i, _ in sorted(members)]
+            per_layer = all(self.params[i].numel() % optim8bit.BLOCK == 0 for i in idx)
+            self.leaves.append((idx, members[0][2], per_layer))
         self.state = {k: [] for k in ("mu_q", "mu_scale", "nu_q", "nu_scale")}
-        for p in self.params:
-            nb = optim8bit.n_blocks(p.numel())
+        for idx, _, _ in self.leaves:
+            p = self.params[idx[0]]
+            nb = optim8bit.n_blocks(sum(self.params[i].numel() for i in idx))
             for m in ("mu", "nu"):
                 self.state[f"{m}_q"].append(torch.zeros((nb, optim8bit.BLOCK), dtype=torch.int8,
                                                         device=p.device))
                 self.state[f"{m}_scale"].append(torch.zeros(nb, dtype=torch.float32,
                                                             device=p.device))
+
+    @staticmethod
+    def _flat(tensors: Sequence[torch.Tensor], transpose: bool) -> torch.Tensor:
+        """The tensors' elements in the JAX leaf's order, float32."""
+        parts = [(t.T if transpose else t).reshape(-1).float() for t in tensors]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def _update(self, lr: float) -> None:
         st = self.state
@@ -330,25 +505,56 @@ class ClippedAdamW8bit(ClippedOptimizer):
         k = torch.tensor(float(self.count + 1), dtype=torch.float32)
         c1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** k)
         c2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** k)
-        for i, p in enumerate(self.params):
-            g = p.grad.float()
-            mu = optim8bit.dequantize_dynamic((st["mu_q"][i], st["mu_scale"][i]), p.shape)
-            nu = optim8bit.dequantize_dynamic((st["nu_q"][i], st["nu_scale"][i]), p.shape,
-                                              floor=True)
-            mu = b1 * mu + (1.0 - b1) * g
-            nu = b2 * nu + (1.0 - b2) * torch.square(g)
-            upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            st["mu_q"][i], st["mu_scale"][i] = optim8bit.quantize_dynamic(mu)
-            st["nu_q"][i], st["nu_scale"][i] = optim8bit.quantize_dynamic(nu)
-            p.add_((upd + self.weight_decay * p).to(p.dtype), alpha=-lr)
+        for j, (idx, transpose, per_layer) in enumerate(self.leaves):
+            start = 0
+            for chunk in ([[i] for i in idx] if per_layer else [idx]):
+                ps = [self.params[i] for i in chunk]
+                g = self._flat([p.grad for p in ps], transpose)
+                blocks = slice(start, start + optim8bit.n_blocks(g.numel()))
+                start = blocks.stop
+                mu = optim8bit.dequantize_dynamic((st["mu_q"][j][blocks],
+                                                   st["mu_scale"][j][blocks]), g.shape)
+                nu = optim8bit.dequantize_dynamic((st["nu_q"][j][blocks],
+                                                   st["nu_scale"][j][blocks]), g.shape,
+                                                  floor=True)
+                mu = b1 * mu + (1.0 - b1) * g
+                nu = b2 * nu + (1.0 - b2) * torch.square(g)
+                upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+                for m, x in (("mu", mu), ("nu", nu)):
+                    q, scale = optim8bit.quantize_dynamic(x)
+                    st[f"{m}_q"][j][blocks] = q
+                    st[f"{m}_scale"][j][blocks] = scale
+                del g, mu, nu
+                offset = 0
+                for i, p in zip(chunk, ps):
+                    u = upd[offset:offset + p.numel()]
+                    offset += p.numel()
+                    u = u.view(p.shape[::-1]).T if transpose else u.view(p.shape)
+                    u = u + self.weight_decay * p
+                    if self.masks[i] is not None:
+                        u = u * self.masks[i]
+                    p.add_(u.to(p.dtype), alpha=-lr)
 
     def state_dict(self) -> dict:
         return {"count": self.count, "adamw8bit": self.state}
 
     def load_state_dict(self, state: Mapping) -> None:
+        """Restore a state this layout saved; one blocked otherwise (another
+        set of parameters, or moments kept per parameter rather than per
+        JAX leaf) raises."""
+        saved = state["adamw8bit"]
+        if set(saved) != set(self.state) or any(
+                len(saved[k]) != len(self.state[k])
+                or any(x.shape != y.shape for x, y in zip(self.state[k], saved[k]))
+                for k in self.state):
+            raise ValueError(
+                f"the 8-bit AdamW state holds {len(saved.get('mu_q', []))} moment "
+                f"arrays, this optimizer {len(self.state['mu_q'])} (one per JAX leaf) of "
+                f"other shapes: it was saved over other parameters, or with its moments "
+                f"kept per parameter, and cannot be resumed here")
         self.count = int(state["count"])
         with torch.no_grad():
-            for key, value in state["adamw8bit"].items():
+            for key, value in saved.items():
                 for x, y in zip(self.state[key], value, strict=True):
                     x.copy_(y)
 
@@ -357,7 +563,9 @@ class ClippedProdigy(ClippedOptimizer):
     """Clipped Prodigy: ``optax.contrib.prodigy``'s update (betas, beta3 =
     sqrt(b2) unless given, eps, estim_lr0 1e-6, estim_lr_coef 1, AdamW-style
     decoupled weight decay, safeguard_warmup, the lr schedule as a
-    multiplier of the D estimate), in float32.
+    multiplier of the D estimate), in float32. A masked element's gradient
+    is zero, so its moments stay zero and it takes no step; the decay
+    skips it.
 
     The state is the Adam moments of the D-scaled gradients, the weighted
     gradient sum, a copy of the initial parameters (a copy, not an alias of
@@ -368,12 +576,11 @@ class ClippedProdigy(ClippedOptimizer):
     estim_lr0 = 1e-6
     estim_lr_coef = 1.0
 
-    def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
-        super().__init__(params, tc)
+    def __init__(self, params, tc: TrainConfig, masks=None):
+        super().__init__(params, tc, masks)
         self.betas = (tc.adam_b1, tc.adam_b2)
         self.beta3 = tc.adam_b2 ** 0.5 if tc.prodigy_beta3 is None else tc.prodigy_beta3
         self.eps = tc.adam_eps
-        self.weight_decay = tc.weight_decay
         self.safeguard_warmup = tc.prodigy_safeguard_warmup
         dev = self.params[0].device
         self.state = {
@@ -418,7 +625,12 @@ class ClippedProdigy(ClippedOptimizer):
         denom = torch._foreach_sqrt(st["exp_avg_sq"])
         torch._foreach_add_(denom, d_new * self.eps)
         torch._foreach_div_(denom, -dlr)
-        torch._foreach_mul_(params, 1 - self.weight_decay * dlr)
+        whole = [p for p, m in zip(params, self.masks) if m is None]
+        if whole:
+            torch._foreach_mul_(whole, 1 - self.weight_decay * dlr)
+        for p, m in zip(params, self.masks):
+            if m is not None:
+                p.mul_(1 - self.weight_decay * dlr * m)
         torch._foreach_addcdiv_(params, st["exp_avg"], denom)
 
     def state_dict(self) -> dict:
@@ -435,17 +647,24 @@ class ClippedProdigy(ClippedOptimizer):
                         x.copy_(y)
 
 
-def make_optimizer(tc: TrainConfig, params: Sequence[torch.Tensor]) -> ClippedOptimizer:
+OPTIMIZERS = {"adamw": ClippedAdamW, "adamw8bit": ClippedAdamW8bit, "prodigy": ClippedProdigy}
+
+
+def make_optimizer(tc: TrainConfig, params: Mapping[str, torch.Tensor],
+                   masks: Optional[Masks] = None) -> ClippedOptimizer:
     """AdamW, 8-bit AdamW or Prodigy (the reference's LoRA optimizer) with
-    global-norm clipping over `params`, as the JAX ``make_optimizer``
-    chains them."""
-    if tc.optimizer == "prodigy":
-        return ClippedProdigy(params, tc)
-    if tc.optimizer == "adamw8bit":
-        return ClippedAdamW8bit(params, tc)
-    if tc.optimizer != "adamw":
+    global-norm clipping, as the JAX ``make_optimizer(tc, mask)`` chains
+    them, over `params` by name (names ``jax_leaf`` places in the JAX
+    trees: 8-bit AdamW blocks its moments as the JAX leaves do). With
+    `masks` (``trainable_mask``'s) the optimizer takes the parameters that
+    have a mask entry (the JAX optimizer allocates state for the leaves
+    with any trainable entry) and applies each mask to its gradient and
+    update."""
+    if tc.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {tc.optimizer!r}")
-    return ClippedAdamW(params, tc)
+    if masks is not None:
+        params = {name: params[name] for name in masks}
+    return OPTIMIZERS[tc.optimizer](params, tc, masks)
 
 
 # ---------------------------------------------------------------------------
@@ -538,18 +757,22 @@ def flow_matching_loss(
     return torch.mean(w * err)
 
 
-def make_lora_train_step(tc: TrainConfig, *, attn_impl: str = "auto"):
-    """The LoRA train step: gradients flow only into the factors that
-    ``lora_insert`` attached to `model`.
+def make_train_step(tc: TrainConfig, *, attn_impl: str = "auto"):
+    """The train step (the JAX ``make_train_step``): gradients flow into
+    the parameters that require one and `opt` (``make_optimizer`` over
+    them) masks, clips and updates them. In the full-parameter modes those
+    are ``freeze_to_mask``'s trainable parameters (a frozen weight emits no
+    weight-gradient product, the JAX ``trainable_leaves``); in LoRA mode the
+    factors that ``lora_insert`` attached (the JAX ``make_lora_train_step``).
 
     step(model, vae, opt, batch, *, generator=None, noise=None) -> metrics.
     ``batch`` leaves carry a leading grad-accum axis (A, B, ...); `noise`,
     when given, is one ``flow_matching_loss`` noise dict per microbatch.
     Each microbatch's loss / A is backpropagated in turn (the JAX scan's
-    sum of gradients / A), then `opt` (``make_optimizer``) clips and steps.
-    The factors are updated in place; metrics are 0-d device tensors:
-    {"loss": mean microbatch loss, "grad_norm": global norm before clipping}.
-    The gradients stay in ``.grad`` until the next step."""
+    sum of gradients / A), then `opt` steps. The parameters are updated in
+    place; metrics are 0-d device tensors: {"loss": mean microbatch loss,
+    "grad_norm": global norm of the masked gradients before clipping}. The
+    gradients stay in ``.grad`` until the next step."""
 
     def step(model, vae, opt: ClippedOptimizer, batch, *, generator=None, noise=None):
         accum = batch["pixel_values"].shape[0]
