@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero:
      kernel that spills, or any wgmma serialisation warning, fails;
   3. kernels: each kernel against its plain PyTorch version on the card, in
      bf16, with times for the kernel, the plain version and one PyTorch
-     library call computing the same function (yardstick only);
+     library call computing the same function (yardstick only; for the LSE
+     pass, FlashAttention-2's forward, whose logsumexp is held to the plain
+     L first);
   4. main path: full-width FLUX.1-Fill-dev + CLIP-L + T5-XXL + FLUX VAE with
      random bf16 weights made on the card from a seed, driven through
      textflux_torch.cli.run_inference.run on resource/example (euler, then
@@ -100,8 +102,23 @@ Phases, in order; any failure exits non-zero:
      --mode attn with AdamW and --mode all with 8-bit AdamW through
      train_full, 2 steps each, at full width and 2 + 4 blocks (at full
      depth they need ~95 and ~119 GB).
-Phase 3 runs every kernel at its path's shapes and at the JAX package's
-multi-line serving shape (S = 8704). It also holds the four training
+ 13. tp_serve: phase 7's checkpoint (written here when no earlier phase
+     did) served over torch.distributed ranks sharing the one card (this
+     script started again with --tp-child, one process a rank): a tp=1
+     reference here (the single-item call and a batch of 3 with fixed noise,
+     staged residency), then 2 ranks over gloo at mesh (1, 1, 2) through
+     FillPipeline.from_pretrained(mesh=) (each rank loads its shard of the
+     DiT; the single call and a batch of 2) against it (first-step velocity
+     and images within TP_VELOCITY_TOL and the image bounds; 57 fused
+     launches and 114 all-reduces a step per rank; each rank's DiT under
+     TP_DIT_BYTES_MAX), 2 ranks at (2, 1, 1) with the ragged batch of 3
+     (bitwise the reference batch), and cli.run_eval.main --mesh 1,1,1 as
+     one NCCL rank. Two ranks share the card over gloo, as NCCL refuses
+     two ranks on one device: their step times go through the host and
+     are no multi-GPU number.
+Phase 3 runs every kernel at its path's shapes, at the JAX package's
+multi-line serving shape (S = 8704) and, for the fused kernel, at a
+tensor-parallel rank's 12 and 6 heads. It also holds the four training
 kernels (flash forward, LSE, dQ, dK/dV) against their plain versions, the
 L that the forward writes against the plain LSE, and the fused kernel's
 norm+rope pass (timed alone) against its plain version; it checks that a
@@ -138,7 +155,7 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BF16_TOL = 2e-2              # unit-scale inputs, bf16 rounding of q/k/p/out
 PHASES = ("device", "build", "kernels", "main", "profile", "train", "checkpoint",
-          "train_main", "quantized", "qlora", "eval", "train_full")
+          "train_main", "quantized", "qlora", "eval", "train_full", "tp_serve")
 
 
 def log(msg: str) -> None:
@@ -188,19 +205,21 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 
 KERNEL_NAMES = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel",
-                "flash_lse_kernel", "norm_rope_kernel")
+                "norm_rope_kernel")
 
 
 def ptxas_report(text: str) -> dict:
-    """Registers and spill bytes of each kernel instantiation (name<D>) from
-    an -Xptxas -v build log, and ptxas's wgmma serialisation warnings."""
+    """Registers and spill bytes of each kernel instantiation (name<D>, and
+    name<D,lse> for the forward's LSE-only one) from an -Xptxas -v build
+    log, and ptxas's wgmma serialisation warnings."""
     kernels, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
         if m:
             name = next((k for k in KERNEL_NAMES if k in m.group(1)), None)
             d = re.search(r"ILi(\d+)E", m.group(1))
-            cur = f"{name}<{d.group(1) if d else ''}>" if name else None
+            lse = ",lse" if "ELb1E" in m.group(1) else ""
+            cur = f"{name}<{d.group(1) if d else ''}{lse}>" if name else None
             if cur:
                 kernels.setdefault(cur, {})
             continue
@@ -302,6 +321,13 @@ def phase_kernels() -> list:
         # the JAX package's multi-line serving shape: a 2048x1024 canvas,
         # 512 text + 8192 image tokens
         _attention_case("multiline_s8704", 1, 512, (128, 256), 24, 128, full_axes, gen=gen),
+        # a tensor-parallel rank's heads (24 / tp): tp=2 in both block kinds
+        # (the single block's q/k/v as views of the rank's linear1 rows,
+        # 7 x 12 x 128 wide), tp=4
+        _attention_case("serving_tp2", 1, 512, (56, 64), 12, 128, full_axes, gen=gen),
+        _attention_case("serving_tp2_single_block", 1, 512, (56, 64), 12, 128, full_axes,
+                        per_row=False, strided=True, gen=gen),
+        _attention_case("serving_tp4", 1, 512, (56, 64), 6, 128, full_axes, gen=gen),
     ]
     rows = []
     failed = []
@@ -437,6 +463,19 @@ def phase_flash_kernels() -> dict:
         ref_dk, ref_dv = FA.flash_attention_dkv_reference(q, k, v, do, lse, dvec, kv_len=n)
         lse_err = (lse - ref_lse).abs().max().item()
         lse_from_fwd_err = (lse_fwd - ref_lse).abs().max().item()
+        lse_library = None
+        if n == s:
+            # the one library call that returns this L (natural log, fp32
+            # (B, H, S)): FlashAttention-2's forward, O beside it; held to
+            # the plain version before it is timed
+            qt_, kt_, vt_ = (x.transpose(1, 2) for x in (q, k, v))
+
+            def lib():
+                return torch.ops.aten._scaled_dot_product_flash_attention(qt_, kt_, vt_)
+
+            lib_err = (lib()[1].float() - ref_lse).abs().max().item()
+            lse_library = dict(max_err=lib_err, tol=LSE_TOL,
+                               ms=cuda_ms(lib) if lib_err <= LSE_TOL else None)
         errs = {
             "flash_attention": _rel_err(o, ref_o),
             "flash_attention_lse": (lse_err, lse_err, bool(torch.isfinite(lse).all())),
@@ -508,7 +547,8 @@ def phase_flash_kernels() -> dict:
                    kernels=per_kernel, lse_from_fwd_err=lse_from_fwd_err,
                    fwd_deterministic=fwd_deterministic, masked_rows_zero=masked_rows_zero,
                    deterministic=deterministic, dvec_ms=dvec_ms,
-                   bwd_total_ms=bwd_total, sdpa_ms=sdpa_ms, sdpa_bwd_ms=sdpa_bwd_ms)
+                   bwd_total_ms=bwd_total, sdpa_ms=sdpa_ms, sdpa_bwd_ms=sdpa_bwd_ms,
+                   lse_library=lse_library)
         log("kernel case " + json.dumps(row))
         rows.append(row)
 
@@ -2916,6 +2956,391 @@ def phase_train_full(smi: str, have_checkpoint: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. tp_serve: serving over torch.distributed ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 2
+# tp=2 against tp=1 on the same weights, inputs and noise (bf16): each
+# row-parallel product is summed from two bf16 partials (one more rounding)
+# and cuBLAS picks its kernels by shape, so the first step's velocity is
+# held within TP_VELOCITY_TOL relative L2 and each image within
+# BATCH_MEAN_TOL / BATCH_MAX_TOL grey levels (mean / largest |difference|);
+# the data-parallel images must equal the single-rank batch's bitwise
+TP_VELOCITY_TOL = 0.03
+TP_DIT_BYTES_MAX = 12.1e9      # a tp=2 rank's DiT: half of 23.80 GB + the replicated linears
+TP_TIMEOUT = 900               # seconds a group of ranks may take, loads included
+
+
+def _tp_data(work: str) -> tuple:
+    """Phase 11's items (json, images) and the serving inputs: three samples
+    of one //32 bucket (the first example image, each example's words, the
+    first again), prepared as run_eval prepares them."""
+    from textflux_torch.cli.run_eval import load_items, prepare_item
+    from textflux_torch.rendering import load_font
+
+    data_json, imgs = _eval_data(work)
+    items = load_items(data_json)
+    font = load_font(None, 60)
+    preps = [prepare_item(items[i], imgs, font, 0.15625) for i in (0, 1, 0)]
+    if len({p["size"] for p in preps}) != 1:
+        raise AssertionError(f"tp_serve samples span buckets: {[p['size'] for p in preps]}")
+    return data_json, imgs, preps
+
+
+def _tp_noise(preps) -> list:
+    """Fixed draws per sample (latents, VAE posterior eps) from CPU
+    generators: the same in every process."""
+    w, h = preps[0]["size"]
+    lat_h, lat_w = h // 16 * 16 // 8, w // 16 * 16 // 8
+    out = []
+    for i in range(len(preps)):
+        g = torch.Generator().manual_seed(1000 + i)
+        out.append({"latents": torch.randn(1, (lat_h // 2) * (lat_w // 2), 64, generator=g),
+                    "vae": torch.randn(1, lat_h, lat_w, 16, generator=g)})
+    return out
+
+
+@contextlib.contextmanager
+def _velocities(store: list):
+    """Each denoise step's DiT velocity appended to `store` (float32, host)
+    while the block runs."""
+    from textflux_torch.pipeline import fill as TF
+
+    orig = TF.flux_apply
+
+    def recorded(*a, **kw):
+        v = orig(*a, **kw)
+        store.append(v.float().cpu())
+        return v
+
+    TF.flux_apply = recorded
+    try:
+        yield
+    finally:
+        TF.flux_apply = orig
+
+
+def _tp_serve_calls(pipe, preps, noise, *, single: bool, batch: int) -> dict:
+    """On a pipeline staged to its DiT: the single-item call (the first
+    sample) and generate_batch over the first `batch` samples, with the
+    fixed noise; per call the images (uint8), the first step's velocity,
+    step ms (CUDA events around each denoise step), fused launches and the
+    collectives it ran."""
+    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope as fused
+    from textflux_torch.parallel import partitioning as PT
+
+    w, h = preps[0]["size"]
+    common = dict(height=h, width=w, num_inference_steps=TP_STEPS, sampler="euler")
+    events = []
+    inner = pipe._denoise_step
+
+    def timed(*a, **kw):
+        s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_.record()
+        out = inner(*a, **kw)
+        e_.record()
+        events.append((s_, e_))
+        return out
+
+    pipe._denoise_step = timed
+    calls = {}
+    if single:
+        calls["single"] = lambda: [np.asarray(pipe(
+            image=preps[0]["image"], mask_image=preps[0]["mask"], seed=0, noise=noise[0],
+            text_embeds=pipe._tp_embeds["single"], **common)[0])]
+    if batch:
+        pooled, txt = pipe._tp_embeds["batch"]
+        calls["batch"] = lambda: [np.asarray(x) for x in pipe.generate_batch(
+            [p["image"] for p in preps[:batch]], [p["mask"] for p in preps[:batch]],
+            [p["words"] for p in preps[:batch]], seeds=list(range(batch)),
+            noise=noise[:batch], text_embeds=(pooled[:batch], txt[:batch]), **common)]
+    out = {}
+    for name, call in calls.items():
+        vel = []
+        events.clear()
+        torch.cuda.synchronize()
+        fused.launches = 0
+        PT.reset_counts()
+        t0 = time.perf_counter()
+        with _velocities(vel):
+            images = call()
+        torch.cuda.synchronize()
+        out[name] = dict(images=np.stack(images), velocity=vel[0].numpy(),
+                         seconds=time.perf_counter() - t0,
+                         step_ms=[a.elapsed_time(b) for a, b in events],
+                         launches=fused.launches, collectives=PT.counts())
+    pipe._denoise_step = inner
+    return out
+
+
+def _tp_load(mesh, preps, *, batch: int):
+    """from_pretrained(mesh=) with staged residency: every prompt encoded
+    (the single call's prompts and the batch's), the encoders released, the
+    DiT (this rank's shard) loaded; with the load's seconds, bytes and the
+    device's peak over it."""
+    from textflux_torch.pipeline.fill import FillPipeline
+    from textflux_torch.pipeline.prompts import build_prompts
+
+    with byte_tokenizers("tp_serve"):
+        pipe = FillPipeline.from_pretrained(CKPT_DIR, defer_transformer=True, mesh=mesh,
+                                            device="cuda")
+    embeds = {"single": pipe.encode_prompts(*build_prompts(preps[0]["words"])),
+              "batch": pipe.encode_batch_prompts([p["words"] for p in preps[:batch]])}
+    pipe.release_text_encoders()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe.load_transformer()
+    torch.cuda.synchronize()
+    load = dict(seconds=time.perf_counter() - t0,
+                dit_device_bytes=pipe.load_stats["transformer"]["device_bytes"],
+                checkpoint_bytes=pipe.load_stats["transformer"]["bytes"],
+                load_peak_bytes=torch.cuda.max_memory_allocated() - base,
+                models_bytes=_models_bytes(pipe))
+    pipe._tp_embeds = embeds
+    return pipe, load
+
+
+def tp_child(spec_path: str) -> int:
+    """One rank of the tp_serve phase (``--tp-child``): "tp" and "dp" ranks
+    join a gloo group on cuda:0 the phase names and serve on a mesh;
+    "nccl" runs cli.run_eval.main with --mesh 1,1,1 as torchrun would start
+    it (an NCCL group of one). Writes its record beside the spec."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from textflux_torch.parallel import partitioning as PT
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = dict(role=spec["role"], rank=spec["rank"])
+    arrays = {}
+    if spec["role"] == "nccl":
+        from textflux_torch.cli.run_eval import main as run_eval_main
+        from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope as fused
+
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(spec["port"]))
+        out_dir = os.path.join(spec["work"], "nccl_eval")
+        with byte_tokenizers("tp_serve nccl"):
+            run_eval_main(["--model", CKPT_DIR, "--json-path", spec["data_json"],
+                           "--original-images-dir", spec["imgs"], "--output-dir", out_dir,
+                           "--steps", str(TP_STEPS), "--limit", "1", "--mesh", "1,1,1"])
+        with open(os.path.join(out_dir, "failures.json")) as f:
+            report = json.load(f)
+        rec.update(backend=dist.get_backend(), world_size=dist.get_world_size(),
+                   launches=fused.launches,
+                   report={k: report[k] for k in ("total", "done", "failed")})
+        dist.destroy_process_group()
+    else:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                                rank=spec["rank"], world_size=spec["world"],
+                                timeout=timedelta(seconds=TP_TIMEOUT))
+        mesh = PT.make_mesh(tuple(spec["shape"]), device="cuda:0")
+        _, _, preps = _tp_data(os.path.join(spec["work"], f"data_rank{spec['rank']}"))
+        noise = _tp_noise(preps)
+        batch = spec["batch"]
+        pipe, load = _tp_load(mesh, preps, batch=batch)
+        torch.cuda.reset_peak_memory_stats()
+        calls = _tp_serve_calls(pipe, preps, noise, single=spec["role"] == "tp", batch=batch)
+        rec.update(mesh=mesh.shape, coords=mesh.coords, backend=dist.get_backend(),
+                   device=str(mesh.device), load=load,
+                   serve_peak_bytes=torch.cuda.max_memory_allocated(),
+                   heads_per_rank=pipe.flux.double_blocks[0].img_qkv.out_features // 3 // 128)
+        for name, c in calls.items():
+            arrays[f"{name}_images"] = c.pop("images")
+            arrays[f"{name}_velocity"] = c.pop("velocity")
+            rec[name] = c
+        try:   # what FSDP (ROADMAP item 6b) would need of gloo on the card
+            shard = torch.empty(2, device=mesh.device)
+            dist.reduce_scatter_tensor(shard, torch.ones(2 * spec["world"], device=mesh.device))
+            rec["gloo_reduce_scatter_cuda"] = f"ok, {shard.tolist()}"
+        except Exception as e:   # the same on every rank: gloo refuses before any transfer
+            rec["gloo_reduce_scatter_cuda"] = f"{type(e).__name__}: {str(e)[:200]}"
+        dist.barrier()
+        dist.destroy_process_group()
+    np.savez(spec["out"] + ".npz", **arrays)
+    with open(spec["out"] + ".json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _run_ranks(work: str, role: str, world: int, **spec) -> list:
+    """`world` tp_child processes of `role` on the card, each with its own
+    log under `work`; waits up to TP_TIMEOUT or until a rank fails, kills
+    every one still alive then, and fails the phase (with each log's tail)
+    if a rank failed."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs, outs = [], [], []
+    try:
+        for rank in range(world):
+            base = os.path.join(work, f"{role}_rank{rank}")
+            with open(base + ".spec.json", "w") as f:
+                json.dump(dict(spec, role=role, rank=rank, world=world, port=port, out=base,
+                               work=work), f)
+            logs.append(open(base + ".log", "w"))
+            outs.append(base)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-child", base + ".spec.json"],
+                cwd=REPO, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + TP_TIMEOUT
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break   # a rank failed: the others may be waiting in a collective
+            time.sleep(1.0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for f in logs:
+            f.close()
+    failed = [r for r, p in enumerate(procs) if p.poll() != 0]
+    if failed:
+        for r in failed:
+            with open(outs[r] + ".log") as f:
+                log(f"tp_serve {role} rank {r} (exit {procs[r].returncode}), log tail:\n"
+                    + f.read()[-6000:])
+        raise AssertionError(f"tp_serve: {role} ranks {failed} failed")
+    results = []
+    for base in outs:
+        with open(base + ".json") as f:
+            rec = json.load(f)
+        rec["arrays"] = dict(np.load(base + ".npz"))
+        results.append(rec)
+    return results
+
+
+def _image_diff(a, b) -> dict:
+    d = np.abs(np.asarray(a, np.int16) - np.asarray(b, np.int16))
+    return dict(max=int(d.max()), mean=float(d.mean()))
+
+
+def phase_tp_serve(smi: str, have_checkpoint: bool) -> dict:
+    """Phase 13. Phase 7's checkpoint (written here when no earlier phase
+    did) served over torch.distributed ranks sharing the one card: a tp=1
+    reference in this process (the single-item call and a batch of 3, fixed
+    noise, staged residency), freed; then 2 ranks over gloo at mesh (1, 1,
+    2) through FillPipeline.from_pretrained(mesh=) (the single call and a
+    batch of 2) held to it within TP_VELOCITY_TOL and the image bounds, with
+    57 fused launches and 114 all-reduces a step on each rank and each
+    rank's DiT under TP_DIT_BYTES_MAX; 2 ranks at (2, 1, 1) with the ragged
+    batch of 3, bitwise equal to the reference batch; and one rank of
+    cli.run_eval.main --mesh 1,1,1 over NCCL (the group's init and its
+    all-reduce on the card). Two ranks share the card over gloo (NCCL
+    refuses two ranks on one device): their collectives go through the
+    host, so their step times are not a multi-GPU number."""
+    from textflux_torch.config import flux_fill_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not have_checkpoint:
+        _, flux = write_checkpoint(load_manifest())
+        del flux
+        gc.collect()
+        torch.cuda.empty_cache()
+    work = os.path.join(CKPT_DIR, "tp_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    data_json, imgs, preps = _tp_data(os.path.join(work, "data"))
+    noise = _tp_noise(preps)
+    cfg = flux_fill_config()
+    per_step = cfg.num_double_layers + cfg.num_single_layers
+    all_reduces = 4 * cfg.num_double_layers + cfg.num_single_layers
+    log(f"tp_serve: velocity rel-L2 tol {TP_VELOCITY_TOL}, image tol mean {BATCH_MEAN_TOL} / "
+        f"max {BATCH_MAX_TOL} levels (tp=2 vs tp=1), dp images bitwise; expect "
+        f"{per_step} fused launches and {all_reduces} all-reduces a step per tp rank")
+
+    pipe, ref_load = _tp_load(None, preps, batch=len(preps))
+    torch.cuda.reset_peak_memory_stats()
+    ref = _tp_serve_calls(pipe, preps, noise, single=True, batch=len(preps))
+    ref_peak = torch.cuda.max_memory_allocated()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = []
+    out = {"reference": dict(load=ref_load, serve_peak_bytes=ref_peak,
+                             **{k: {x: v[x] for x in ("seconds", "step_ms", "launches")}
+                                for k, v in ref.items()})}
+    log("tp_serve reference " + json.dumps(out["reference"]))
+
+    tp = _run_ranks(work, "tp", 2, shape=[1, 1, 2], batch=2)
+    tp_out = []
+    for r in tp:
+        a = r.pop("arrays")
+        rec = dict(r)
+        for name, n_img in (("single", 1), ("batch", 2)):
+            c = rec[name]
+            steps = len(c["step_ms"])
+            c.update(launches_per_step=c["launches"] / steps,
+                     all_reduces_per_step=c["collectives"]["all_reduce_sum"] / steps,
+                     velocity_rel_l2=_rel_l2(torch.from_numpy(a[f"{name}_velocity"]),
+                                             torch.from_numpy(ref[name]["velocity"][:n_img])),
+                     image_diff=[_image_diff(x, y) for x, y in
+                                 zip(a[f"{name}_images"], ref[name]["images"][:n_img])])
+            if c["launches"] != per_step * steps or (
+                    c["collectives"]["all_reduce_sum"] != all_reduces * steps):
+                problems.append(f"tp rank {r['rank']} {name}: {c['launches']} launches, "
+                                f"{c['collectives']['all_reduce_sum']} all-reduces in {steps} "
+                                "steps")
+            if not c["velocity_rel_l2"] <= TP_VELOCITY_TOL:
+                problems.append(f"tp rank {r['rank']} {name}: velocity rel-L2 "
+                                f"{c['velocity_rel_l2']}")
+            for d in c["image_diff"]:
+                if d["mean"] > BATCH_MEAN_TOL or d["max"] > BATCH_MAX_TOL:
+                    problems.append(f"tp rank {r['rank']} {name}: image diff {d}")
+        if not rec["load"]["dit_device_bytes"] <= TP_DIT_BYTES_MAX:
+            problems.append(f"tp rank {r['rank']}: DiT {rec['load']['dit_device_bytes']} bytes")
+        rec["step_ms_note"] = ("2 ranks sharing one H100 over gloo: collectives through the "
+                               "host, not a multi-GPU number")
+        tp_out.append((rec, a))
+        log("tp_serve tp " + json.dumps(rec))
+    for name in ("single_images", "batch_images"):
+        if not np.array_equal(tp_out[0][1][name], tp_out[1][1][name]):
+            problems.append(f"tp ranks return different {name}")
+    out["tp"] = [rec for rec, _ in tp_out]
+
+    dp = _run_ranks(work, "dp", 2, shape=[2, 1, 1], batch=len(preps))
+    out["dp"] = []
+    for r in dp:
+        a = r.pop("arrays")
+        diff = [_image_diff(x, y) for x, y in zip(a["batch_images"], ref["batch"]["images"])]
+        r["batch"]["image_diff_vs_reference"] = diff
+        r["batch"]["bitwise_equal"] = bool(np.array_equal(a["batch_images"],
+                                                          ref["batch"]["images"]))
+        if not r["batch"]["bitwise_equal"]:
+            problems.append(f"dp rank {r['rank']}: images differ from the reference batch "
+                            f"({diff})")
+        out["dp"].append(r)
+        log("tp_serve dp " + json.dumps(r))
+
+    nccl = _run_ranks(work, "nccl", 1, data_json=data_json, imgs=imgs)[0]
+    nccl.pop("arrays")
+    if nccl["backend"] != "nccl" or nccl["report"]["done"] != 1 or nccl["report"]["failed"]:
+        problems.append(f"nccl run_eval: {nccl}")
+    out["nccl"] = nccl
+    log("tp_serve nccl " + json.dumps(nccl))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"tp_serve: {out['seconds']:.1f} s; {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    if problems:
+        raise AssertionError("tp_serve phase: " + "; ".join(problems))
+    return out
+
+
 def _ckpt_launches(ckpt_rec) -> dict:
     if not ckpt_rec:
         return {}
@@ -2927,7 +3352,7 @@ def _ckpt_launches(ckpt_rec) -> dict:
 
 
 def _fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec=None, tm_rec=None,
-                 q_rec=None, eval_rec=None) -> dict:
+                 q_rec=None, eval_rec=None, tp_rec=None) -> dict:
     serving = next((r for r in kernel_rows if r["case"] == "serving"), None)
     by_run = {k: v["launches"] for k, v in main_rec["runs"].items()} if main_rec else {}
     by_run.update(_ckpt_launches(ckpt_rec))
@@ -2942,13 +3367,23 @@ def _fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec=None, tm_rec=None,
         for name, r in eval_rec["demo"].items():
             if isinstance(r, dict):
                 by_run[f"eval_demo_{name}"] = r["launches"]
+    if tp_rec:
+        # every rank of each run launches the kernel on its own heads
+        by_run.update({f"tp_serve_reference_{k}": v["launches"]
+                       for k, v in tp_rec["reference"].items() if k in ("single", "batch")})
+        for group in ("tp", "dp"):
+            for r in tp_rec[group]:
+                for k in ("single", "batch"):
+                    if k in r:
+                        by_run[f"tp_serve_{group}_rank{r['rank']}_{k}"] = r[k]["launches"]
+        by_run["tp_serve_nccl_run_eval"] = tp_rec["nccl"]["launches"]
     entry = dict(
         name="flash_attention_qk_norm_rope", route="cuda",
         source="textflux_torch/csrc/fused_attention.cu",
         # the prep pass is in `source`, the attention mainloop here
         mainloop_source="textflux_torch/csrc/flash_fwd_sm90.cu",
         build={k: v for k, v in build_rec.get("kernels", {}).items()
-               if k.startswith(("norm_rope_kernel", "flash_fwd_sm90_kernel"))},
+               if k.startswith(("norm_rope_kernel",) + _FWD)},
         replaces="textflux_tpu/ops/flash_attention.py:577",
         launches=sum(by_run.values()) if by_run else None,
         launches_by_run=by_run or None,
@@ -2966,16 +3401,18 @@ FLASH_REPLACES = {"flash_attention": 33, "flash_attention_lse": 234,
                   "flash_attention_dq": 281, "flash_attention_dkv": 327}
 # the CUDA source of each training kernel
 FLASH_SOURCES = {"flash_attention": "textflux_torch/csrc/flash_fwd_sm90.cu",
-                 "flash_attention_lse": "textflux_torch/csrc/flash_attention.cu",
+                 "flash_attention_lse": "textflux_torch/csrc/flash_fwd_sm90.cu",
                  "flash_attention_dq": "textflux_torch/csrc/flash_bwd_sm90.cu",
                  "flash_attention_dkv": "textflux_torch/csrc/flash_bwd_sm90.cu"}
 
 
-# the kernel function behind each training wrapper
-FLASH_FUNCTIONS = {"flash_attention": "flash_fwd_sm90_kernel",
-                   "flash_attention_lse": "flash_lse_kernel",
-                   "flash_attention_dq": "flash_dq_sm90_kernel",
-                   "flash_attention_dkv": "flash_dkv_sm90_kernel"}
+# the kernel instantiations behind each training wrapper (ptxas_report's keys)
+_FWD = ("flash_fwd_sm90_kernel<64>", "flash_fwd_sm90_kernel<128>")
+FLASH_FUNCTIONS = {"flash_attention": _FWD,
+                   "flash_attention_lse": ("flash_fwd_sm90_kernel<64,lse>",
+                                           "flash_fwd_sm90_kernel<128,lse>"),
+                   "flash_attention_dq": ("flash_dq_sm90_kernel",),
+                   "flash_attention_dkv": ("flash_dkv_sm90_kernel",)}
 
 
 def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None,
@@ -3012,10 +3449,12 @@ def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None
                 max_rel_err=max(r["kernels"][name]["rel_err"] for r in flash_rows.values()),
                 tol=k["tol"], ms=k["kernel_ms"], plain_ms=k["plain_ms"],
                 bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-                # one library call computes the forward; none computes one
-                # backward pass alone: SDPA's whole backward is beside the
-                # sum of lse + Dvec + dq + dkv instead
-                library_ms=train["sdpa_ms"] if name == "flash_attention" else None)
+                # one library call computes the forward, and one (FA-2's
+                # forward) returns the LSE; none computes dQ or dK/dV alone:
+                # SDPA's whole backward is beside the sum of Dvec + dq + dkv
+                library_ms={"flash_attention": train["sdpa_ms"],
+                            "flash_attention_lse": (train["lse_library"] or {}).get("ms")
+                            }.get(name))
             if name != "flash_attention":
                 entry.update(sdpa_bwd_ms=train["sdpa_bwd_ms"], bwd_total_ms=train["bwd_total_ms"])
         out.append(entry)
@@ -3025,6 +3464,7 @@ def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--tp-child", default=None, help=argparse.SUPPRESS)   # a tp_serve rank
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3034,6 +3474,8 @@ def main() -> int:
               "of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if args.tp_child:
+        return tp_child(args.tp_child)
     phases = args.phases.split(",")
     dev = phase_device()
     build_rec = {}
@@ -3057,11 +3499,14 @@ def main() -> int:
         tf_rec = (phase_train_full(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec
                                                               or eval_rec))
                   if "train_full" in phases else None)
+        tp_rec = (phase_tp_serve(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec
+                                                            or eval_rec or tf_rec))
+                  if "tp_serve" in phases else None)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
     kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec, tm_rec, q_rec,
-                                   eval_rec)]
+                                   eval_rec, tp_rec)]
     kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec, qlora_rec, tf_rec)
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)

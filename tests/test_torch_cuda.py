@@ -73,6 +73,29 @@ def test_kernel_matches_plain_version(case, cuda):
     assert err <= BF16_TOL
 
 
+@pytest.mark.parametrize("tp", [2, 4])
+def test_kernel_at_tensor_parallel_heads(tp, cuda):
+    """A tensor-parallel rank's attention: H / tp heads (12, 6) at the
+    serving shape, the double blocks' per-row tables, and the single
+    blocks' q/k/v as strided views of the rank's local linear1 rows
+    [q_r | k_r | v_r | mlp_r] (row width 7 * 3072 / tp)."""
+    h = 24 // tp
+    q, k, v, cos, sin, qs, ks = _case(cuda, b=1, t_txt=512, lat_hw=(56, 64), h=h, d=128,
+                                      axes=(16, 56, 56), per_row=True)
+    out = FA.flash_attention_qk_norm_rope(q, k, v, cos, sin, qs, ks)
+    ref = FA.flash_attention_qk_norm_rope_reference(q, k, v, cos, sin, qs, ks)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    g = torch.Generator(device=cuda).manual_seed(1)
+    local = torch.randn(1, q.shape[1], 7 * h * 128, generator=g, device=cuda).to(torch.bfloat16)
+    qv, kv, vv = (local[..., i * h * 128:(i + 1) * h * 128].unflatten(-1, (h, 128))
+                  for i in range(3))
+    before = FA.flash_attention_qk_norm_rope.launches
+    out = FA.flash_attention_qk_norm_rope(qv, kv, vv, cos, sin, qs[0], ks[0])
+    assert FA.flash_attention_qk_norm_rope.launches == before + 1
+    ref = FA.flash_attention_qk_norm_rope_reference(qv, kv, vv, cos, sin, qs[0], ks[0])
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
 def test_kernel_takes_strided_rows(cuda):
     """Single blocks hand over q/k/v as strided views of the fused
     projection; the kernel reads them in place."""

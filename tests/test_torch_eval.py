@@ -2,7 +2,7 @@
 JAX package on the CPU: find_render_token_windows, draw_glyph_beta, the
 run_eval helpers (bitwise on fixtures), run_eval.main() against the JAX
 main() (per item, batched, --multiline, --staged-text, --skip-existing, a
-recorded failure, --mesh), Text2ImagePipeline (euler and overshoot) and the
+recorded failure, --mesh with fsdp > 1), Text2ImagePipeline (euler and overshoot) and the
 demo callbacks.
 
 The pipelines are the JAX package's tiny test pipelines (tests/helpers.py),
@@ -350,14 +350,16 @@ def test_run_eval_main_staged_and_skip_existing(pipes, items, jax_runs, monkeypa
 
 
 def test_run_eval_mesh_raises_before_loading(monkeypatch, items, tmp_path):
+    """--mesh serves over torch.distributed (tests/test_torch_parallel.py);
+    an fsdp axis > 1 is the next slice and raises before anything loads."""
     def never(*a, **k):
         raise AssertionError("loaded a pipeline")
 
     monkeypatch.setattr(FillPipeline, "from_pretrained", classmethod(never))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6b"):
         TR.main(["--model", "unused", "--json-path", items["json"]["items"],
                  "--original-images-dir", items["imgs"], "--output-dir", str(tmp_path),
-                 "--mesh", "1,1,2", "--device", "cpu"])
+                 "--mesh", "1,2,1", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
@@ -514,5 +516,5 @@ def test_demo_main_checks_gradio_before_loading(monkeypatch):
     monkeypatch.setattr(FillPipeline, "from_pretrained", classmethod(never))
     with pytest.raises(RuntimeError, match="gradio is not installed"):
         TD.main(["--model", "unused", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        TD.main(["--model", "unused", "--mesh", "2,1,1"])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6b"):
+        TD.main(["--model", "unused", "--mesh", "1,2,1"])

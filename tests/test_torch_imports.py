@@ -29,7 +29,7 @@ for name in ("textflux_torch.io.params", "textflux_torch.io.lora", "textflux_tor
              "textflux_torch.pipeline.t2i", "textflux_torch.evaluation.metrics",
              "textflux_torch.evaluation.crop", "textflux_torch.evaluation.fid",
              "textflux_torch.evaluation.inception", "textflux_torch.evaluation.lpips",
-             "textflux_torch.evaluation.ppocr"):
+             "textflux_torch.evaluation.ppocr", "textflux_torch.parallel.partitioning"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "safetensors", "transformers")

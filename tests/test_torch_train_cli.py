@@ -484,7 +484,7 @@ PORTED_CHOICES = (["--mode", "attn"], ["--mode", "all"], ["--optimizer", "adamw8
 @pytest.mark.parametrize("extra,item", [
     (["--mode", "attn"], "item 2"), (["--mode", "all"], "item 2"),
     (["--optimizer", "adamw8bit"], "item 2"), (["--use-8bit-adam"], "item 2"),
-    (["--quantize-base", "nf4"], "item 4"), (["--mesh", "1,2,1"], "item 6"),
+    (["--quantize-base", "nf4"], "item 4"), (["--mesh", "1,2,1"], "item 6b"),
     (["--loader-procs", "2"], "item 7")])
 def test_main_refuses_unported_choices(extra, item, tmp_path):
     """An unported choice raises naming its item; a ported one passes the

@@ -15,11 +15,20 @@ package's messages).
 
   python -m textflux_torch.cli.demo --model CKPT [--beta] [--port 7860]
       [--quantize-mode weight_only|w8a8|nf4|mixed] [--device cuda|cpu]
+
+On a mesh (``torchrun --nproc-per-node dp*tp -m textflux_torch.cli.demo
+--mesh dp,1,tp ...``) rank 0 builds the UI; the other ranks follow: each
+callback's name and inputs reach them by ``broadcast_object_list`` and every
+rank runs the same callback, so the tensor-parallel DiT's collectives line
+up (``lead`` / ``follow``). A follower waits for the next click inside a
+collective, so the process group of a demo is made with a long timeout
+(``DEMO_IDLE``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from datetime import timedelta
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 from PIL import Image
@@ -136,6 +145,55 @@ def _normal_click(pipe):
     return cb
 
 
+def ui_callbacks(pipe, *, beta: bool = False) -> Dict[str, Callable]:
+    """The UI's click callbacks by name."""
+    return {"custom": _custom_click(pipe, demo_custom_beta if beta else demo_custom),
+            "normal": _normal_click(pipe)}
+
+
+# how long a follower rank may wait for the next click (the process
+# group's timeout, which bounds a waiting collective)
+DEMO_IDLE = timedelta(days=7)
+
+
+def lead(callbacks: Dict[str, Callable]) -> Dict[str, Callable]:
+    """Rank 0's callbacks on a mesh: each sends its name and inputs to the
+    other ranks, then runs."""
+    import torch.distributed as dist
+
+    def wrap(name, cb):
+        def run(*args):
+            dist.broadcast_object_list([(name, args)], src=0)
+            return cb(*args)
+        return run
+
+    return {name: wrap(name, cb) for name, cb in callbacks.items()}
+
+
+def follow(callbacks: Dict[str, Callable]) -> int:
+    """A rank > 0 on a mesh: run every callback rank 0 sends, with its
+    inputs, until rank 0 sends None (``stop_followers``). Returns how many
+    ran."""
+    import torch.distributed as dist
+
+    ran = 0
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0)
+        if msg[0] is None:
+            return ran
+        name, args = msg[0]
+        callbacks[name](*args)
+        ran += 1
+
+
+def stop_followers() -> None:
+    """Rank 0: release the followers (the UI has closed)."""
+    import torch.distributed as dist
+
+    dist.broadcast_object_list([None], src=0)
+
+
 def check_gradio():
     """Fail fast (BEFORE the multi-GB pipeline loads) with an actionable
     message when gradio is absent or 4.x+: gr.Image(tool="sketch") would
@@ -156,11 +214,12 @@ def check_gradio():
     return gr
 
 
-def build_ui(pipe, *, beta: bool = False):
-    """Construct the gradio Blocks app (requires gradio, see SUPPORTED_GRADIO)."""
+def build_ui(pipe, *, beta: bool = False, callbacks: Optional[Dict[str, Callable]] = None):
+    """Construct the gradio Blocks app (requires gradio, see SUPPORTED_GRADIO)
+    over `callbacks` (default: ``ui_callbacks(pipe, beta=beta)``)."""
     gr = check_gradio()
 
-    custom_fn = demo_custom_beta if beta else demo_custom
+    callbacks = callbacks or ui_callbacks(pipe, beta=beta)
 
     with gr.Blocks(title="textflux") as app:
         gr.Markdown("# TextFlux — scene text synthesis & editing")
@@ -173,22 +232,21 @@ def build_ui(pipe, *, beta: bool = False):
             oc = gr.Slider(0, 10, value=2.0, label="Overshoot c (AMO sampler)")
             out = gr.Image(label="Result (cropped)")
             run = gr.Button("Generate")
-            run.click(_custom_click(pipe, custom_fn),
-                      [original, words, steps, guidance, seed, oc], out)
+            run.click(callbacks["custom"], [original, words, steps, guidance, seed, oc], out)
         with gr.Tab("Normal Mode"):
             combined = gr.Image(type="pil", label="Combined image")
             cmask = gr.Image(type="pil", label="Combined mask")
             words2 = gr.Textbox(lines=3, label="Words")
             out2 = gr.Image(label="Result")
             run2 = gr.Button("Generate")
-            run2.click(_normal_click(pipe), [combined, cmask, words2], out2)
+            run2.click(callbacks["normal"], [combined, cmask, words2], out2)
     return app
 
 
 def main(argv=None):
     import argparse
 
-    from textflux_torch.cli.train import ITEM_MULTI_GPU
+    from textflux_torch.parallel import partitioning as PT
 
     p = argparse.ArgumentParser(description="textflux gradio demo (PyTorch)")
     p.add_argument("--model", required=True)
@@ -203,14 +261,17 @@ def main(argv=None):
                    help="mixed = 4-bit block interiors + int8 IO boundary. Passing a "
                         "mode implies --quantize")
     p.add_argument("--mesh", default=None,
-                   help=f"dp,fsdp,tp: multi-GPU serving, not ported yet ({ITEM_MULTI_GPU})")
+                   help="dp,fsdp,tp: serve over the ranks torchrun starts, the DiT "
+                        f"tensor-parallel over tp; fsdp must be 1 ({PT.ITEM_FSDP}). "
+                        "Rank 0 serves the UI")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(f"--mesh {args.mesh}: multi-GPU serving is not ported "
-                                  f"yet ({ITEM_MULTI_GPU})")
-
-    check_gradio()  # fail fast, before the multi-GB pipeline load
+    # both before the multi-GB pipeline load: the mesh's shape, then gradio
+    shape = PT.serving_mesh_shape(args.mesh) if args.mesh else None
+    mesh = PT.make_mesh(shape, device=args.device, timeout=DEMO_IDLE) if shape else None
+    leader = mesh is None or mesh.rank == 0
+    if leader:
+        check_gradio()
 
     from textflux_torch.pipeline.fill import FillPipeline
 
@@ -218,9 +279,18 @@ def main(argv=None):
         args.model, transformer_path=args.transformer, lora_path=args.lora,
         quantize=((args.quantize_mode or "weight_only")
                   if (args.quantize or args.quantize_mode) else False),
-        device=args.device)
-    build_ui(pipe, beta=args.beta).launch(server_port=args.port)
-
+        mesh=mesh, device=args.device)
+    callbacks = ui_callbacks(pipe, beta=args.beta)
+    if not leader:
+        follow(callbacks)
+        return
+    if mesh is None:
+        build_ui(pipe, callbacks=callbacks).launch(server_port=args.port)
+        return
+    try:
+        build_ui(pipe, callbacks=lead(callbacks)).launch(server_port=args.port)
+    finally:
+        stop_followers()
 
 if __name__ == "__main__":
     main()

@@ -9,8 +9,20 @@ The reference farms one process per GPU from a Manager queue
 //32-snapped resolution buckets and runs each bucket as batches through
 ``FillPipeline.generate_batch`` (``--batch-size``). RNG is per sample, so
 batched outputs are the per-item path's (the default at batch size 1).
-``--mesh`` (multi-GPU serving) is not ported yet and raises before anything
-loads (ROADMAP Queue 1 item 6). Runs on CUDA unless ``--device cpu``.
+Runs on CUDA unless ``--device cpu``.
+
+``--mesh dp,fsdp,tp`` serves over a mesh of the ranks torchrun starts
+(``torchrun --nproc-per-node dp*tp -m textflux_torch.cli.run_eval --mesh
+dp,1,tp ...``): the DiT tensor-parallel over tp, each batch data-parallel
+over dp (``FillPipeline.generate_batch``). Every rank prepares the same
+items from the same json; rank 0 alone writes images, crops and
+failures.json. The ranks agree on every skip or failure before the denoise
+starts (an item is served only when every rank prepared, and with
+``--staged-text`` encoded, it; ``--skip-existing`` follows rank 0's
+outputs): an item one rank dropped would leave the others waiting in a
+collective. A failure inside the denoise is not recorded per item on a
+mesh: it ends the run (torchrun then stops every rank). fsdp > 1 raises
+before anything loads (ROADMAP Queue 1 item 6b).
 
 Failures are caught per item (reference worker: scripts/run_eval.py:195-198)
 and written with context to <output-dir>/failures.json so runs are auditable.
@@ -34,8 +46,8 @@ from typing import List
 import numpy as np
 from PIL import Image
 
-from textflux_torch.cli.train import ITEM_MULTI_GPU
 from textflux_torch.data.native import fill_poly as native_fill_poly
+from textflux_torch.parallel.partitioning import ITEM_FSDP
 from textflux_torch.pipeline.prompts import build_prompts
 from textflux_torch.rendering import (
     concat_multiline,
@@ -193,11 +205,15 @@ def group_by_bucket(prepared: List[dict]) -> dict:
 
 def run_items(pipe, prepared: List[dict], *, batch_size: int, steps: int,
               guidance_scale: float, seed: int, sampler: str, overshoot_c,
-              seq_pad_multiple, save_fn, failures: List[dict]):
+              seq_pad_multiple, save_fn, failures: List[dict], strict: bool = False):
     """Drive prepared items through the pipeline in (H, W)-bucketed batches.
 
     batch_size 1 uses the per-item __call__ path; larger sizes use
-    generate_batch (identical outputs — per-sample RNG)."""
+    generate_batch (identical outputs — per-sample RNG). A generation that
+    raises is recorded in `failures` and the run goes on, unless `strict`
+    (on a mesh, where the other ranks may wait in a collective): then it
+    raises."""
+    caught = () if strict else (Exception,)
     if batch_size <= 1:
         for prep in prepared:
             try:
@@ -211,7 +227,7 @@ def run_items(pipe, prepared: List[dict], *, batch_size: int, steps: int,
                     seq_pad_multiple=seq_pad_multiple, text_embeds=te,
                 )[0]
                 save_fn(prep, result)
-            except Exception as e:  # per-item resilience, like the reference worker
+            except caught as e:  # per-item resilience, like the reference worker
                 failures.append({"img_name": prep.get("img_name"), "error": repr(e)})
                 print(f"FAILED {prep.get('img_name')}: {e}")
         return
@@ -233,7 +249,7 @@ def run_items(pipe, prepared: List[dict], *, batch_size: int, steps: int,
                     seed=seed, sampler=sampler, overshoot_c=overshoot_c,
                     seq_pad_multiple=seq_pad_multiple, text_embeds=te,
                 )
-            except Exception as e:  # whole chunk failed (e.g. OOM): record each
+            except caught as e:  # whole chunk failed (e.g. OOM): record each
                 for p in chunk:
                     failures.append({"img_name": p.get("img_name"), "error": repr(e)})
                 print(f"FAILED batch of {len(chunk)} at {w}x{h}: {e}")
@@ -284,8 +300,9 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=1,
                    help="batch per (H,W) bucket; 1 = per-item path")
     p.add_argument("--mesh", default=None,
-                   help="dp,fsdp,tp: multi-GPU serving, not ported yet "
-                        f"({ITEM_MULTI_GPU})")
+                   help="dp,fsdp,tp: serve over the ranks torchrun starts (dp*tp of "
+                        "them): the DiT tensor-parallel over tp, batches data-parallel "
+                        f"over dp; fsdp must be 1 ({ITEM_FSDP}). Rank 0 writes")
     p.add_argument("--quantize", action="store_true",
                    help="quantise the DiT as it loads (int8 weight-only by default)")
     p.add_argument("--quantize-mode", choices=["weight_only", "w8a8", "nf4", "mixed"],
@@ -305,19 +322,26 @@ def main(argv=None):
                         "(default: T5 goes int8 weight-only with the DiT)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(f"--mesh {args.mesh}: multi-GPU serving is not ported "
-                                  f"yet ({ITEM_MULTI_GPU})")
 
     from textflux_torch.config import PipelineConfig
+    from textflux_torch.parallel import partitioning as PT
     from textflux_torch.pipeline.fill import FillPipeline
+
+    mesh = None
+    if args.mesh:
+        shape = PT.serving_mesh_shape(args.mesh)   # fsdp > 1 raises before anything loads
+        mesh = PT.make_mesh(shape, device=args.device)
+    writer = mesh is None or mesh.rank == 0
+
+    def agree(flags):
+        return flags if mesh is None else PT.agree(flags)
 
     pipe = FillPipeline.from_pretrained(
         args.model, transformer_path=args.transformer, lora_path=args.lora,
         quantize=((args.quantize_mode or "weight_only")
                   if (args.quantize or args.quantize_mode) else False),
         quantize_t5=False if args.no_quantize_t5 else None,
-        defer_transformer=args.staged_text,
+        defer_transformer=args.staged_text, mesh=mesh,
         pipe_cfg=PipelineConfig(max_sequence_length=args.max_sequence_length),
         device=args.device)
     sampler = "overshoot" if args.scheduler == "overshoot" else "euler"
@@ -326,8 +350,10 @@ def main(argv=None):
 
     full_dir = os.path.join(args.output_dir, "full_images")
     crop_dir = os.path.join(args.output_dir, "cropped_images")
-    os.makedirs(full_dir, exist_ok=True)
-    os.makedirs(crop_dir, exist_ok=True)
+    if writer:
+        os.makedirs(full_dir, exist_ok=True)
+        os.makedirs(crop_dir, exist_ok=True)
+    log = print if writer else (lambda *a, **k: None)
 
     items = load_items(args.json_path)
     if args.limit:
@@ -340,11 +366,13 @@ def main(argv=None):
                     and os.path.exists(os.path.join(crop_dir, n)))
 
         before = len(items)
-        items = [it for it in items if not _done(it)]
+        # the writer's outputs decide
+        keep = agree([not (writer and _done(it)) for it in items])
+        items = [it for it, k in zip(items, keep) if k]
         skipped = before - len(items)
         if skipped:
-            print(f"skipping {skipped} already-generated items")
-    print(f"{len(items)} eval items")
+            log(f"skipping {skipped} already-generated items")
+    log(f"{len(items)} eval items")
 
     failures: List[dict] = []
     prepared = []
@@ -356,8 +384,15 @@ def main(argv=None):
                 prepare_item(item, args.original_images_dir, font,
                              args.text_height_ratio, args.strip_renderer))
         except Exception as e:
+            prepared.append(None)
             failures.append({"img_name": item.get("img_name"), "error": repr(e)})
-            print(f"FAILED prepare {item.get('img_name')}: {e}")
+            log(f"FAILED prepare {item.get('img_name')}: {e}")
+    ready = agree([p is not None for p in prepared])
+    for item, prep, ok in zip(items, prepared, ready):
+        if not ok and prep is not None:
+            failures.append({"img_name": item.get("img_name"),
+                             "error": "failed to prepare on another rank"})
+    prepared = [p for p, ok in zip(prepared, ready) if ok]
 
     if args.staged_text:
         # phase 1: text encoders resident, DiT deferred — encode every prompt
@@ -380,8 +415,13 @@ def main(argv=None):
                     except Exception as e2:
                         failures.append({"img_name": prep.get("img_name"),
                                          "error": repr(e2)})
-                        print(f"FAILED encode {prep.get('img_name')}: {e2}")
-        prepared = [p for p in prepared if "text_embeds" in p]
+                        log(f"FAILED encode {prep.get('img_name')}: {e2}")
+        encoded = agree(["text_embeds" in p for p in prepared])
+        for prep, ok in zip(prepared, encoded):
+            if not ok and "text_embeds" in prep:
+                failures.append({"img_name": prep.get("img_name"),
+                                 "error": "failed to encode on another rank"})
+        prepared = [p for p, ok in zip(prepared, encoded) if ok]
         # phase 2: free the encoders, load the DiT
         pipe.release_text_encoders()
         pipe.load_transformer()
@@ -389,6 +429,8 @@ def main(argv=None):
     saved = []
 
     def save_fn(prep, result):
+        if not writer:
+            return
         result.save(os.path.join(full_dir, prep["img_name"]))
         cropped = (crop_multiline_result(result, prep["direction"])
                    if "direction" in prep else
@@ -401,16 +443,15 @@ def main(argv=None):
         guidance_scale=args.guidance_scale, seed=args.seed, sampler=sampler,
         overshoot_c=args.overshoot_c,
         seq_pad_multiple=args.seq_pad_multiple or None,
-        save_fn=save_fn, failures=failures)
+        save_fn=save_fn, failures=failures, strict=mesh is not None)
 
-    report = {"total": len(items), "done": len(saved), "failed": len(failures),
-              "skipped_existing": skipped, "failures": failures}
-    with open(os.path.join(args.output_dir, "failures.json"), "w",
-              encoding="utf-8") as f:
-        json.dump(report, f, ensure_ascii=False, indent=2)
-    print(f"done={len(saved)} failed={len(failures)}")
-
-
+    if writer:
+        report = {"total": len(items), "done": len(saved), "failed": len(failures),
+                  "skipped_existing": skipped, "failures": failures}
+        with open(os.path.join(args.output_dir, "failures.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(report, f, ensure_ascii=False, indent=2)
+        print(f"done={len(saved)} failed={len(failures)}")
 
 if __name__ == "__main__":
     main()

@@ -61,6 +61,7 @@ from textflux_torch.models.clip import CLIPTextModel, clip_encode
 from textflux_torch.models.t5 import T5Encoder, t5_encode
 from textflux_torch.models.transformer import FluxTransformer
 from textflux_torch.models.vae import FluxVAE
+from textflux_torch.parallel.partitioning import ITEM_FSDP
 from textflux_torch.training import train as TR
 from textflux_torch.training.checkpoint import copy_into
 
@@ -281,9 +282,6 @@ def train_full(
 # the command line
 # ---------------------------------------------------------------------------
 
-ITEM_MULTI_GPU = "ROADMAP Queue 1 item 6"
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="textflux trainer (PyTorch)")
     p.add_argument("--model", required=True)
@@ -382,7 +380,7 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--mesh", default=None,
                    help=f"dp,fsdp,tp; only a product of 1 (one device) is ported "
-                        f"({ITEM_MULTI_GPU})")
+                        f"({ITEM_FSDP})")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--report-to", default="jsonl", choices=["jsonl", "wandb"])
     p.add_argument("--profile-steps", type=int, default=0,
@@ -400,7 +398,7 @@ def check_ported(args) -> None:
                          "training cannot update a quantized base)")
     if args.mesh and math.prod(int(x) for x in args.mesh.split(",")) > 1:
         raise NotImplementedError(f"--mesh {args.mesh} spans more than one device; "
-                                  f"multi-GPU training is not ported yet: {ITEM_MULTI_GPU}")
+                                  f"multi-GPU training is not ported yet: {ITEM_FSDP}")
     if args.loader_procs > 0:
         from textflux_torch.data.loader import PROCESS_MODE_ITEM
 

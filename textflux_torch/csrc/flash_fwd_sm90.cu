@@ -6,9 +6,13 @@
 // wrappers and their plain PyTorch versions.
 //
 // Replaces the Pallas TPU kernels of textflux_tpu/ops/flash_attention.py:
-//   flash_fwd_sm90_kernel <- _flash_kernel (flash_attention), and the
-//                            attention part of _fused_kernel
-//                            (flash_attention_qk_norm_rope)
+//   flash_fwd_sm90_kernel<D, false> <- _flash_kernel (flash_attention), and
+//                                      the attention part of _fused_kernel
+//                                      (flash_attention_qk_norm_rope)
+//   flash_fwd_sm90_kernel<D, true>  <- _lse_kernel (flash_attention_bwd,
+//                                      pass 1): the same mainloop with V's
+//                                      loads, P*V and the O epilogue compiled
+//                                      out, L alone
 //
 // What it computes, per (batch, head), with keys at index >= kv_len masked
 // out (-1e30) and s = score_mul * q k^T in log2 units (score_mul =
@@ -21,7 +25,11 @@
 //       backward needs, written as fp32 (B, H, S) when its pointer is not
 //       null, so the training path needs no LSE pass of its own.
 // No atomics: each block owns its query rows, so O and L are bitwise the same
-// from run to run.
+// from run to run. The LSE-only instantiation keeps the online max / sum and
+// the L store: half the forward's products (2 x B*H*S*kv*D FLOPs, 0.11 ms at
+// the training shape), still bound by tensor-core operations. Its consumers
+// wait on each S = Q K^T before its softmax (no P*V to overlap with); the
+// two consumer warpgroups interleave.
 //
 // Bound on the H100: the products are 4 x B*H*S*kv*D FLOPs, 219 GFLOP at the
 // training shape (B=1, S=4224, H=24, D=128; 0.22 ms at 989 TFLOP/s) and 24.4
@@ -106,7 +114,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
   for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 }
 
-template <int D>
+template <int D, bool kLseOnly>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -154,8 +162,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(empty + 8 * stage, phase ^ 1);
         mbar_arrive_expect_tx(full_k + 8 * stage, TILE);
         load_tile<D>(sK + stage * TILE, &tm_k, full_k + 8 * stage, it * kRows, h, b);
-        mbar_arrive_expect_tx(full_v + 8 * stage, TILE);
-        load_tile<D>(sV + stage * TILE, &tm_v, full_v + 8 * stage, it * kRows, h, b);
+        if constexpr (!kLseOnly) {
+          mbar_arrive_expect_tx(full_v + 8 * stage, TILE);
+          load_tile<D>(sV + stage * TILE, &tm_v, full_v + 8 * stage, it * kRows, h, b);
+        }
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -171,116 +181,152 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r0 = q0 + c * kRows + warp * 16 + (lane >> 2);  // this thread's rows: r0, r0 + 8
     const uint32_t qa = sQ + c * TILE;
 
-    float o[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    uint32_t pa[4][4];
     float m[2] = {kMasked, kMasked};  // running row max, log2 units
     float l[2] = {0.f, 0.f};          // this thread's share of the row sums
     float alpha[2];
 
-    // stage 0: S = Q K^T and its softmax (O is still 0: nothing to rescale)
-    mbar_wait(res_bar, 0);
-    mbar_wait(full_k, 0);
-    fence_regs(s);
-    wgmma_fence();
+    if constexpr (kLseOnly) {
+      // per tile: S = Q K^T, the stage back to the producer, the softmax
+      mbar_wait(res_bar, 0);
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        mbar_wait(full_k + 8 * stage, phase);
+        fence_regs(s);
+        wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) wgmma_ss<64, 0>(s, kmajor(qa, ks), kmajor(sK, ks), ks);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    softmax_tile(s, m, l, alpha, score_mul, 0, kv_len, t);
-
-    int stage = 0, phase = 0;  // of the tile whose P is in s
-    for (int it = 1; it < n_tiles; ++it) {
-      int nstage = stage + 1, nphase = phase;
-      if (nstage == kStages) {
-        nstage = 0;
-        nphase ^= 1;
+        for (int ks = 0; ks < D / 16; ++ks) {
+          wgmma_ss<64, 0>(s, kmajor(qa, ks), kmajor(sK + stage * TILE, ks), ks);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (lane == 0) mbar_arrive(empty + 8 * stage);
+        softmax_tile(s, m, l, alpha, score_mul, it * kRows, kv_len, t);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-      // P of tile it - 1 into A fragments; s is then free for tile it's scores
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        l[i] = fmaxf(l[i], 1e-30f);
+      }
+      if (t == 0) {
+        float* lb = lse + (static_cast<long long>(b) * heads + h) * seq;
+        if (r0 < seq) lb[r0] = kLn2 * (m[0] + log2f(l[0]));
+        if (r0 + 8 < seq) lb[r0 + 8] = kLn2 * (m[1] + log2f(l[1]));
+      }
+    } else {
+      float o[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      uint32_t pa[4][4];
+
+      // stage 0: S = Q K^T and its softmax (O is still 0: nothing to rescale)
+      mbar_wait(res_bar, 0);
+      mbar_wait(full_k, 0);
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) wgmma_ss<64, 0>(s, kmajor(qa, ks), kmajor(sK, ks), ks);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax_tile(s, m, l, alpha, score_mul, 0, kv_len, t);
+
+      int stage = 0, phase = 0;  // of the tile whose P is in s
+      for (int it = 1; it < n_tiles; ++it) {
+        int nstage = stage + 1, nphase = phase;
+        if (nstage == kStages) {
+          nstage = 0;
+          nphase ^= 1;
+        }
+        // P of tile it - 1 into A fragments; s is then free for tile it's scores
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          acc_to_a(pa[kk], s, kk);
+          fence_regs(pa[kk]);
+        }
+        fence_regs(s);
+        fence_regs(o);
+        mbar_wait(full_k + 8 * nstage, nphase);
+        wgmma_fence();
+        // S = Q K_it^T, then O += P V_{it-1}: two groups, in this order
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          wgmma_ss<64, 0>(s, kmajor(qa, ks), kmajor(sK + nstage * TILE, ks), ks);
+        }
+        wgmma_commit();
+        mbar_wait(full_v + 8 * stage, phase);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(o, pa[kk], mnmajor(sV + stage * TILE, kk), 1);
+        wgmma_commit();
+
+        // softmax of tile it while P V runs
+        wgmma_wait<1>();
+        fence_regs(s);
+        softmax_tile(s, m, l, alpha, score_mul, it * kRows, kv_len, t);
+
+        // P V has landed: stage it - 1 goes back to the producer, O moves to the new max
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (lane == 0) mbar_arrive(empty + 8 * stage);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n + 0] *= alpha[0];
+          o[4 * n + 1] *= alpha[0];
+          o[4 * n + 2] *= alpha[1];
+          o[4 * n + 3] *= alpha[1];
+        }
+        stage = nstage;
+        phase = nphase;
+      }
+
+      // the last tile's O += P V
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         acc_to_a(pa[kk], s, kk);
         fence_regs(pa[kk]);
       }
-      fence_regs(s);
       fence_regs(o);
-      mbar_wait(full_k + 8 * nstage, nphase);
-      wgmma_fence();
-      // S = Q K_it^T, then O += P V_{it-1}: two groups, in this order
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        wgmma_ss<64, 0>(s, kmajor(qa, ks), kmajor(sK + nstage * TILE, ks), ks);
-      }
-      wgmma_commit();
       mbar_wait(full_v + 8 * stage, phase);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(o, pa[kk], mnmajor(sV + stage * TILE, kk), 1);
       wgmma_commit();
-
-      // softmax of tile it while P V runs
-      wgmma_wait<1>();
-      fence_regs(s);
-      softmax_tile(s, m, l, alpha, score_mul, it * kRows, kv_len, t);
-
-      // P V has landed: stage it - 1 goes back to the producer, O moves to the new max
       wgmma_wait<0>();
       fence_regs(o);
       if (lane == 0) mbar_arrive(empty + 8 * stage);
+
+      // epilogue: full row sums, O / l as bf16, and L
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        l[i] = fmaxf(l[i], 1e-30f);
+      }
+      const float inv0 = 1.f / l[0];
+      const float inv1 = 1.f / l[1];
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
-        o[4 * n + 0] *= alpha[0];
-        o[4 * n + 1] *= alpha[0];
-        o[4 * n + 2] *= alpha[1];
-        o[4 * n + 3] *= alpha[1];
+        o[4 * n + 0] *= inv0;
+        o[4 * n + 1] *= inv0;
+        o[4 * n + 2] *= inv1;
+        o[4 * n + 3] *= inv1;
       }
-      stage = nstage;
-      phase = nphase;
-    }
-
-    // the last tile's O += P V
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      acc_to_a(pa[kk], s, kk);
-      fence_regs(pa[kk]);
-    }
-    fence_regs(o);
-    mbar_wait(full_v + 8 * stage, phase);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(o, pa[kk], mnmajor(sV + stage * TILE, kk), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-    if (lane == 0) mbar_arrive(empty + 8 * stage);
-
-    // epilogue: full row sums, O / l as bf16, and L
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-      l[i] = fmaxf(l[i], 1e-30f);
-    }
-    const float inv0 = 1.f / l[0];
-    const float inv1 = 1.f / l[1];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[4 * n + 0] *= inv0;
-      o[4 * n + 1] *= inv0;
-      o[4 * n + 2] *= inv1;
-      o[4 * n + 3] *= inv1;
-    }
-    const long long pitch = static_cast<long long>(heads) * D;
-    store_acc<D>(out + static_cast<long long>(b) * seq * pitch + h * D, pitch, r0, seq, o, 1.f,
-                 t);
-    if (lse != nullptr && t == 0) {
-      float* lb = lse + (static_cast<long long>(b) * heads + h) * seq;
-      if (r0 < seq) lb[r0] = kLn2 * (m[0] + log2f(l[0]));
-      if (r0 + 8 < seq) lb[r0 + 8] = kLn2 * (m[1] + log2f(l[1]));
+      const long long pitch = static_cast<long long>(heads) * D;
+      store_acc<D>(out + static_cast<long long>(b) * seq * pitch + h * D, pitch, r0, seq, o, 1.f,
+                   t);
+      if (lse != nullptr && t == 0) {
+        float* lb = lse + (static_cast<long long>(b) * heads + h) * seq;
+        if (r0 < seq) lb[r0] = kLn2 * (m[0] + log2f(l[0]));
+        if (r0 + 8 < seq) lb[r0 + 8] = kLn2 * (m[1] + log2f(l[1]));
+      }
     }
   }
 }
@@ -290,17 +336,18 @@ constexpr int fwd_smem_bytes() {
   return 1024 + (kConsumers + 2 * kStages) * kTileBytes<D> + 8 * (3 * kStages + 1);
 }
 
-template <int D>
+// kLseOnly: out is not written (may be null), tv is not read
+template <int D, bool kLseOnly>
 cudaError_t launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                        void* out, float* lse, int batch, int seq, int heads, int kv_len,
                        float score_mul, cudaStream_t st) {
   const int smem = fwd_smem_bytes<D>();
   static SmemLimitOnce limit;
-  const cudaError_t err = limit.set(flash_fwd_sm90_kernel<D>, smem);
+  const cudaError_t err = limit.set(flash_fwd_sm90_kernel<D, kLseOnly>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
-  flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, st>>>(tq, tk, tv, static_cast<bf16*>(out),
-                                                         lse, seq, heads, kv_len, score_mul);
+  flash_fwd_sm90_kernel<D, kLseOnly><<<grid, kThreads, smem, st>>>(
+      tq, tk, tv, static_cast<bf16*>(out), lse, seq, heads, kv_len, score_mul);
   return cudaGetLastError();
 }
 
@@ -320,10 +367,10 @@ cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, fl
                                           sd[2 * i + 1], sd[2 * i], kRows);
     if (err != cudaSuccess) return err;
   }
-  return head_dim == 64 ? launch_fwd<64>(maps[0], maps[1], maps[2], out, lse, batch, seq, heads,
-                                         kv_len, score_mul, st)
-                        : launch_fwd<128>(maps[0], maps[1], maps[2], out, lse, batch, seq,
-                                          heads, kv_len, score_mul, st);
+  return head_dim == 64 ? launch_fwd<64, false>(maps[0], maps[1], maps[2], out, lse, batch, seq,
+                                                heads, kv_len, score_mul, st)
+                        : launch_fwd<128, false>(maps[0], maps[1], maps[2], out, lse, batch,
+                                                 seq, heads, kv_len, score_mul, st);
 }
 
 }  // namespace sm90
@@ -343,4 +390,31 @@ extern "C" int textflux_flash_fwd(const void* q, const void* k, const void* v, v
   return static_cast<int>(textflux::sm90::flash_fwd(
       q, k, v, out, static_cast<float*>(lse), batch, seq, heads, head_dim, kv_len, sd,
       scale_log2, static_cast<cudaStream_t>(stream)));
+}
+
+// The LSE pass alone: L = natural-log row LSE of scale_log2 * q k^T (log2
+// units) over keys < kv_len, fp32 (B, H, S) into lse. q, k as for
+// textflux_flash_fwd. Returns a cudaError_t (0 on success).
+extern "C" int textflux_flash_lse(const void* q, const void* k, void* lse, int batch,
+                                       int seq, int heads, int head_dim, int kv_len,
+                                       long long q_sb, long long q_ss, long long k_sb,
+                                       long long k_ss, float scale_log2, void* stream) {
+  using namespace textflux::sm90;
+  if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[2];
+  const void* ptrs[2] = {q, k};
+  const long long sd[4] = {q_sb, q_ss, k_sb, k_ss};
+  for (int i = 0; i < 2; ++i) {
+    const cudaError_t err = make_bshd_map(&maps[i], ptrs[i], batch, seq, heads, head_dim,
+                                          sd[2 * i + 1], sd[2 * i], kRows);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  float* l = static_cast<float*>(lse);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      head_dim == 64
+          ? launch_fwd<64, true>(maps[0], maps[1], maps[1], nullptr, l, batch, seq, heads,
+                                 kv_len, scale_log2, st)
+          : launch_fwd<128, true>(maps[0], maps[1], maps[1], nullptr, l, batch, seq, heads,
+                                  kv_len, scale_log2, st));
 }

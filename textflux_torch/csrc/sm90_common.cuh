@@ -1,6 +1,5 @@
-// Hopper (sm_90a) building blocks for the port's wgmma kernels, in hand PTX
-// as mma_common.cuh writes mma.sync: the warpgroup product (wgmma) and its
-// fence / commit / wait, the shared-memory matrix descriptor for the
+// Hopper (sm_90a) building blocks for the port's wgmma kernels, in hand PTX:
+// the warpgroup product (wgmma) and its fence / commit / wait, the shared-memory matrix descriptor for the
 // 128-byte swizzle, mbarrier init / arrive / expect-tx / wait, the TMA tile
 // load, setmaxnreg, and on the host the TMA tensor map of a (B, S, H, D)
 // bf16 view, encoded by cuTensorMapEncodeTiled as cudaGetDriverEntryPoint
@@ -26,10 +25,15 @@
 
 #include <atomic>
 
-#include "mma_common.cuh"  // pack_bf16
-
 namespace textflux {
 namespace sm90 {
+
+// two fp32 -> one register of two bf16 (round to nearest even); `lo` goes to
+// the low half, which the fragments hold for the lower column index
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 constexpr int kRows = 64;                         // rows of a tile: wgmma's M, one stage
 constexpr int kConsumers = 2;                     // consumer warpgroups per block

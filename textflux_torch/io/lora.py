@@ -119,10 +119,12 @@ def resolve_lora_path(lora_path: str) -> str:
 
 def load_folded_flux_transformer(base_path: str, lora_path: str, cfg: FluxConfig, *,
                                  scale: float = 1.0, dtype=torch.bfloat16, device="cuda",
-                                 quantize: Optional[str] = None):
+                                 quantize: Optional[str] = None, mesh=None):
     """Load a base transformer checkpoint with a LoRA file (or directory)
     folded in as it streams to `device` (then quantised, with
-    `quantize`)."""
+    `quantize`). With `mesh` (tensor axis > 1), each delta folds into the
+    whole base tensor on `device`, and the rank keeps its shard of the
+    sum (``io.params.load_flux_shard``)."""
     lora_sd = load_safetensors_dir(resolve_lora_path(lora_path))
     deltas = lora_deltas(lora_sd, scale=scale)
     present = set(checkpoint_keys(base_path))
@@ -130,7 +132,8 @@ def load_folded_flux_transformer(base_path: str, lora_path: str, cfg: FluxConfig
         if key not in present:
             raise KeyError(f"LoRA targets missing base weight: {key}")
     return load_flux_transformer(base_path, cfg, dtype=dtype, device=device,
-                                 transform=fold_transform(deltas, device), quantize=quantize)
+                                 transform=fold_transform(deltas, device), quantize=quantize,
+                                 mesh=mesh)
 
 
 # training warm start: a diffusers/peft LoRA state dict -> the factors ------

@@ -40,7 +40,7 @@ from torch import nn
 
 from textflux_torch.config import CLIPTextConfig, FluxConfig, T5Config, VAEConfig
 from textflux_torch.device import resolve_device
-from textflux_torch.io.quantize import QuantLinear, quantize_tree
+from textflux_torch.io.quantize import QuantLinear, quantize_plan, quantize_tree
 from textflux_torch.io.safetensors import DTYPES, SafetensorsFile, read_header
 
 # checkpoint key -> (parameter, or the QuantLinear a weight quantises into;
@@ -292,18 +292,12 @@ def key_map(model) -> KeyMap:
 # Loading
 # ---------------------------------------------------------------------------
 
-def empty_module(cfg, *, device="cuda", dtype: DType = torch.bfloat16,
-                 quantize: Optional[str] = None) -> nn.Module:
-    """The port's module for `cfg` with uninitialised storage on `device`:
-    built on the meta device, then allocated. Parameters named ``*scale``
-    are float32, the rest `dtype`: one dtype, or a function of the
-    parameter's name (``"double_blocks.3.img_qkv.weight"``) giving each its
-    own, allocated once in it. With `quantize` (a ``quantize_tree`` mode),
-    the linears it picks are empty ``QuantLinear``s."""
+def _meta_module(cfg, dtype: DType) -> nn.Module:
+    """The port's module for `cfg` on the meta device, each parameter in its
+    dtype (see ``empty_module``)."""
     table = _modules()
     if type(cfg) not in table:
         raise TypeError(f"no port module for config type {type(cfg).__name__}")
-    device = resolve_device(device)
     model = table[type(cfg)][0](cfg, device="meta",
                                 dtype=torch.float32 if callable(dtype) else dtype)
     for prefix, mod in model.named_modules():
@@ -315,6 +309,19 @@ def empty_module(cfg, *, device="cuda", dtype: DType = torch.bfloat16,
                     else dtype)
             if p.dtype != want:
                 mod._parameters[name] = nn.Parameter(p.to(want), requires_grad=p.requires_grad)
+    return model
+
+
+def empty_module(cfg, *, device="cuda", dtype: DType = torch.bfloat16,
+                 quantize: Optional[str] = None) -> nn.Module:
+    """The port's module for `cfg` with uninitialised storage on `device`:
+    built on the meta device, then allocated. Parameters named ``*scale``
+    are float32, the rest `dtype`: one dtype, or a function of the
+    parameter's name (``"double_blocks.3.img_qkv.weight"``) giving each its
+    own, allocated once in it. With `quantize` (a ``quantize_tree`` mode),
+    the linears it picks are empty ``QuantLinear``s."""
+    device = resolve_device(device)
+    model = _meta_module(cfg, dtype)
     if quantize:
         quantize_tree(model, mode=quantize)
     return model.to_empty(device=device)
@@ -437,14 +444,101 @@ def check_flux_config(path: str, cfg: FluxConfig) -> None:
 
 def load_flux_transformer(path: str, cfg: FluxConfig, *, dtype: DType = torch.bfloat16,
                           device="cuda", transform: Optional[Transform] = None,
-                          quantize: Optional[str] = None):
+                          quantize: Optional[str] = None, mesh=None):
     """Load a diffusers-format transformer checkpoint (a directory of
     safetensors shards, optionally with a config.json that is validated
     against `cfg`) onto `device` in `dtype` (one, or one per parameter
     name: full-parameter training keeps its masters float32 and the frozen
     weights in the compute dtype), quantised as it streams in with
     `quantize`. Returns the FluxTransformer in the checkpoint's
-    ("interleaved") q/k layout."""
+    ("interleaved") q/k layout.
+
+    With `mesh` (``parallel.partitioning.Mesh``) of a tensor axis tp > 1,
+    the module is this rank's shard (``load_flux_shard``): the whole DiT
+    never sits on one rank."""
     check_flux_config(path, cfg)
+    if mesh is not None and mesh.tensor > 1:
+        return load_flux_shard(path, cfg, tp=mesh.tensor, rank=mesh.tensor_rank,
+                               device=device, dtype=dtype, transform=transform,
+                               quantize=quantize)
     return load_checkpoint_dir(path, cfg, device=device, dtype=dtype, transform=transform,
                                quantize=quantize)
+
+
+@torch.no_grad()
+def load_flux_shard(path: str, cfg: FluxConfig, *, tp: int, rank: int, device="cuda",
+                    dtype: DType = torch.bfloat16, transform: Optional[Transform] = None,
+                    quantize: Optional[str] = None, min_size: Optional[int] = None):
+    """Rank `rank` of `tp`'s shard of a transformer checkpoint, permuted
+    device-major on the way in (``models.transformer.tp_permutations``) and
+    sliced as ``parallel.partitioning.shard_linears`` slices a module: the
+    same tensors as loading the whole DiT, then ``tp_permute_flux_params``
+    and ``shard_module``. Each checkpoint tensor is read from the mapped
+    file at the rows or columns of the shard (the whole tensor only where
+    `transform` is given, e.g. a LoRA fold, which runs on the whole tensor
+    before the slice) and quantised (with `quantize`) as
+    ``shard_linears`` quantises: int8 row-parallel codes from the whole
+    weight, NF4 ones from the slice (``quantize_plan``'s `min_size`)."""
+    from textflux_torch.models.transformer import tp_permutations
+    from textflux_torch.parallel import partitioning as PT
+
+    device = resolve_device(device)
+    model = _meta_module(cfg, dtype)
+    whole = flux_key_map(model)              # shapes and rows of the whole module
+    name_of = {id(p): name for name, p in model.named_parameters()}
+    use = _resolve_keys(whole, checkpoint_keys(path))
+    specs = PT.flux_param_specs(cfg)
+    plan = quantize_plan(model, mode=quantize, min_size=min_size) if quantize else None
+    PT.shard_linears(model, specs, tp, rank, plan)
+    model = model.to_empty(device=device)
+    model.tp_layout, model.tp_rank = tp, rank
+    perms = tp_permutations(cfg, tp)
+
+    def shard_index(mod_path: str, axis: int, n: int) -> torch.Tensor:
+        part = PT.shard_range(n, tp, rank)
+        axis_perm = perms.get(mod_path.rpartition(".")[2])
+        if axis_perm is not None and axis_perm[0] == axis:
+            return torch.as_tensor(axis_perm[1][part])
+        return torch.arange(part.start, part.stop)
+
+    for f in safetensors_files(path):
+        with SafetensorsFile(f) as reader:
+            for src_key in reader.keys():
+                if src_key not in use:
+                    continue
+                key = use[src_key]
+                param, rows = whole[key]
+                tensor = reader.get_tensor(src_key)
+                want = tuple(param.shape if rows is None else param[rows].shape)
+                if tuple(tensor.shape) != want:
+                    raise ValueError(f"{src_key}: checkpoint shape {tuple(tensor.shape)} != "
+                                     f"module shape {want}")
+                if transform is not None:
+                    tensor = transform(src_key, tensor)
+                mod_path, _, attr = name_of[id(param)].rpartition(".")
+                kind = specs.get(mod_path, PT.REPLICATED)
+                mod = model.get_submodule(mod_path)
+                quant = isinstance(mod, QuantLinear)
+                if kind == PT.COLUMN:
+                    idx = shard_index(mod_path, 0, param.shape[0])
+                    lo = 0 if rows is None else rows.start
+                    hi = param.shape[0] if rows is None else rows.stop
+                    sel = ((idx >= lo) & (idx < hi)).nonzero()[:, 0]
+                    dst = slice(int(sel[0]), int(sel[-1]) + 1)   # contiguous: see _devmajor_idx
+                    piece = tensor.index_select(0, (idx[sel] - lo).to(tensor.device))
+                    if quant and attr == "weight":
+                        mod.load_rows(dst, piece)
+                    else:
+                        getattr(mod, attr)[dst].copy_(piece)
+                elif kind == PT.ROW and attr == "weight":
+                    cols = shard_index(mod_path, 1, param.shape[1])
+                    if quant:
+                        mod.load_cols(cols, tensor)
+                    else:
+                        mod.weight.copy_(tensor.index_select(1, cols.to(tensor.device)))
+                elif quant and attr == "weight":     # replicated
+                    mod.load_rows(rows, tensor)
+                else:                                # replicated, or a row-parallel bias
+                    target = getattr(mod, attr)
+                    (target if rows is None else target[rows]).copy_(tensor)
+    return model

@@ -44,7 +44,7 @@ checkpoint streams in (``QuantLinear.load_rows``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -205,6 +205,24 @@ class QuantLinear(nn.Module):
             dst = getattr(self, name)
             (dst if rows is None else dst[rows]).copy_(value)
 
+    @torch.no_grad()
+    def load_cols(self, cols: torch.Tensor, w: torch.Tensor) -> None:
+        """Fill this module, one rank's row-parallel shard, from `w`, the whole
+        (out, in) weight, and `cols`, the input columns the shard holds: int8
+        codes are those of the whole weight at `cols`, with the per-output
+        scale of the whole row (the JAX package quantises, then shards); NF4
+        codes are quantised from w[:, cols] (its 64-row blocks lie inside a
+        share of a multiple of 128 input rows, so each element gets the
+        whole weight's code)."""
+        if self.mode == "nf4":
+            self.load_rows(None, w.index_select(1, cols.to(w.device)))
+            return
+        dev = self.scale.device
+        w = w.to(device=dev).to(self.weight_dtype)
+        for name, value in quantize_weight(w, self.mode).items():
+            getattr(self, name).copy_(value if name == "scale"
+                                      else value.index_select(1, cols.to(dev)))
+
     def nf4_halves(self, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
         """The weight's two input halves ((out, in/2) each) in `dtype`."""
         code = _codebook(self.w_nf4.device)
@@ -230,11 +248,15 @@ class QuantLinear(nn.Module):
         w_q = self.w_q8a8 if self.mode == "w8a8" else self.w_q
         return (w_q.float() * self.scale[:, None]).to(dtype)
 
-    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+    def matmul(self, x: torch.Tensor, *, bias: bool = True,
+               amax_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+               ) -> torch.Tensor:
         """x @ w + b in x's dtype, each mode as the JAX ``layers.dense``
-        computes it."""
+        computes it; without the bias when `bias` is False. `amax_reduce`
+        (w8a8 only) takes the per-token |x| maxima in place to their max over
+        the features held elsewhere (a row-parallel shard's other ranks)."""
         if self.mode == "w8a8":
-            y = self._w8a8(x)
+            y = self._w8a8(x, amax_reduce)
         elif self.mode == "nf4":
             top, bot = self.nf4_halves(x.dtype)
             half = top.shape[1]
@@ -242,17 +264,20 @@ class QuantLinear(nn.Module):
         else:
             # dequantise in x's dtype: codes cast, times the scale cast
             y = F.linear(x, self.w_q.to(x.dtype) * self.scale.to(x.dtype)[:, None])
-        if self.bias is not None:
+        if bias and self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
 
-    def _w8a8(self, x: torch.Tensor) -> torch.Tensor:
+    def _w8a8(self, x: torch.Tensor, amax_reduce=None) -> torch.Tensor:
         """Per-token int8 activations (absmax / 127, floored at 1e-8) times
         the int8 weight, accumulated in int32, rescaled in float32 by the
         token's and the channel's scales, then cast to x's dtype."""
         lead = x.shape[:-1]
         xf = x.reshape(-1, x.shape[-1]).float()
-        s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        if amax_reduce is not None:
+            amax = amax_reduce(amax)
+        s = torch.clamp(amax, min=1e-8) / 127.0
         xq = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
         acc = int_mm(xq, self.w_q8a8)
         y = acc.float() * s * self.scale[None, :]
@@ -263,30 +288,41 @@ def _mixed_mode(path: Tuple[str, ...]) -> str:
     return "weight_only" if any(n in path for n in MIXED_INT8_NAMES) else "nf4"
 
 
-def quantize_tree(model: nn.Module, *, mode: str = "weight_only",
-                  min_size: Optional[int] = None, double_quant: bool = False) -> nn.Module:
-    """Replace, in place, every ``nn.Linear`` of `model` whose weight holds at
-    least `min_size` elements (default ``MIN_SIZE``; a linear inside a
-    ``ModuleList`` counts its size times the list's length, as the JAX
-    package's stacked leaf does) by a ``QuantLinear`` in `mode`; "mixed"
-    picks weight_only or nf4 by module path (``MIXED_INT8_NAMES``). The
-    replaced weights are freed as each linear goes. On the ``meta`` device
-    this only swaps in the empty quantised modules (what a streaming load
-    then fills). Returns `model`."""
+def quantize_plan(model: nn.Module, *, mode: str = "weight_only",
+                  min_size: Optional[int] = None) -> Dict[str, str]:
+    """{module path: mode} of every ``nn.Linear`` of `model` whose weight
+    holds at least `min_size` elements (default ``MIN_SIZE``; a linear
+    inside a ``ModuleList`` counts its size times the list's length, as the
+    JAX package's stacked leaf does): `mode`, or for "mixed" weight_only or
+    nf4 by module path (``MIXED_INT8_NAMES``)."""
     check_mode(mode)
     min_size = MIN_SIZE if min_size is None else min_size
+    plan = {}
 
     def rec(module: nn.Module, path: Tuple[str, ...], stack: int) -> None:
-        for name, child in list(module.named_children()):
+        for name, child in module.named_children():
             p = path + (name,)
             if isinstance(child, nn.Linear):
                 if child.weight.numel() * stack >= min_size:
-                    m = _mixed_mode(p) if mode == "mixed" else mode
-                    setattr(module, name, QuantLinear.from_linear(child, m, double_quant))
+                    plan[".".join(p)] = _mixed_mode(p) if mode == "mixed" else mode
             else:
                 rec(child, p, stack * len(child) if isinstance(child, nn.ModuleList) else stack)
 
     rec(model, (), 1)
+    return plan
+
+
+def quantize_tree(model: nn.Module, *, mode: str = "weight_only",
+                  min_size: Optional[int] = None, double_quant: bool = False) -> nn.Module:
+    """Replace, in place, every ``nn.Linear`` of `model` that
+    ``quantize_plan`` picks by a ``QuantLinear`` in its mode. The replaced
+    weights are freed as each linear goes. On the ``meta`` device this only
+    swaps in the empty quantised modules (what a streaming load then
+    fills). Returns `model`."""
+    for path, m in quantize_plan(model, mode=mode, min_size=min_size).items():
+        owner_path, _, name = path.rpartition(".")
+        owner = model.get_submodule(owner_path) if owner_path else model
+        setattr(owner, name, QuantLinear.from_linear(getattr(owner, name), m, double_quant))
     return model
 
 

@@ -49,7 +49,8 @@ def ones_param(n: int, *, device=None, dtype=None) -> nn.Parameter:
     return nn.Parameter(torch.ones(n, device=device, dtype=dtype))
 
 
-def dense(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def dense(lin: nn.Module, x: torch.Tensor, *, bias: bool = True,
+          amax_reduce=None) -> torch.Tensor:
     """x @ w + b in x's dtype (a ``QuantLinear`` dequantises on read, or runs
     its w8a8 product), plus the LoRA branch when one is attached, over any
     base:
@@ -61,12 +62,16 @@ def dense(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
       the rest (single-block linear1's MLP tail) gets none.
 
     The factors are fp32 parameters cast to x's dtype for the products, and
-    the frozen base is never merged with them."""
+    the frozen base is never merged with them.
+
+    ``bias=False`` leaves the bias out (a row-parallel shard adds it after
+    the sum over ranks); `amax_reduce` goes to a w8a8 ``QuantLinear``
+    (``QuantLinear.matmul``)."""
     if isinstance(lin, QuantLinear):
-        y = lin.matmul(x)
+        y = lin.matmul(x, bias=bias, amax_reduce=amax_reduce)
     else:
-        bias = None if lin.bias is None else lin.bias.to(x.dtype)
-        y = F.linear(x, lin.weight.to(x.dtype), bias)
+        b = lin.bias.to(x.dtype) if bias and lin.bias is not None else None
+        y = F.linear(x, lin.weight.to(x.dtype), b)
     a = getattr(lin, "lora_a", None)
     if a is not None:
         y = y + (x @ (a * lin.lora_scale).to(x.dtype)) @ lin.lora_b.to(x.dtype)

@@ -1,13 +1,25 @@
 """FLUX-style MM-DiT: 19 double-stream + 38 single-stream blocks.
 
-The port of ``textflux_tpu/models/transformer.py`` (tensor parallelism,
-``tp > 1``, is not ported). Parameters live in ``FluxTransformer``, an
-``nn.Module`` with one submodule per block (any linear of which may be an
-``io.quantize.QuantLinear``); the forward pass is the plain
-functions below, mirroring the JAX package's: fused q|k|v projections per
-stream, a fused qkv+mlp-in projection (``linear1``) and attn-out+mlp-out
-projection (``linear2``) in the single blocks, norms/AdaLN/softmax in float32,
-matmuls in the activation dtype.
+The port of ``textflux_tpu/models/transformer.py``. Parameters live in
+``FluxTransformer``, an ``nn.Module`` with one submodule per block (any
+linear of which may be an ``io.quantize.QuantLinear``); the forward pass is
+the plain functions below, mirroring the JAX package's: fused q|k|v
+projections per stream, a fused qkv+mlp-in projection (``linear1``) and
+attn-out+mlp-out projection (``linear2``) in the single blocks,
+norms/AdaLN/softmax in float32, matmuls in the activation dtype.
+
+Tensor parallelism (``mesh`` with a tensor axis tp > 1, serving only): the
+module holds one rank's shard (``parallel.partitioning.shard_module``, or
+the sharded checkpoint load) of weights permuted device-major
+(``tp_permute_flux_params``): the fused projections' local output is the
+rank's [q_r | k_r | v_r (| mlp_r)], which splits without communication;
+attention runs on the rank's H / tp heads; the single block's local
+[attn_r | gelu(mlp_r)] meets the rank's rows of linear2. The collectives are
+the Megatron schedule's: an all-reduce after each row-parallel projection
+(img_proj, txt_proj, the fc2s, linear2: 4 per double block and 1 per single
+block, 114 a step at full depth), and an all-gather of each column-parallel
+output that must be whole (the modulation vectors, once per image with
+``flux_mods``, and the input embedders' outputs, twice a step).
 
 Attention paths (``attn_impl``):
   "plain": interleaved RoPE and ``ops.attention.plain_attention`` on the
@@ -33,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from textflux_torch.config import FluxConfig
 from textflux_torch.device import resolve_device
-from textflux_torch.io.quantize import OUT_AXIS_KEYS
+from textflux_torch.io.quantize import OUT_AXIS_KEYS, QuantLinear
 from textflux_torch.models.layers import (
     MLP,
     dense,
@@ -48,6 +60,7 @@ from textflux_torch.models.layers import (
 from textflux_torch.ops.attention import dot_product_attention
 from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
 from textflux_torch.ops.rope import apply_rope_bshd, half_permutation
+from textflux_torch.parallel import partitioning as PT
 
 ATTN_IMPLS = ("plain", "flash", "fused")
 
@@ -92,7 +105,10 @@ class FluxTransformer(nn.Module):
     (``init_flux_params``) from `generator` (default: seed 0 on `device`).
 
     ``rope_layout`` records the q/k feature order: "interleaved" as built or
-    loaded, "half" after ``half_permute_flux_params``."""
+    loaded, "half" after ``half_permute_flux_params``. ``tp_layout`` is the
+    tensor-parallel degree the fused projections are permuted for (1: not
+    permuted, ``tp_permute_flux_params``); ``tp_rank`` the rank whose shard
+    the module holds (None: it is whole)."""
 
     def __init__(self, cfg: FluxConfig, *, device="cuda", dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -104,6 +120,8 @@ class FluxTransformer(nn.Module):
         d = cfg.hidden_dim
         self.cfg = cfg
         self.rope_layout = "interleaved"
+        self.tp_layout = 1
+        self.tp_rank = None
         self.img_in = make_linear(cfg.in_channels, d, **kw)
         self.txt_in = make_linear(cfg.joint_dim, d, **kw)
         self.time_in = MLP(cfg.time_embed_channels, d, d, **kw)
@@ -131,12 +149,38 @@ def _modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torc
     return layer_norm(x) * (1.0 + scale[:, None]) + shift[:, None]
 
 
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.tensor
+
+
+def _whole(lin: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A column-parallel linear's output made whole (all-gathered over the
+    tensor axis when tp > 1)."""
+    y = dense(lin, x)
+    return y if _tp(mesh) == 1 else PT.all_gather_last(y, mesh)
+
+
+def _row(lin: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel linear. With tp > 1, on the rank's input columns: its
+    partial product without the bias, summed over the tensor axis, then the
+    bias once; a w8a8 linear quantises its activations with the token's
+    scale over the whole feature row (the max over the ranks)."""
+    if _tp(mesh) == 1:
+        return dense(lin, x)
+    y = PT.all_reduce_sum(dense(lin, x, bias=False,
+                                amax_reduce=lambda a: PT.all_reduce_max(a, mesh)), mesh)
+    return y if lin.bias is None else y + lin.bias.to(y.dtype)
+
+
 def double_block(blk: DoubleBlock, cfg: FluxConfig, txt, img, mods, rope_cos, rope_sin,
-                 attn_impl: str, kv_len: Optional[int]):
+                 attn_impl: str, kv_len: Optional[int], mesh=None):
     """One double-stream block: separate img/txt QKV + MLPs, joint attention.
 
     mods = (img_mod (B, 6D), txt_mod (B, 6D)) — the block's AdaLN modulation
-    vectors (per step, or precomputed for the whole schedule by flux_mods)."""
+    vectors (per step, or precomputed for the whole schedule by flux_mods),
+    whole on every rank. With a tensor axis, `blk` is the rank's shard: its
+    H / tp heads' q|k|v, and the output projections and fc2s summed over
+    the ranks."""
     n_txt = txt.shape[1]
     img_mod, txt_mod = mods
     i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = img_mod.chunk(6, dim=-1)
@@ -146,7 +190,7 @@ def double_block(blk: DoubleBlock, cfg: FluxConfig, txt, img, mods, rope_cos, ro
     txt_n = _modulate(txt, t_shift1, t_scale1)
     iq, ik, iv = dense(blk.img_qkv, img_n).chunk(3, dim=-1)
     tq, tk, tv = dense(blk.txt_qkv, txt_n).chunk(3, dim=-1)
-    h, hd = cfg.num_heads, cfg.head_dim
+    h, hd = cfg.num_heads // _tp(mesh), cfg.head_dim
 
     if attn_impl == "fused":
         # raw q/k: RMSNorm + rotate-half RoPE run inside the attention kernel,
@@ -172,24 +216,28 @@ def double_block(blk: DoubleBlock, cfg: FluxConfig, txt, img, mods, rope_cos, ro
     out = out.reshape(out.shape[0], out.shape[1], -1)
     txt_attn, img_attn = out[:, :n_txt], out[:, n_txt:]
 
-    img = img + i_gate1[:, None] * dense(blk.img_proj, img_attn)
+    img = img + i_gate1[:, None] * _row(blk.img_proj, img_attn, mesh)
     img_mlp_in = _modulate(img, i_shift2, i_scale2)
-    img = img + i_gate2[:, None] * dense(blk.img_mlp.fc2,
-                                         gelu_tanh(dense(blk.img_mlp.fc1, img_mlp_in)))
+    img = img + i_gate2[:, None] * _row(blk.img_mlp.fc2,
+                                        gelu_tanh(dense(blk.img_mlp.fc1, img_mlp_in)), mesh)
 
-    txt = txt + t_gate1[:, None] * dense(blk.txt_proj, txt_attn)
+    txt = txt + t_gate1[:, None] * _row(blk.txt_proj, txt_attn, mesh)
     txt_mlp_in = _modulate(txt, t_shift2, t_scale2)
-    txt = txt + t_gate2[:, None] * dense(blk.txt_mlp.fc2,
-                                         gelu_tanh(dense(blk.txt_mlp.fc1, txt_mlp_in)))
+    txt = txt + t_gate2[:, None] * _row(blk.txt_mlp.fc2,
+                                        gelu_tanh(dense(blk.txt_mlp.fc1, txt_mlp_in)), mesh)
     return txt, img
 
 
 def single_block(blk: SingleBlock, cfg: FluxConfig, x, mod, rope_cos, rope_sin,
-                 attn_impl: str, kv_len: Optional[int]):
+                 attn_impl: str, kv_len: Optional[int], mesh=None):
     """One single-stream block: parallel attention + MLP over the joint sequence.
 
-    mod: (B, 3D) AdaLN modulation vector (see double_block)."""
-    d, h = cfg.hidden_dim, cfg.num_heads
+    mod: (B, 3D) AdaLN modulation vector (see double_block). With a tensor
+    axis, linear1's local output is [q_r | k_r | v_r | mlp_r] and the local
+    [attn_r | gelu(mlp_r)] meets the rank's (device-major) rows of linear2,
+    summed over the ranks."""
+    tp = _tp(mesh)
+    d, h = cfg.hidden_dim // tp, cfg.num_heads // tp
     shift, scale, gate = mod.chunk(3, dim=-1)
     x_n = _modulate(x, shift, scale)
 
@@ -205,7 +253,7 @@ def single_block(blk: SingleBlock, cfg: FluxConfig, x, mod, rope_cos, rope_sin,
         k = apply_rope_bshd(rms_norm(k, blk.k_scale), rope_cos, rope_sin)
         attn = dot_product_attention(q, k, v, impl=attn_impl, kv_len=kv_len)
     attn = attn.reshape(attn.shape[0], attn.shape[1], -1)
-    out = dense(blk.linear2, torch.cat([attn, gelu_tanh(mlp)], dim=-1))
+    out = _row(blk.linear2, torch.cat([attn, gelu_tanh(mlp)], dim=-1), mesh)
     return x + gate[:, None] * out
 
 
@@ -230,7 +278,7 @@ def flux_vec(model: FluxTransformer, timestep, guidance, pooled, dtype=torch.bfl
     return vec
 
 
-def flux_mods(model: FluxTransformer, vec: torch.Tensor):
+def flux_mods(model: FluxTransformer, vec: torch.Tensor, mesh=None):
     """All AdaLN modulation vectors for conditioning vec (N, D).
 
     The modulation weights are ~27% of the DiT's parameters but their inputs
@@ -239,14 +287,32 @@ def flux_mods(model: FluxTransformer, vec: torch.Tensor):
     once per image instead of once per step.
 
     Returns {"double": [(img (N, 6D), txt (N, 6D)) per block],
-             "single": [(N, 3D) per block], "final": (N, 2D)}.
+             "single": [(N, 3D) per block], "final": (N, 2D)}, whole on
+    every rank of a tensor axis (each column-parallel output all-gathered).
     """
     sv = silu(vec)
     return {
-        "double": [(dense(b.img_mod, sv), dense(b.txt_mod, sv)) for b in model.double_blocks],
-        "single": [dense(b.mod, sv) for b in model.single_blocks],
+        "double": [(_whole(b.img_mod, sv, mesh), _whole(b.txt_mod, sv, mesh))
+                   for b in model.double_blocks],
+        "single": [_whole(b.mod, sv, mesh) for b in model.single_blocks],
         "final": dense(model.final_mod, sv),
     }
+
+
+def check_tp(model: FluxTransformer, mesh) -> None:
+    """Raise unless `model` holds what a forward over `mesh` needs: for tp >
+    1, this rank's shard of weights permuted for that tp (a forward on
+    naturally ordered columns would read them as device-major: silently
+    scrambled attention, hence the check); for tp = 1, a whole module."""
+    tp = _tp(mesh)
+    if tp > 1 and (model.tp_layout != tp or model.tp_rank != mesh.tensor_rank):
+        raise ValueError(
+            f"a forward at tp={tp} needs this rank's shard of tp_permute_flux_params'd "
+            f"weights (the model has tp_layout={model.tp_layout}, tp_rank={model.tp_rank}); "
+            "FillPipeline.shard_for_serving or from_pretrained(mesh=) applies both")
+    if tp == 1 and (model.tp_layout != 1 or model.tp_rank is not None):
+        raise ValueError(f"the model is permuted / sharded for tp={model.tp_layout}: pass "
+                         "the mesh it was sharded over")
 
 
 def flux_apply(
@@ -263,13 +329,21 @@ def flux_apply(
     remat: bool = False,
     kv_len: Optional[int] = None,
     mods=None,                     # optional precomputed flux_mods(...) output
+    mesh=None,                     # parallel.partitioning.Mesh: tensor parallelism
 ) -> torch.Tensor:
     """Predict the flow velocity for packed image tokens. Returns (B, T_img, out_channels).
 
     remat: checkpoint every block (``torch.utils.checkpoint``, non-reentrant),
     as the JAX package's ``jax.checkpoint`` of its scan bodies: a block keeps
-    only its inputs for the backward and runs its forward again there."""
+    only its inputs for the backward and runs its forward again there.
+
+    mesh: with a tensor axis tp > 1, `model` is this rank's shard (see the
+    module docstring) and every rank of the tensor sub-group calls this on
+    the same inputs; the output is whole on each. No backward: the
+    collectives are not autograd-aware (training over a sharded model is
+    ROADMAP Queue 1 item 6b)."""
     cfg = model.cfg
+    check_tp(model, mesh)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     want = "half" if attn_impl == "fused" else "interleaved"
@@ -282,14 +356,15 @@ def flux_apply(
     if mods is None:
         # per-block modulation computed as each block runs
         sv = silu(flux_vec(model, timestep, guidance, pooled, dtype))
-        double_mods = ((dense(b.img_mod, sv), dense(b.txt_mod, sv)) for b in model.double_blocks)
-        single_mods = (dense(b.mod, sv) for b in model.single_blocks)
+        double_mods = ((_whole(b.img_mod, sv, mesh), _whole(b.txt_mod, sv, mesh))
+                       for b in model.double_blocks)
+        single_mods = (_whole(b.mod, sv, mesh) for b in model.single_blocks)
         final = dense(model.final_mod, sv)
     else:
         double_mods, single_mods, final = mods["double"], mods["single"], mods["final"]
 
-    img = dense(model.img_in, img_tokens)
-    txt = dense(model.txt_in, txt_tokens.to(dtype))
+    img = _whole(model.img_in, img_tokens, mesh)
+    txt = _whole(model.txt_in, txt_tokens.to(dtype), mesh)
     rope_cos, rope_sin = rope_cos.float(), rope_sin.float()
 
     def call(fn, *args):
@@ -299,10 +374,10 @@ def flux_apply(
 
     for blk, m in zip(model.double_blocks, double_mods):
         txt, img = call(double_block, blk, cfg, txt, img, m, rope_cos, rope_sin, attn_impl,
-                        kv_len)
+                        kv_len, mesh)
     x = torch.cat([txt, img], dim=1)
     for blk, m in zip(model.single_blocks, single_mods):
-        x = call(single_block, blk, cfg, x, m, rope_cos, rope_sin, attn_impl, kv_len)
+        x = call(single_block, blk, cfg, x, m, rope_cos, rope_sin, attn_impl, kv_len, mesh)
     x = x[:, n_txt:]
 
     # AdaLN-continuous output head: chunk order is (scale, shift)
@@ -314,6 +389,38 @@ def flux_apply(
     return torch.cat([dense(model.final_proj, x[i:i + 1]) for i in range(x.shape[0])])
 
 
+def _fused_tensors(lin: nn.Module):
+    return list(lin.named_parameters(recurse=False)) + list(lin.named_buffers(recurse=False))
+
+
+def _permute_out(lin: nn.Module, idx: torch.Tensor, what: str) -> None:
+    """Gather the output rows of every output-axis tensor of a fused
+    projection by `idx`, in place: the weight and bias of an ``nn.Linear``,
+    every buffer of a ``QuantLinear`` (``io.quantize.OUT_AXIS_KEYS``: the NF4
+    codes pack along the input axis and their absmax groups it, so the
+    output rows move whole), and a parallel LoRA's B along its last axis (A
+    acts on the input and stays). Grouped LoRA factors, or a tensor of
+    unknown layout, raise."""
+    for name, t in _fused_tensors(lin):
+        if name in OUT_AXIS_KEYS:
+            t.copy_(t.index_select(0, idx.to(t.device)))
+        elif name == "lora_b":
+            t.copy_(t.index_select(-1, idx.to(t.device)))
+        elif name in ("lora_ga", "lora_gb"):
+            raise ValueError(
+                f"grouped per-module LoRA factors cannot be permuted for {what}: fold them "
+                "first (training.train.lora_merge or io.lora's load-time folding)")
+        elif name != "lora_a":   # never drop one silently
+            raise KeyError(f"unknown tensor {name!r} of a fused projection in {what}: add it "
+                           "to io.quantize.OUT_AXIS_KEYS (output axis first) or handle it here")
+
+
+def _shards(model: FluxTransformer) -> int:
+    """How many ways the module's heads are split: its tp when it holds one
+    rank's shard, else 1."""
+    return model.tp_layout if model.tp_rank is not None else 1
+
+
 @torch.no_grad()
 def half_permute_flux_params(model: FluxTransformer) -> FluxTransformer:
     """Permute q/k feature columns into the rotate-half layout the fused
@@ -322,41 +429,27 @@ def half_permute_flux_params(model: FluxTransformer) -> FluxTransformer:
     The permutation is a similarity transform on the attention logits (q and
     k permuted identically), so outputs are unchanged; it folds the
     interleaved RoPE pairing into the weights once at load time. v and all
-    other parameters are untouched. Every output-axis tensor of the fused
-    projections is gathered: the weight and bias of an ``nn.Linear``, every
-    buffer of a ``QuantLinear`` (``io.quantize.OUT_AXIS_KEYS``: the NF4 codes
-    pack along the input axis and their absmax groups it, so the output
-    rows move whole), and a parallel LoRA's B along its last axis (A acts on
-    the input and stays). Grouped LoRA factors, or a tensor of unknown
-    layout, raise. Unlike the JAX package, which returns a new tree, this
-    permutes the module IN PLACE (a copy of the 12B DiT would not fit beside
-    it) and returns it."""
+    other parameters are untouched (see ``_permute_out`` for the tensors
+    gathered). It moves features within each head, so it commutes with the
+    tensor-parallel permutation, which moves whole heads: a rank's shard is
+    permuted over its own heads. Unlike the JAX package, which returns a
+    new tree, this permutes the module IN PLACE (a copy of the 12B DiT would
+    not fit beside it) and returns it."""
     if model.rope_layout != "interleaved":
         raise ValueError(f"model is already in the {model.rope_layout!r} layout")
+    if model.tp_layout != 1 and model.tp_rank is None:
+        raise ValueError("half-permute before tp_permute_flux_params, or permute a rank's "
+                         "shard: the whole model's columns are device-major")
     cfg = model.cfg
-    d = cfg.hidden_dim
+    n = _shards(model)
+    d, heads = cfg.hidden_dim // n, cfg.num_heads // n
     perm = half_permutation(cfg.head_dim)
-    per_head = np.concatenate([h * cfg.head_dim + perm for h in range(cfg.num_heads)])
+    per_head = np.concatenate([h * cfg.head_dim + perm for h in range(heads)])
 
     def permute_rows(lin: nn.Module, extra: int = 0) -> None:
         idx = torch.as_tensor(np.concatenate([per_head, d + per_head,
                                               2 * d + np.arange(d + extra)]))
-        tensors = list(lin.named_parameters(recurse=False)) + list(
-            lin.named_buffers(recurse=False))
-        for name, t in tensors:
-            if name in OUT_AXIS_KEYS:
-                t.copy_(t.index_select(0, idx.to(t.device)))
-            elif name == "lora_b":
-                t.copy_(t.index_select(-1, idx.to(t.device)))
-            elif name in ("lora_ga", "lora_gb"):
-                raise ValueError(
-                    "grouped per-module LoRA factors cannot be permuted for the fused "
-                    "kernel: fold them first (training.train.lora_merge or io.lora's "
-                    "load-time folding)")
-            elif name != "lora_a":   # never drop one silently
-                raise KeyError(f"unknown tensor {name!r} of a fused projection in "
-                               "half_permute_flux_params: add it to io.quantize."
-                               "OUT_AXIS_KEYS (output axis first) or handle it here")
+        _permute_out(lin, idx, "the fused kernel")
 
     p = torch.as_tensor(perm)
     for blk in model.double_blocks:
@@ -365,8 +458,87 @@ def half_permute_flux_params(model: FluxTransformer) -> FluxTransformer:
         for prm in (blk.img_q_scale, blk.img_k_scale, blk.txt_q_scale, blk.txt_k_scale):
             prm.copy_(prm[p.to(prm.device)])
     for blk in model.single_blocks:
-        permute_rows(blk.linear1, extra=cfg.mlp_dim)
+        permute_rows(blk.linear1, extra=cfg.mlp_dim // n)
         for prm in (blk.q_scale, blk.k_scale):
             prm.copy_(prm[p.to(prm.device)])
     model.rope_layout = "half"
+    return model
+
+
+def _devmajor_idx(segs, tp: int) -> np.ndarray:
+    """Index permutation mapping a fused axis [seg0 | seg1 | ...] to
+    device-major layout [seg0_0 | seg1_0 | ... | seg0_1 | seg1_1 | ...]:
+    contiguous share d of the permuted axis holds every segment's d-th
+    chunk."""
+    offs = np.concatenate([[0], np.cumsum(segs)[:-1]])
+    parts = []
+    for dev in range(tp):
+        for off, seg in zip(offs, segs):
+            c = seg // tp
+            parts.append(off + dev * c + np.arange(c))
+    return np.concatenate(parts)
+
+
+def tp_permutations(cfg: FluxConfig, tp: int) -> dict:
+    """{linear name within a block: (axis, index)} of the device-major
+    permutation of each fused projection (axis 0: output rows, 1: input
+    columns): img_qkv / txt_qkv out rows in segments (d, d, d), linear1 out
+    rows (d, d, d, mlp), linear2 in columns (d, mlp), matching the local
+    [attn_r | gelu(mlp_r)] a rank's single block feeds it."""
+    d, m, h = cfg.hidden_dim, cfg.mlp_dim, cfg.num_heads
+    if any(x % tp for x in (d, m, h)):
+        raise ValueError(f"hidden={d}, mlp={m}, heads={h} must all be divisible by tp={tp}")
+    qkv = _devmajor_idx((d, d, d), tp)
+    return {"img_qkv": (0, qkv), "txt_qkv": (0, qkv),
+            "linear1": (0, _devmajor_idx((d, d, d, m), tp)),
+            "linear2": (1, _devmajor_idx((d, m), tp))}
+
+
+@torch.no_grad()
+def tp_permute_flux_params(model: FluxTransformer, tp: int) -> FluxTransformer:
+    """Permute the fused projections into device-major layout for tensor
+    parallelism (``tp_permutations``), in place, and mark the module
+    (``tp_layout``). Contiguous shares of the permuted axes then line up
+    with head-parallel attention: the q|k|v split, the heads and the single
+    block's [attn | mlp] -> linear2 all stay on their rank, and the only
+    collectives are the row-parallel projections' all-reduces. Composes with
+    (and in the JAX package is applied after) half_permute_flux_params.
+
+    Re-permuting raises (it would scramble the layout with no error at
+    apply time: reload to change tp). NF4: permuting output rows is safe
+    (the codes pack along the input axis), but linear2's input rows are
+    nibble-packed and absmax-blocked, so a module with an NF4 linear2
+    raises: quantise after this permutation (``shard_module`` and the
+    sharded load order it so)."""
+    if model.tp_layout != 1:
+        raise ValueError(f"params are already tp-permuted (tp={model.tp_layout}); reload "
+                         f"the checkpoint to change the tensor-parallel degree to {tp}")
+    if model.tp_rank is not None:
+        raise ValueError("the model holds one rank's shard; permute before sharding")
+    perms = tp_permutations(model.cfg, tp)
+    for blk in model.single_blocks:
+        if isinstance(blk.linear2, QuantLinear) and blk.linear2.mode == "nf4":
+            raise ValueError(
+                "cannot tp-permute the in rows of an NF4-packed linear2: rows are "
+                "nibble-packed and absmax-blocked. Quantize AFTER tp_permute_flux_params "
+                "(shard_for_serving(..., quantize=...) and from_pretrained(mesh=...) order "
+                "this correctly).")
+    for blk in list(model.double_blocks) + list(model.single_blocks):
+        for name, (axis, idx) in perms.items():
+            lin = getattr(blk, name, None)
+            if lin is None:
+                continue
+            idx = torch.as_tensor(idx)
+            if axis == 0:
+                _permute_out(lin, idx, "tensor parallelism")
+                continue
+            for tname, t in _fused_tensors(lin):
+                if tname in ("weight", "w_q", "w_q8a8"):
+                    t.copy_(t.index_select(1, idx.to(t.device)))
+                elif tname == "lora_a":
+                    t.copy_(t.index_select(0, idx.to(t.device)))
+                elif tname not in ("bias", "scale", "lora_b"):
+                    raise KeyError(f"unknown tensor {tname!r} of linear2 in "
+                                   "tp_permute_flux_params")
+    model.tp_layout = tp
     return model

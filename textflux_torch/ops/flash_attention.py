@@ -34,8 +34,9 @@ on Hopper only wgmma reaches that peak:
   rows each keep P (and dS) in registers as the A operand of the next
   product. No atomics: outputs are bitwise the same from run to run;
 - the forward writes L beside O, so the autograd function hands L to the
-  backward and the LSE kernel (``csrc/flash_attention.cu``, still on
-  ``mma.sync``) runs only when ``flash_attention_bwd`` is given no L.
+  backward, and the LSE pass (the forward's mainloop with V's loads, P*V
+  and the O epilogue compiled out) runs only when ``flash_attention_bwd``
+  is given no L.
 
 The design of each is at the top of its CUDA source.
 """
@@ -414,7 +415,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
                         *, kv_len: Optional[int] = None) -> torch.Tensor:
     """Row log-sum-exp of the scaled, masked scores: fp32 (B, H, S). CUDA
-    tensors launch the LSE kernel (``flash_attention_lse.launches``)."""
+    tensors launch the forward kernel's LSE-only instantiation
+    (``flash_attention_lse.launches``)."""
     b, s, h, d = q.shape
     kv_len = _check_kv_len(kv_len, s)
     if q.device.type == "cpu":

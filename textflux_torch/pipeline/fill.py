@@ -4,9 +4,11 @@ The port of ``textflux_tpu/pipeline/fill.py::FillPipeline``: single-image
 ``__call__``, batched ``generate_batch``, ``from_pretrained`` from a
 diffusers-layout checkpoint (with a LoRA folded in at load, and quantised
 serving: ``quantize`` / ``quantize_t5``, the DiT and T5 quantised as they
-stream in) and the staged residency of ``defer_transformer``. Not ported
-yet: multi-GPU serving (``shard_for_serving``, ``mesh``; ROADMAP Queue 1
-item 6). Stages:
+stream in), the staged residency of ``defer_transformer``, and multi-GPU
+serving over a ``parallel.partitioning`` mesh (``shard_for_serving``,
+``from_pretrained(mesh=)``): the DiT tensor-parallel over the tensor axis,
+batches data-parallel over (data, fsdp), VAE, CLIP and T5 whole on every
+rank. Stages:
 
   1. text encode   — CLIP pooled + T5 sequence embeddings
   2. conditioning  — VAE-encode the masked image (tiled above a 160x160 latent
@@ -77,10 +79,15 @@ class FillPipeline:
         attn_impl: str = "auto",
         device="cuda",
         flux_cfg: Optional[FluxConfig] = None,
+        mesh=None,
     ):
         """`flux` may be None when `flux_cfg` is given: a DiT deferred to
-        ``load_transformer`` (staged residency)."""
-        self.device = resolve_device(device)
+        ``load_transformer`` (staged residency). `mesh`: the
+        ``parallel.partitioning.Mesh`` this rank serves on (`flux` then holds
+        the rank's shard when the mesh has a tensor axis; ``device`` is the
+        mesh's), or None."""
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.flux, self.vae, self.clip, self.t5 = (
             None if m is None else m.to(self.device) for m in (flux, vae, clip, t5))
         if flux is None and flux_cfg is None:
@@ -146,7 +153,7 @@ class FillPipeline:
         v = flux_apply(self.flux, torch.cat([lat, cond], dim=-1), txt, pooled,
                        torch.full((b,), float(sigma), dtype=lat.dtype, device=lat.device),
                        guidance, cos, sin, attn_impl=self.attn_impl, kv_len=kv_len,
-                       mods=mods)
+                       mods=mods, mesh=self.mesh)
         if sampler == "overshoot":
             return samplers.overshoot_step(lat, v, sigma, sigma_next, noise,
                                            generator=generator, c=overshoot_c)
@@ -204,7 +211,7 @@ class FillPipeline:
             self.flux, sig.repeat_interleave(b),
             None if guidance is None else guidance.repeat(steps),
             pooled.repeat(steps, 1), latents.dtype)
-        mods_all = transformer.flux_mods(self.flux, vec_all)
+        mods_all = transformer.flux_mods(self.flux, vec_all, mesh=self.mesh)
 
         def step_mods(i):
             rows = slice(i * b, (i + 1) * b)
@@ -404,7 +411,14 @@ class FillPipeline:
         single-item __call__ with seed ``seeds[i]`` (default: ``seed`` for
         every sample), from a generator of its own, so the batched output
         is the per-item output. `noise`: one __call__-style dict per sample
-        (or None), handing in that sample's draws."""
+        (or None), handing in that sample's draws.
+
+        On a mesh the batch shards over (data, fsdp): a ragged batch is
+        padded to a multiple of the shards by repeating its last sample
+        (image, mask, words, seed, noise, embeddings), each data rank
+        generates its contiguous slice (the tensor ranks of a data group the
+        same slice, together), and the images are all-gathered over the data
+        axis, so that every rank returns the whole batch, padding dropped."""
         cfgp = self.pipe_cfg
         steps = num_inference_steps or cfgp.num_inference_steps
         guidance_scale = cfgp.guidance_scale if guidance_scale is None else guidance_scale
@@ -413,7 +427,6 @@ class FillPipeline:
             raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
         overshoot_c = cfgp.overshoot_c if overshoot_c is None else overshoot_c
         width, height = (width // 16) * 16, (height // 16) * 16
-        dev = self.device
 
         b = len(images)
         seeds = [int(x) for x in (seeds if seeds is not None else [seed] * b)]
@@ -421,7 +434,41 @@ class FillPipeline:
         if not len(seeds) == len(masks) == len(words_list) == len(noise) == b:
             raise ValueError(f"{b} images, {len(masks)} masks, {len(words_list)} word "
                              f"lists, {len(seeds)} seeds, {len(noise)} noise entries")
+        kw = dict(height=height, width=width, steps=steps, guidance_scale=guidance_scale,
+                  sampler=sampler, overshoot_c=overshoot_c, dtype=dtype,
+                  seq_pad_multiple=seq_pad_multiple)
+        mesh = self.mesh
+        if mesh is None or mesh.batch_shards == 1:
+            out = self._generate(images, masks, words_list, seeds, noise, text_embeds, **kw)
+            return improc.postprocess_image(out.cpu().numpy())
 
+        from textflux_torch.parallel import partitioning as PT
+
+        shards = mesh.batch_shards
+        n = b + (-b) % shards
+
+        def padded(xs):
+            xs = list(xs)
+            return xs + xs[-1:] * (n - b)
+
+        images, masks, words_list, seeds, noise = map(
+            padded, (images, masks, words_list, seeds, noise))
+        if text_embeds is not None:
+            text_embeds = tuple(torch.cat([t] + [t[-1:]] * (n - b))
+                                for t in (torch.as_tensor(x) for x in text_embeds))
+        part = slice(mesh.batch_rank * n // shards, (mesh.batch_rank + 1) * n // shards)
+        out = self._generate(
+            images[part], masks[part], words_list[part], seeds[part], noise[part],
+            None if text_embeds is None else tuple(t[part] for t in text_embeds), **kw)
+        return improc.postprocess_image(PT.all_gather_batch(out, mesh)[:b].cpu().numpy())
+
+    def _generate(self, images, masks, words_list, seeds, noise, text_embeds, *, height: int,
+                  width: int, steps: int, guidance_scale: float, sampler: str, overshoot_c,
+                  dtype, seq_pad_multiple) -> torch.Tensor:
+        """generate_batch on this rank's samples: the decoded images, float32
+        (B, H, W, 3) on the device, before ``postprocess_image``."""
+        dev = self.device
+        b = len(images)
         img = torch.as_tensor(np.concatenate(
             [improc.preprocess_image(im, height, width) for im in images]), device=dev).to(dtype)
         mask = torch.as_tensor(np.concatenate(
@@ -457,9 +504,54 @@ class FillPipeline:
             step_noise=step_noise, generator=generators)
         # decoded per sample: cuDNN picks its convolution algorithms by
         # shape, so a batched decode's rows differ from a single-item call's
-        images_np = np.concatenate([self._decode(latents[i:i + 1], lat_h, lat_w).float()
-                                    .cpu().numpy() for i in range(b)])
-        return improc.postprocess_image(images_np)
+        return torch.cat([self._decode(latents[i:i + 1], lat_h, lat_w).float()
+                          for i in range(b)])
+
+    # ------------------------------------------------------------------
+    # multi-GPU serving
+    # ------------------------------------------------------------------
+
+    def shard_for_serving(self, mesh, quantize: Union[bool, str] = False,
+                          quantize_min_size: Optional[int] = None) -> None:
+        """Serve over `mesh` (``parallel.partitioning.make_mesh``), the
+        port of the JAX package's ``shard_for_serving``: with a tensor axis
+        tp > 1 the DiT (whole on this rank) is permuted device-major
+        (``tp_permute_flux_params``) and sliced to this rank's shard
+        (``shard_module``), in place; batches shard over (data, fsdp); VAE,
+        CLIP and T5 stay whole on every rank. ``quantize`` (False, True =
+        "weight_only", or a mode of ``io.quantize``) quantises the DiT after
+        the permutation (the order NF4 needs, its packed input rows cannot
+        be permuted). A pipeline already permuted for another tp raises:
+        reload the checkpoint."""
+        from textflux_torch.io.quantize import check_mode, quantize_tree
+        from textflux_torch.parallel import partitioning as PT
+
+        PT.check_serving_mesh(mesh)
+        if mesh.device.type != self.device.type or (
+                None not in (mesh.device.index, self.device.index)
+                and mesh.device.index != self.device.index):
+            raise ValueError(f"the mesh's device {mesh.device} is not the pipeline's "
+                             f"{self.device}")
+        if self.flux is None:
+            raise ValueError("the DiT is not loaded: call load_transformer() first")
+        mode = (check_mode(quantize if isinstance(quantize, str) else "weight_only")
+                if quantize else None)
+        tp, flux = mesh.tensor, self.flux
+        if flux.tp_layout not in (1, tp):
+            raise ValueError(f"pipeline already tensor-permuted for tp={flux.tp_layout}; "
+                             f"reload the checkpoint to serve at tp={tp}")
+        if flux.tp_rank is not None:
+            if flux.tp_rank != mesh.tensor_rank or mode:
+                raise ValueError("the DiT already holds a shard: reload the checkpoint to "
+                                 "shard or quantise it anew")
+        elif tp > 1:
+            if flux.tp_layout == 1:
+                transformer.tp_permute_flux_params(flux, tp)
+            PT.shard_module(flux, PT.flux_param_specs(self.flux_cfg), mesh, quantize=mode,
+                            min_size=quantize_min_size)
+        elif mode:
+            quantize_tree(flux, mode=mode, min_size=quantize_min_size)
+        self.mesh = mesh
 
     # ------------------------------------------------------------------
     # loading
@@ -477,6 +569,7 @@ class FillPipeline:
         quantize: Union[bool, str] = False,
         quantize_t5: Optional[bool] = None,
         defer_transformer: bool = False,
+        mesh=None,
         pipe_cfg: PipelineConfig = PipelineConfig(),
         attn_impl: str = "auto",
         device="cuda",
@@ -499,9 +592,18 @@ class FillPipeline:
         weight-only the same way. A quantised model stays quantised on the
         device.
 
+        ``mesh`` (``parallel.partitioning.make_mesh``; every rank calls this
+        with the same arguments): the pipeline serves on the mesh's device
+        (``device`` is not read), and with a tensor axis tp > 1 each rank
+        loads only its shard of the DiT, permuted device-major and (with
+        ``quantize``) quantised on the way in (``io.params.load_flux_shard``;
+        a LoRA folds into each whole tensor before the slice); deferred too.
+        VAE, CLIP and T5 load whole on every rank.
+
         ``load_stats`` records each component's load seconds, checkpoint
         bytes and ``device_bytes``, what its module holds on the device
-        (the quantised bytes of a quantised component)."""
+        (the quantised bytes of a quantised component; a rank's shard of
+        a tensor-parallel DiT)."""
         from textflux_torch.io.config_io import (clip_config_from, flux_config_from,
                                                  t5_config_from, vae_config_from)
         from textflux_torch.io.lora import load_folded_flux_transformer, resolve_lora_path
@@ -514,6 +616,11 @@ class FillPipeline:
             if quantize else None
         t5_mode = "weight_only" if (bool(quantize) if quantize_t5 is None else quantize_t5) \
             else None
+        if mesh is not None:
+            from textflux_torch.parallel.partitioning import check_serving_mesh
+
+            check_serving_mesh(mesh)
+            device = mesh.device
         dev = resolve_device(device)
         t_path = transformer_path or os.path.join(base_path, "transformer")
         flux_cfg = flux_config_from(t_path)
@@ -532,11 +639,11 @@ class FillPipeline:
         def load_flux():
             if lora_path is None:
                 return timed("transformer", [t_path], lambda: load_flux_transformer(
-                    t_path, flux_cfg, dtype=dtype, device=dev, quantize=flux_mode))
+                    t_path, flux_cfg, dtype=dtype, device=dev, quantize=flux_mode, mesh=mesh))
             return timed("transformer", [t_path, resolve_lora_path(lora_path)],
                          lambda: load_folded_flux_transformer(
                              t_path, lora_path, flux_cfg, scale=lora_scale, dtype=dtype,
-                             device=dev, quantize=flux_mode))
+                             device=dev, quantize=flux_mode, mesh=mesh))
 
         flux = None if defer_transformer else load_flux()
         parts = {}
@@ -549,7 +656,8 @@ class FillPipeline:
         clip_tok, t5_tok = load_tokenizers(base_path,
                                            max_t5_length=pipe_cfg.max_sequence_length)
         pipe = cls(flux=flux, flux_cfg=flux_cfg, **parts, clip_tokenize=clip_tok,
-                   t5_tokenize=t5_tok, pipe_cfg=pipe_cfg, attn_impl=attn_impl, device=dev)
+                   t5_tokenize=t5_tok, pipe_cfg=pipe_cfg, attn_impl=attn_impl, device=dev,
+                   mesh=mesh)
         pipe.load_stats = stats
         if defer_transformer:
             pipe._deferred_flux = load_flux
@@ -563,8 +671,9 @@ class FillPipeline:
         self.t5 = None
 
     def load_transformer(self) -> None:
-        """Load the DiT deferred by from_pretrained(defer_transformer=True),
-        half-permuting it for the fused attention path."""
+        """Load the DiT deferred by from_pretrained(defer_transformer=True)
+        (this rank's shard on a mesh with a tensor axis), half-permuting it
+        for the fused attention path."""
         if self.flux is not None:
             return
         if not hasattr(self, "_deferred_flux"):
