@@ -116,6 +116,26 @@ Phases, in order; any failure exits non-zero:
      one NCCL rank. Two ranks share the card over gloo, as NCCL refuses
      two ranks on one device: their step times go through the host and
      are no multi-GPU number.
+ 14. fsdp_train: training over the fsdp axis, 2 ranks on the one card over
+     gloo (this script started again with --fsdp-child): first the
+     collectives FSDP2 calls (all_gather_into_tensor, reduce_scatter_tensor)
+     on CUDA tensors of a block's size; then --mode lora (rank 128, AdamW)
+     through textflux_torch.cli.train.main at full depth on phase 7's
+     checkpoint (written here when no earlier phase did), mesh (1, 2, 1),
+     2 steps of a global batch of 2 at 1024 px (joint 4,224, a row a rank),
+     each rank loading its FSDP slice of the DiT from the files, the export
+     checked by a sink that writes nothing: per rank the DiT bytes, the
+     peak, the card in use, launches per step (114/0/57/57) and the FSDP
+     all-gathers and reduce-scatters of a step (torch.profiler's FSDP
+     ranges); then at full width and 2 + 4 blocks --mode attn with AdamW
+     and 8-bit AdamW and --mode all with 8-bit AdamW through train_full,
+     2 steps each, held against one rank on the same whole batch (loss,
+     grad norm, the trained tensors' change, frozen and masked elements
+     bitwise, each rank's masters and optimizer state half the one
+     rank's); and each rank's bytes at full depth reckoned from the
+     sharding plan at fsdp 1, 2 and 4, checked against the reduced runs'
+     measured bytes. The ranks' step times go through the host (gloo):
+     no multi-GPU number.
 Phase 3 runs every kernel at its path's shapes, at the JAX package's
 multi-line serving shape (S = 8704) and, for the fused kernel, at a
 tensor-parallel rank's 12 and 6 heads. It also holds the four training
@@ -155,7 +175,7 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BF16_TOL = 2e-2              # unit-scale inputs, bf16 rounding of q/k/p/out
 PHASES = ("device", "build", "kernels", "main", "profile", "train", "checkpoint",
-          "train_main", "quantized", "qlora", "eval", "train_full", "tp_serve")
+          "train_main", "quantized", "qlora", "eval", "train_full", "tp_serve", "fsdp_train")
 
 
 def log(msg: str) -> None:
@@ -3173,11 +3193,13 @@ def tp_child(spec_path: str) -> int:
     return 0
 
 
-def _run_ranks(work: str, role: str, world: int, **spec) -> list:
-    """`world` tp_child processes of `role` on the card, each with its own
-    log under `work`; waits up to TP_TIMEOUT or until a rank fails, kills
-    every one still alive then, and fails the phase (with each log's tail)
-    if a rank failed."""
+def _run_ranks(work: str, role: str, world: int, *, child: str = "--tp-child",
+               phase: str = "tp_serve", timeout: float = TP_TIMEOUT, **spec) -> list:
+    """`world` processes of this script (`child`: --tp-child or
+    --fsdp-child) in `role` on the card, each with its own log under
+    `work`; waits up to `timeout` or until a rank fails, kills every one
+    still alive then, and fails the phase (with each log's tail) if a rank
+    failed."""
     import socket
 
     with socket.socket() as sock:
@@ -3193,9 +3215,9 @@ def _run_ranks(work: str, role: str, world: int, **spec) -> list:
             logs.append(open(base + ".log", "w"))
             outs.append(base)
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--tp-child", base + ".spec.json"],
+                [sys.executable, os.path.abspath(__file__), child, base + ".spec.json"],
                 cwd=REPO, stdout=logs[-1], stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + TP_TIMEOUT
+        deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
             if any(p.poll() not in (None, 0) for p in procs):
                 break   # a rank failed: the others may be waiting in a collective
@@ -3211,14 +3233,15 @@ def _run_ranks(work: str, role: str, world: int, **spec) -> list:
     if failed:
         for r in failed:
             with open(outs[r] + ".log") as f:
-                log(f"tp_serve {role} rank {r} (exit {procs[r].returncode}), log tail:\n"
+                log(f"{phase} {role} rank {r} (exit {procs[r].returncode}), log tail:\n"
                     + f.read()[-6000:])
-        raise AssertionError(f"tp_serve: {role} ranks {failed} failed")
+        raise AssertionError(f"{phase}: {role} ranks {failed} failed")
     results = []
     for base in outs:
         with open(base + ".json") as f:
             rec = json.load(f)
-        rec["arrays"] = dict(np.load(base + ".npz"))
+        if os.path.exists(base + ".npz"):
+            rec["arrays"] = dict(np.load(base + ".npz"))
         results.append(rec)
     return results
 
@@ -3341,6 +3364,633 @@ def phase_tp_serve(smi: str, have_checkpoint: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. fsdp_train: training over the fsdp axis, ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+FSDP_WORLD = 2
+FSDP_STEPS = 2
+FSDP_TIMEOUT = 1000            # seconds a group of ranks may take, loads included
+# 2 ranks against one rank on the same global batch of 2, same card, bf16:
+# each rank's gradient is reduced in float32 from its own row's bf16
+# products (one batch of 2 on one rank rounds them together), so
+FSDP_LOSS_RTOL = 1e-3          # the loss (the ranks' mean) relative
+FSDP_NORM_RTOL = 1e-2          # the global grad norm relative
+FSDP_DELTA_RTOL = 0.03         # the trained tensors' change p - p0, relative L2
+# Adam's eps in the reduced runs: at the default 1e-8 every element steps by
+# ~lr whatever its gradient's size (|g| ~ 4e-6 here), so a gradient that
+# cancels to near zero and comes out with the other sign (two rows' bf16
+# gradients summed in float32 on two ranks, one batch's on one) moves a
+# whole step the other way: 3.8-4.1% relative L2 of p - p0 on an H100 80GB
+# HBM3 at 700 W (PERF.md §6). At 1e-5 a step is lr * g / (|g| + 1e-5), smooth
+# in g, so the change measures the gradients' agreement, as
+# tests/test_torch_full_train.py holds its Adam steps to JAX's
+FSDP_ADAM_EPS = 1e-5
+FSDP_HALF_RTOL = 0.01          # a rank's masters / optimizer state: half the one rank's
+FSDP_RECKON_RTOL = 0.01        # the reckoning against the measured bytes
+FSDP_REDUCED_RUNS = (("attn", "adamw"), ("attn", "adamw8bit"), ("all", "adamw8bit"))
+FSDP_RECKON_RUNS = (("lora", "adamw"), ("attn", "adamw8bit"), ("attn", "adamw"),
+                    ("all", "adamw8bit"))
+FSDP_MAIN_ITEMS = (("ori_0001.png", "OPEN", (102, 128, 409, 256)),
+                   ("ori_0001.png", "SALE", (102, 128, 409, 256)))   # one bucket: a batch of 2
+
+
+def _local_checksums(model, masks) -> dict:
+    """full_checksums over each parameter's local slice (the whole tensor
+    when it is not sharded), its mask cut to match."""
+    from textflux_torch.parallel import partitioning as PT
+    from textflux_torch.training.train import _local_mask
+
+    out = {"frozen": {}, "trained": {}, "masked": {}}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            x = PT.local(p.detach())
+            if name not in masks:
+                out["frozen"][name] = param_checksum(x)
+                continue
+            m = _local_mask(masks[name], p, PT.shard_spec(p))
+            if m is None:
+                out["trained"][name] = param_checksum(x)
+                continue
+            keep = torch.broadcast_to(m != 0, x.shape)
+            out["trained"][name] = param_checksum(x[keep])
+            if not bool(keep.all()):
+                out["masked"][name] = param_checksum(x[~keep])
+    return out
+
+
+def _local_bytes(model, names, opt) -> dict:
+    """Device bytes a rank holds of the training state, by part: each
+    parameter's local slice (trained masters, frozen weights), the local
+    gradients and the optimizer's local state."""
+    from textflux_torch.parallel import partitioning as PT
+    from textflux_torch.training.optim8bit import state_bytes
+
+    def size(t):
+        t = PT.local(t)
+        return t.numel() * t.element_size()
+
+    params = dict(model.named_parameters())
+    inner = getattr(opt, "opt", None)
+    return dict(
+        master_bytes=sum(size(params[k]) for k in names),
+        frozen_bytes=sum(size(p) for k, p in params.items() if k not in names),
+        grad_bytes=sum(size(p.grad) for p in params.values() if p.grad is not None),
+        optimizer_state_bytes=state_bytes(dict(inner.state) if inner is not None
+                                          else opt.state))
+
+
+def fsdp_reckoning(cfg, mode: str, optimizer: str, n: int, lora_rank: int = 128) -> dict:
+    """Bytes one of `n` fsdp ranks holds of the training state, from the
+    sharding plan alone (a DiT of `cfg` on the meta device): each
+    parameter's local slice (torch.chunk's first, largest share; nn.Linear
+    weights split along dim 1, every other tensor along dim 0) in its dtype
+    (float32 masters, bf16 frozen weights), a float32 gradient per trained
+    slice, and the optimizer's state per local element (AdamW: two float32
+    moments and a step; 8-bit AdamW: two int8 codes and a float32 scale per
+    256-block, per JAX leaf, a leaf whose slices are not whole blocks kept
+    whole; Prodigy is not reckoned). LoRA: the frozen bf16 base and rank
+    `lora_rank` float32 factors."""
+    from torch import nn
+
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.training import optim8bit as O
+    from textflux_torch.training import train as TR
+
+    model = FluxTransformer(cfg, device="meta", dtype=torch.bfloat16)
+    if mode == "lora":
+        TR.lora_insert(model, TR.lora_init(model, lora_rank, device="meta"), 1.0)
+        trained = {n_ for n_, p in model.named_parameters() if p.requires_grad}
+    else:
+        trained = set(TR.trainable_mask(model, TR.TrainConfig(mode=mode)))
+    weights = {id(m.weight) for m in model.modules() if isinstance(m, nn.Linear)}
+
+    def chunk(p):
+        dim = 1 if id(p) in weights else 0
+        size = p.shape[dim]
+        c = -(-size // n)
+        return dim, c, [(min(r * c, size), min((r + 1) * c, size)) for r in range(n)]
+
+    out = dict(master_bytes=0, frozen_bytes=0, grad_bytes=0, optimizer_state_bytes=0)
+    leaves = {}
+    for name, p in model.named_parameters():
+        dim, c, parts = chunk(p)
+        local = p.numel() // p.shape[dim] * (parts[0][1] - parts[0][0])
+        if name not in trained:
+            out["frozen_bytes"] += 2 * local
+            continue
+        out["master_bytes"] += 4 * local
+        out["grad_bytes"] += 4 * local
+        if optimizer == "adamw":
+            out["optimizer_state_bytes"] += 8 * local + 4
+            continue
+        key, _, transpose = TR.jax_leaf(name)
+        inner = p.numel() // p.shape[dim]
+        runs_whole = all((a * inner) % O.BLOCK == 0 and (b * inner) % O.BLOCK == 0
+                         for a, b in parts)
+        leaf = leaves.setdefault(key, dict(local=True, local_numel=0, numel=0))
+        leaf["local"] &= runs_whole
+        leaf["local_numel"] += local
+        leaf["numel"] += p.numel()
+    for leaf in leaves.values():
+        blocks = O.n_blocks(leaf["local_numel"] if leaf["local"] else leaf["numel"])
+        out["optimizer_state_bytes"] += 2 * blocks * (O.BLOCK + 4)
+    out["total_bytes"] = sum(out.values())
+    return out
+
+
+def _two_row_batch() -> dict:
+    """A whole batch of 2 at 1024 px: the training sample and its mirror
+    image (so the two rows differ)."""
+    s = training_sample()
+    return {"pixel_values": np.concatenate([s["pixel_values"],
+                                            s["pixel_values"][:, :, :, ::-1]], axis=1),
+            "mask": np.concatenate([s["mask"], s["mask"][:, :, :, ::-1]], axis=1),
+            "prompts": s["prompts"] * 2, "clip_prompts": s["clip_prompts"] * 2}
+
+
+def _fsdp_run(mode, optimizer, models, batch, mesh, keep_delta: bool) -> dict:
+    """FSDP_STEPS steps of train_full at full width and
+    TRAIN_FULL_REDUCED_DEPTH (weights from seed 0, bf16; train_full makes
+    the trained ones float32 masters), sharded over `mesh` or (None) on
+    this rank alone; with `keep_delta`, every trained tensor's change
+    gathered whole to the host."""
+    from textflux_torch.cli.train import train_full
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.ops import flash_attention as FA
+    from textflux_torch.parallel import partitioning as PT
+    from textflux_torch.training import train as TR
+
+    vae, clip, t5 = models
+    n_double, n_single = TRAIN_FULL_REDUCED_DEPTH
+    cfg = dataclasses.replace(flux_fill_config(), num_double_layers=n_double,
+                              num_single_layers=n_single)
+    flux = FluxTransformer(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    tc = TR.TrainConfig(mode=mode, optimizer=optimizer, adam_eps=FSDP_ADAM_EPS)
+    masks = TR.trainable_mask(flux, tc)
+    p0 = ({n: p.detach().float().cpu() for n, p in flux.named_parameters() if n in masks}
+          if keep_delta else None)
+    seen, counts, ms = {}, [], []
+    t = [None]
+
+    def batches():
+        while True:
+            torch.cuda.synchronize()
+            t[0] = time.perf_counter()
+            yield batch
+
+    def on_step(step, metrics, model):
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t[0]))
+        counts.append({k: getattr(FA, k).launches for k in FLASH_KERNELS})
+
+    orig = TR.make_optimizer
+
+    def keep_opt(tc_, params, masks_=None):
+        seen["opt"] = orig(tc_, params, masks_)
+        seen["before"] = _local_checksums(flux, masks)
+        return seen["opt"]
+
+    for k in FLASH_KERNELS:
+        getattr(FA, k).launches = 0
+    TR.make_optimizer = keep_opt
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flux, history = train_full(flux, vae, clip, t5, batches(), tc=tc,
+                                   clip_tokenize=clip_byte_tokenize,
+                                   t5_tokenize=t5_byte_tokenize, steps=FSDP_STEPS, seed=0,
+                                   log_every=1, on_step=on_step, mesh=mesh)
+    finally:
+        TR.make_optimizer = orig
+    torch.cuda.synchronize()
+    prev, by_step = {k: 0 for k in FLASH_KERNELS}, []
+    for c in counts:
+        by_step.append({k: c[k] - prev[k] for k in FLASH_KERNELS})
+        prev = c
+    r = dict(mode=mode, optimizer=optimizer, adam_eps=tc.adam_eps,
+             fsdp=None if mesh is None else mesh.shape["fsdp"],
+             loss=[e["loss"] for e in history], grad_norm=[e["grad_norm"] for e in history],
+             step_ms=ms, launches_per_step=by_step,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             bytes=_local_bytes(flux, set(masks), seen["opt"]),
+             checksums=_checksum_report(seen["before"], _local_checksums(flux, masks)))
+    delta = None
+    for name, p in flux.named_parameters():   # every rank: a sharded tensor is gathered
+        if name in masks:
+            whole = PT.full_tensor(p, host=True).float().cpu()
+            if keep_delta:
+                delta = {} if delta is None else delta
+                delta[name] = whole - p0[name]
+    del flux, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r, delta
+
+
+def _fsdp_reduced(spec, mesh, rank) -> dict:
+    """Each of FSDP_REDUCED_RUNS over the mesh, then (rank 0, the other
+    ranks waiting) on rank 0 alone on the same whole batch: the agreement
+    (loss, grad norm, the trained tensors' change) and the halved bytes."""
+    import torch.distributed as dist
+
+    from textflux_torch.config import clip_l_config, flux_vae_config, t5_xxl_config
+    from textflux_torch.models.clip import CLIPTextModel
+    from textflux_torch.models.t5 import T5Encoder
+    from textflux_torch.models.vae import FluxVAE
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt = torch.bfloat16
+    models = (FluxVAE(flux_vae_config(), device="cuda", dtype=dt, generator=gen),
+              CLIPTextModel(clip_l_config(), device="cuda", dtype=dt, generator=gen),
+              T5Encoder(t5_xxl_config(), device="cuda", dtype=dt, generator=gen))
+    batch = _two_row_batch()
+    out = {}
+    for mode, optimizer in FSDP_REDUCED_RUNS:
+        name = f"{mode}_{optimizer}"
+        sharded, delta = _fsdp_run(mode, optimizer, models, batch, mesh, keep_delta=rank == 0)
+        rec = dict(sharded=sharded)
+        dist.barrier()
+        if rank == 0:
+            single, ref = _fsdp_run(mode, optimizer, models, batch, None, keep_delta=True)
+            num = sum(float((delta[k] - ref[k]).square().sum()) for k in ref)
+            den = sum(float(ref[k].square().sum()) for k in ref)
+            flips = sum(int((torch.sign(delta[k]) * torch.sign(ref[k]) < 0).sum()) for k in ref)
+            rec.update(single=single, delta_rel_l2=(num / den) ** 0.5,
+                       sign_flip_share=flips / sum(ref[k].numel() for k in ref),
+                       loss_rel=[abs(a - b) / abs(b) for a, b in
+                                 zip(sharded["loss"], single["loss"])],
+                       grad_norm_rel=[abs(a - b) / abs(b) for a, b in
+                                      zip(sharded["grad_norm"], single["grad_norm"])],
+                       bytes_ratio={k: sharded["bytes"][k] / single["bytes"][k]
+                                    for k in ("master_bytes", "optimizer_state_bytes")})
+            del delta, ref
+            gc.collect()
+        dist.barrier()
+        out[name] = rec
+    return out
+
+
+class _FsdpMainRecorder:
+    """Instruments one cli.train.main() run over the mesh in a rank, while
+    the block runs: each step's host seconds (synchronised) and flash
+    launches, the FSDP all-gathers and reduce-scatters of the second step
+    (torch.profiler's FSDP::all_gather / FSDP::post_backward_reduce
+    ranges, CPU activity only), the sharded DiT load (seconds and the
+    rank's bytes), the device in use after the last step, and the LoRA
+    export through a sink that checks it and writes nothing."""
+
+    def __init__(self):
+        self.seconds, self.counts, self.collectives = [], [], None
+        self.load, self.export, self.in_use = {}, None, None
+        self._undo = []
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._undo.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        from textflux_torch.io import export as E
+        from textflux_torch.io import params as P
+        from textflux_torch.ops import flash_attention as FA
+        from textflux_torch.parallel import partitioning as PT
+        from textflux_torch.training import train as TR
+
+        def make_step(orig):
+            def make(tc, **kw):
+                step = orig(tc, **kw)
+
+                def timed(*a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if len(self.seconds) == 1:
+                        with profile(activities=[ProfilerActivity.CPU]) as prof:
+                            metrics = step(*a, **k)
+                            torch.cuda.synchronize()
+                        names = [e.name for e in prof.events()]
+                        self.collectives = dict(
+                            all_gather=sum(n.startswith("FSDP::all_gather") and
+                                           not n.startswith("FSDP::all_gather_copy_out")
+                                           for n in names),
+                            reduce_scatter=sum(n.startswith("FSDP::post_backward_reduce")
+                                               for n in names))
+                    else:
+                        metrics = step(*a, **k)
+                    torch.cuda.synchronize()
+                    self.seconds.append(time.perf_counter() - t0)
+                    self.counts.append({n: getattr(FA, n).launches for n in FLASH_KERNELS})
+                    free, total = torch.cuda.mem_get_info()
+                    self.in_use = total - free
+                    return metrics
+                return timed
+            return make
+
+        def load(orig):
+            def timed(path, cfg, mesh, **kw):
+                t0 = time.perf_counter()
+                module = orig(path, cfg, mesh, **kw)
+                torch.cuda.synchronize()
+                sizes = {n: PT.local(p).numel() * p.element_size()
+                         for n, p in module.named_parameters()}
+                self.load = dict(seconds=time.perf_counter() - t0,
+                                 dit_bytes=sum(v for n, v in sizes.items() if ".lora_" not in n),
+                                 lora_bytes=sum(v for n, v in sizes.items() if ".lora_" in n))
+                return module
+            return timed
+
+        def sink(sd, path, dtype=None):
+            self.export = dict(path=os.path.relpath(path, REPO), keys=len(sd),
+                               bytes_it_would_write=sum(v.numel() * v.element_size()
+                                                        for v in sd.values()),
+                               nonfinite=[k for k, v in sd.items()
+                                          if not bool(torch.isfinite(v).all())][:5],
+                               bytes_written=0)
+            return 0
+
+        self._patch(TR, "make_train_step", make_step)
+        self._patch(P, "load_flux_fsdp", load)
+        self._patch(E, "save_safetensors", lambda orig: sink)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+
+    def per_step_launches(self) -> list:
+        prev, out = {n: 0 for n in FLASH_KERNELS}, []
+        for c in self.counts:
+            out.append({n: c[n] - prev[n] for n in FLASH_KERNELS})
+            prev = c
+        return out
+
+
+def _fsdp_lora_main(spec, rank) -> dict:
+    """--mode lora (rank 128, AdamW, the reference's targets) through
+    cli.train.main at full depth on the checkpoint under CKPT_DIR, over the
+    default mesh (1, world, 1): a global batch of 2, a row a rank."""
+    from textflux_torch.cli import train as CLI
+
+    out_dir = os.path.join(spec["work"], "lora_out")
+    argv = ["--model", CKPT_DIR, "--data-json", spec["data_json"],
+            "--data-images", os.path.join(EXAMPLE, "ori"), "--mode", "lora",
+            "--lora-rank", "128", "--lora-alpha", "128", "--optimizer", "adamw",
+            "--learning-rate", "1e-4", "--resolution", str(TRAIN_RESOLUTION),
+            "--train-batch-size", str(FSDP_WORLD), "--grad-accum", "1",
+            "--max-train-steps", str(FSDP_STEPS), "--checkpointing-steps", str(FSDP_STEPS + 1),
+            "--log-every", "1", "--seed", "0", "--output-dir", out_dir]
+    torch.cuda.reset_peak_memory_stats()
+    with byte_tokenizers(f"fsdp_train rank {rank}"), _FsdpMainRecorder() as rec:
+        CLI.main(argv)
+    r = dict(load=rec.load, step_seconds=rec.seconds, launches_per_step=rec.per_step_launches(),
+             collectives_step2=rec.collectives, export=rec.export,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             device_in_use_bytes=rec.in_use, device_total_bytes=torch.cuda.mem_get_info()[1])
+    if rank == 0:
+        log_ = _train_log(out_dir)
+        r.update(steps=[e["step"] for e in log_], loss=[e["loss"] for e in log_],
+                 grad_norm=[e["grad_norm"] for e in log_])
+    return r
+
+
+def _fsdp_probe(world, rank) -> dict:
+    """all_gather_into_tensor (bf16, the size of a full-width single
+    block's parameters) and reduce_scatter_tensor (float32, FSDP's reduce
+    dtype) over gloo on CUDA tensors: what FSDP2 calls."""
+    import torch.distributed as dist
+
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.models.transformer import SingleBlock
+
+    cfg = flux_fill_config()
+    n = sum(p.numel() for p in SingleBlock(cfg, device="meta", dtype=torch.bfloat16,
+                                           generator=None).parameters())
+    n -= n % world
+    out = {"elements": n}
+    for name, dt, fn in (
+            ("all_gather_into_tensor", torch.bfloat16,
+             lambda x, y: dist.all_gather_into_tensor(y, x)),
+            ("reduce_scatter_tensor", torch.float32,
+             lambda x, y: dist.reduce_scatter_tensor(x, y))):
+        small = torch.full((n // world,), float(rank + 1), device="cuda", dtype=dt)
+        big = torch.full((n,), float(rank + 1), device="cuda", dtype=dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            fn(small, big)
+        except RuntimeError as e:   # gloo refuses before any transfer, on every rank
+            out[name] = dict(ok=False, error=f"{type(e).__name__}: {str(e)[:300]}")
+            continue
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        if name == "all_gather_into_tensor":
+            ok = bool((big[: n // world] == 1).all() and (big[-1] == world))
+        else:
+            ok = bool((small == world * (world + 1) / 2).all())
+        out[name] = dict(ok=ok, seconds=s, gb_per_s=n * big.element_size() / s / 1e9,
+                         dtype=str(dt))
+        del small, big
+    return out
+
+
+def fsdp_child(spec_path: str) -> int:
+    """One rank of the fsdp_train phase (``--fsdp-child``), in one process
+    for the whole phase: "train" joins a gloo group on cuda:0 (NCCL
+    refuses two ranks on one device), probes the collectives FSDP2 calls
+    and, when they work, runs full-depth LoRA through cli.train.main, then
+    the reduced-depth modes against one rank; "reduced" is the fallback,
+    the reduced modes as one NCCL rank. Writes its record beside the spec."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from textflux_torch.parallel import partitioning as PT
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = spec["rank"], spec["world"]
+    if spec.get("backend") == "nccl":   # the fallback: one NCCL rank, as torchrun starts it
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(spec["port"]))
+    else:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                                rank=rank, world_size=world,
+                                timeout=timedelta(seconds=FSDP_TIMEOUT))
+    rec = dict(role=spec["role"], rank=rank, world=world)
+    if spec["role"] == "train":
+        rec["probe"] = _fsdp_probe(world, rank)
+    if spec["role"] == "reduced" or all(rec["probe"][k]["ok"] for k in (
+            "all_gather_into_tensor", "reduce_scatter_tensor")):
+        if spec["role"] == "train":
+            rec["lora"] = _fsdp_lora_main(spec, rank)
+            gc.collect()
+            torch.cuda.empty_cache()
+        mesh = PT.make_mesh((1, world, 1), device="cuda:0")
+        rec.update(backend=dist.get_backend(), reduced=_fsdp_reduced(spec, mesh, rank))
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(spec["out"] + ".json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _fsdp_problems(name: str, r: dict) -> list:
+    problems = []
+    s, o = r["sharded"], r.get("single")
+    if not all(np.isfinite(s["loss"])) or not all(np.isfinite(s["grad_norm"])):
+        problems.append(f"{name}: non-finite loss or grad norm")
+    c = s["checksums"]
+    if c["frozen_changed"] or c["masked_changed"] or not c["trained"] or c["trained_unmoved"]:
+        problems.append(f"{name}: frozen changed {c['frozen_changed'][:3]}, masked changed "
+                        f"{c['masked_changed'][:3]}, unmoved {c['trained_unmoved'][:3]}")
+    if o is None:
+        return problems
+    if max(r["loss_rel"]) > FSDP_LOSS_RTOL or max(r["grad_norm_rel"]) > FSDP_NORM_RTOL:
+        problems.append(f"{name}: loss rel {r['loss_rel']}, grad norm rel {r['grad_norm_rel']}")
+    if not r["delta_rel_l2"] <= FSDP_DELTA_RTOL:
+        problems.append(f"{name}: change rel-L2 {r['delta_rel_l2']}")
+    for k, v in r["bytes_ratio"].items():
+        if abs(v * FSDP_WORLD - 1) > FSDP_HALF_RTOL:
+            problems.append(f"{name}: a rank's {k} is {v:.4f} of one rank's")
+    return problems
+
+
+def phase_fsdp_train(smi: str, have_checkpoint: bool) -> dict:
+    """Phase 14. Training over the fsdp axis: FSDP_WORLD ranks on the one
+    card over gloo (this script again, --fsdp-child): the collectives FSDP2
+    calls, probed first on CUDA tensors; --mode lora (rank 128, AdamW)
+    through cli.train.main at full depth on phase 7's checkpoint (written
+    here when no earlier phase did), FSDP_STEPS steps of a global batch of
+    2 at 1024 px; then at full width and 2 + 4 blocks, --mode attn with
+    AdamW and 8-bit AdamW and --mode all with 8-bit AdamW through
+    train_full, each held against one rank on the same whole batch; and the
+    bytes each rank holds at full depth reckoned from the sharding plan
+    (checked against the reduced runs' measured bytes). Should gloo lack a
+    collective on CUDA tensors, the reduced runs go through the FSDP path as
+    one NCCL rank instead, and the phase says so. Two ranks share one card:
+    every gathered weight goes through the host, so the step times are not a
+    multi-GPU number."""
+    from textflux_torch.config import flux_fill_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not have_checkpoint:
+        _, flux = write_checkpoint(load_manifest())
+        del flux
+        gc.collect()
+        torch.cuda.empty_cache()
+    work = os.path.join(CKPT_DIR, "fsdp_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    cfg = flux_fill_config()
+    blocks = cfg.num_double_layers + cfg.num_single_layers
+    per_step = {"flash_attention": 2 * blocks, "flash_attention_lse": 0,
+                "flash_attention_dq": blocks, "flash_attention_dkv": blocks}
+    # the root (embedders, head) is gathered once a step and kept for the
+    # backward; each block is gathered for its forward and again for its
+    # backward (remat's recompute runs inside that gather); LoRA trains no
+    # root tensor, so only the blocks reduce-scatter
+    expected_collectives = dict(all_gather=1 + 2 * blocks, reduce_scatter=blocks)
+    log(f"fsdp_train: {FSDP_WORLD} gloo ranks on cuda:0; expect {per_step} launches and "
+        f"{expected_collectives} FSDP collectives a step per rank (full depth, LoRA); reduced "
+        f"runs vs one rank: loss {FSDP_LOSS_RTOL}, grad norm {FSDP_NORM_RTOL}, change rel-L2 "
+        f"{FSDP_DELTA_RTOL}, halved bytes {FSDP_HALF_RTOL}")
+    out, problems = {}, []
+    ranks = partial(_run_ranks, work, child="--fsdp-child", phase="fsdp_train",
+                    timeout=FSDP_TIMEOUT)
+
+    data_json = os.path.join(work, "anyword.json")
+    with open(data_json, "w") as f:
+        json.dump({"data_list": [
+            {"img_name": name, "annotations": [
+                {"text": text, "polygon": [[x0, y0], [x1, y0], [x1, y1], [x0, y1]]}]}
+            for name, text, (x0, y0, x1, y1) in FSDP_MAIN_ITEMS]}, f)
+    trained = ranks("train", FSDP_WORLD, data_json=data_json)
+    out["probe"] = [r["probe"] for r in trained]
+    log("fsdp_train probe " + json.dumps(out["probe"]))
+    if "lora" not in trained[0]:
+        log("fsdp_train: gloo lacks a collective FSDP2 needs on CUDA tensors; the reduced "
+            "runs go through the FSDP path as one NCCL rank at (1, 1, 1)")
+        nccl = ranks("reduced", 1, backend="nccl")[0]
+        out["nccl_reduced"] = nccl["reduced"]
+        for name, r in nccl["reduced"].items():
+            log(f"fsdp_train nccl {name} " + json.dumps(r))
+            problems += _fsdp_problems(name, {"sharded": r["sharded"]})
+    else:
+        out["lora"] = []
+        for r in trained:
+            x = r["lora"]
+            x["card_in_use_note"] = "both ranks' processes and contexts, read by this rank"
+            x["step_seconds_note"] = ("2 ranks sharing one H100 over gloo: every gathered "
+                                      "weight goes through the host; not a multi-GPU number")
+            if x["launches_per_step"] != [per_step] * FSDP_STEPS:
+                problems.append(f"lora rank {r['rank']}: launches {x['launches_per_step']}")
+            if x["collectives_step2"] != expected_collectives:
+                problems.append(f"lora rank {r['rank']}: FSDP collectives "
+                                f"{x['collectives_step2']}, expected {expected_collectives}")
+            if r["rank"] == 0 and (x["steps"] != list(range(1, FSDP_STEPS + 1))
+                                   or not all(np.isfinite(x["loss"])) or not x["export"]
+                                   or x["export"]["nonfinite"]):   # rank 0 alone exports
+                problems.append(f"lora: steps {x['steps']}, loss {x['loss']}, export "
+                                f"{x['export']}")
+            out["lora"].append(x)
+            log(f"fsdp_train lora rank {r['rank']} " + json.dumps(x))
+        out["reduced"] = {}
+        for name in trained[0]["reduced"]:
+            r = trained[0]["reduced"][name]
+            r["rank1"] = trained[1]["reduced"][name]["sharded"]
+            log(f"fsdp_train {name} " + json.dumps(r))
+            problems += _fsdp_problems(name, r)
+            out["reduced"][name] = r
+
+    # the reckoning, checked at reduced depth against the measured bytes
+    n_double, n_single = TRAIN_FULL_REDUCED_DEPTH
+    reduced_cfg = dataclasses.replace(cfg, num_double_layers=n_double,
+                                      num_single_layers=n_single)
+    checks = {}
+    for name, r in (out.get("reduced") or {}).items():
+        mode, optimizer = name.split("_")
+        for label, n in (("sharded", FSDP_WORLD), ("single", 1)):
+            want = fsdp_reckoning(reduced_cfg, mode, optimizer, n)
+            got = r[label]["bytes"]
+            rel = {k: abs(want[k] - got[k]) / max(got[k], 1) for k in got}
+            checks[f"{name}_{label}"] = rel
+            if max(rel.values()) > FSDP_RECKON_RTOL:
+                problems.append(f"reckoning {name} {label}: {rel} (reckoned {want}, "
+                                f"measured {got})")
+    lora_rank0 = (out.get("lora") or [None])[0]
+    overhead = None
+    if lora_rank0:   # what a rank holds past its training state: encoders, activations, gathers
+        held = fsdp_reckoning(cfg, "lora", "adamw", FSDP_WORLD)["total_bytes"]
+        overhead = lora_rank0["max_memory_allocated"] - held
+    reckoning = {}
+    for mode, optimizer in FSDP_RECKON_RUNS:
+        for n in (1, 2, 4):
+            x = fsdp_reckoning(cfg, mode, optimizer, n)
+            if overhead is not None:
+                x["with_measured_overhead_bytes"] = x["total_bytes"] + overhead
+                x["fits_80gb_card"] = x["with_measured_overhead_bytes"] <= (
+                    torch.cuda.mem_get_info()[1])
+            reckoning[f"{mode}_{optimizer}_fsdp{n}"] = x
+    out.update(reckoning=reckoning, reckoning_checks=checks, overhead_bytes=overhead,
+               seconds=time.perf_counter() - t_phase)
+    log("fsdp_train reckoning " + json.dumps(dict(reckoning=reckoning, checks=checks,
+                                                  overhead_bytes=overhead)))
+    log(f"fsdp_train: {out['seconds']:.1f} s; {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    if problems:
+        raise AssertionError("fsdp_train phase: " + "; ".join(problems))
+    return out
+
+
 def _ckpt_launches(ckpt_rec) -> dict:
     if not ckpt_rec:
         return {}
@@ -3415,12 +4065,36 @@ FLASH_FUNCTIONS = {"flash_attention": _FWD,
                    "flash_attention_dkv": ("flash_dkv_sm90_kernel",)}
 
 
+def _fsdp_runs(fsdp_rec) -> dict:
+    """The fsdp_train phase's runs in _flash_entries' form: each rank of the
+    full-depth LoRA run and each reduced run's ranks (and its one-rank
+    reference), with their launches summed over the steps."""
+    runs = {}
+    if not fsdp_rec:
+        return runs
+
+    def add(key, per_step):
+        runs[key] = {"launches": {k: sum(c[k] for c in per_step) for k in FLASH_KERNELS},
+                     "launches_per_step": per_step}
+
+    for r, x in enumerate(fsdp_rec.get("lora") or []):
+        add(f"fsdp_lora_rank{r}", x["launches_per_step"])
+    for name, r in (fsdp_rec.get("reduced") or {}).items():
+        add(f"fsdp_{name}_rank0", r["sharded"]["launches_per_step"])
+        add(f"fsdp_{name}_rank1", r["rank1"]["launches_per_step"])
+        if r.get("single"):
+            add(f"fsdp_{name}_one_rank", r["single"]["launches_per_step"])
+    for name, r in (fsdp_rec.get("nccl_reduced") or {}).items():
+        add(f"fsdp_{name}_nccl", r["sharded"]["launches_per_step"])
+    return runs
+
+
 def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None,
-                   tf_rec=None) -> list:
+                   tf_rec=None, fsdp_rec=None) -> list:
     """One JSON entry per training kernel: times at the `train` case,
     launches from the train phase, the train_main phase's runs A and B, the
-    qlora phase's runs and the train_full phase's (all steps, by run, and
-    per step)."""
+    qlora phase's runs, the train_full phase's and the fsdp_train phase's
+    ranks (all steps, by run, and per step)."""
     train = flash_rows.get("train")
     runs = {}
     if train_rec:
@@ -3431,6 +4105,7 @@ def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None
         runs[f"qlora_{key}"] = r
     for key, r in (tf_rec or {}).items():
         runs[f"train_full_{key}"] = r
+    runs.update(_fsdp_runs(fsdp_rec))
     out = []
     for name in FLASH_KERNELS:
         by_run = {k: r["launches"][name] for k, r in runs.items()}
@@ -3465,6 +4140,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--tp-child", default=None, help=argparse.SUPPRESS)   # a tp_serve rank
+    ap.add_argument("--fsdp-child", default=None, help=argparse.SUPPRESS)   # a fsdp_train rank
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3476,6 +4152,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if args.tp_child:
         return tp_child(args.tp_child)
+    if args.fsdp_child:
+        return fsdp_child(args.fsdp_child)
     phases = args.phases.split(",")
     dev = phase_device()
     build_rec = {}
@@ -3502,12 +4180,17 @@ def main() -> int:
         tp_rec = (phase_tp_serve(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec
                                                             or eval_rec or tf_rec))
                   if "tp_serve" in phases else None)
+        fsdp_rec = (phase_fsdp_train(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec
+                                                                or eval_rec or tf_rec
+                                                                or tp_rec))
+                    if "fsdp_train" in phases else None)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
     kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec, tm_rec, q_rec,
                                    eval_rec, tp_rec)]
-    kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec, qlora_rec, tf_rec)
+    kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec, qlora_rec, tf_rec,
+                                     fsdp_rec)
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -416,3 +416,18 @@ def test_attn_mode_step_on_the_card_matches_the_cpu(cuda):
         assert float((grads[k] - ref).abs().max()) <= BF16_TOL * float(ref.abs().max()), k
     scales = [k for k in grads if k.endswith(("q_scale", "k_scale"))]
     assert len(scales) == 6 and all(float(grads[k].abs().max()) > 0 for k in scales)
+
+
+def test_gloo_collectives_fsdp_needs_on_the_card(cuda):
+    """Two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one device)
+    run the collectives FSDP2 calls on CUDA tensors: all_gather_into_tensor
+    and reduce_scatter_tensor (chip_smoke.py's fsdp_train probe)."""
+    import torch_dist_helpers as D
+
+    n = 1 << 20
+    with D.Ranks(D.gloo_cuda_collectives, 2, n) as ranks:
+        results = ranks.results(timeout=120)
+    for r in results:
+        assert "error" not in r, r.get("error")
+        np.testing.assert_array_equal(r["gathered"], np.repeat([1.0, 2.0], n))
+        np.testing.assert_array_equal(r["reduced"], np.full(n, 3.0))

@@ -475,16 +475,17 @@ def test_main_exits_on_data_it_cannot_batch(checkpoint, tmp_path, rng):
                        "--train-batch-size", "2", "--bucket-quant", "32"))
 
 
-# each trainer choice beside the ROADMAP item that ports it; items 2 and 4
-# are ported
+# each trainer choice beside the ROADMAP item that ports it; items 2, 4 and
+# 6b-i (training over the fsdp axis) are ported; tensor parallelism in
+# training is item 6b-ii
 PORTED_CHOICES = (["--mode", "attn"], ["--mode", "all"], ["--optimizer", "adamw8bit"],
-                  ["--use-8bit-adam"], ["--quantize-base", "nf4"])
+                  ["--use-8bit-adam"], ["--quantize-base", "nf4"], ["--mesh", "1,2,1"])
 
 
 @pytest.mark.parametrize("extra,item", [
     (["--mode", "attn"], "item 2"), (["--mode", "all"], "item 2"),
     (["--optimizer", "adamw8bit"], "item 2"), (["--use-8bit-adam"], "item 2"),
-    (["--quantize-base", "nf4"], "item 4"), (["--mesh", "1,2,1"], "item 6b"),
+    (["--quantize-base", "nf4"], "item 4"), (["--mesh", "1,1,2"], "item 6b"),
     (["--loader-procs", "2"], "item 7")])
 def test_main_refuses_unported_choices(extra, item, tmp_path):
     """An unported choice raises naming its item; a ported one passes the

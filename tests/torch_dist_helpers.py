@@ -321,3 +321,240 @@ def two_rank_cases(rank, world, spec):
         "run_eval": lambda: run_eval_rank(rank, world, spec["run_eval"]),
         "demo": lambda: demo_rank(rank, world, spec["demo"]),
     })
+
+
+# ---------------------------------------------------------------------------
+# training over the fsdp axis
+# ---------------------------------------------------------------------------
+
+def sharded_grad(p, whole: torch.Tensor):
+    """A gradient for a parameter shard_for_training sharded: this rank's
+    slice of `whole`, as the DTensor FSDP would leave in ``.grad``."""
+    from torch.distributed.tensor import DTensor
+
+    from textflux_torch.parallel import partitioning as PT
+
+    return DTensor.from_local(PT.shard_spec(p).cut(whole).clone(), p.device_mesh,
+                              p.placements, run_check=False, shape=p.shape, stride=p.stride())
+
+
+def _train_model(case, mesh):
+    """The port's DiT, VAE, optimizer and step of a step case, sharded
+    over `mesh`: full-parameter modes with float32 masters beside frozen
+    bf16 weights, LoRA over a float32 base."""
+    from textflux_torch.io.from_jax import load_jax_lora, load_jax_params
+    from textflux_torch.parallel import partitioning as PT
+    from textflux_torch.training import train as TR
+
+    tc = TR.TrainConfig(**case["tc"])
+    cfg = case["flux_cfg"]
+    if tc.mode == "lora":
+        model = load_jax_params(case["flux"], cfg, device="cpu")
+        TR.lora_insert(model, load_jax_lora(case["lora"], model), tc.lora_alpha / tc.lora_rank)
+        paths = [n.rpartition(".")[0] for n, p in model.named_parameters()
+                 if n.endswith((".lora_a", ".lora_ga"))]
+        PT.shard_for_training(model, mesh, compute_dtype=torch.float32)
+        lora = TR.attached_lora(model, paths)
+        named, masks = TR.lora_named_parameters(lora), None
+    else:
+        from textflux_torch.models.transformer import FluxTransformer
+
+        masks = TR.trainable_mask(FluxTransformer(cfg, device="meta"), tc)
+        model = load_jax_params(case["flux"], cfg, device="cpu",
+                                dtype=TR.mask_dtypes(masks, lambda name: torch.bfloat16))
+        masks = TR.trainable_mask(model, tc)
+        TR.freeze_to_mask(model, masks)
+        PT.shard_for_training(model, mesh, compute_dtype=torch.float32)
+        named = {n: p for n, p in model.named_parameters() if n in masks}
+    vae = load_jax_params(case["vae"], case["vae_cfg"], device="cpu")
+    return model, vae, TR.make_optimizer(tc, named, masks), TR.make_train_step(
+        tc, attn_impl="plain"), named
+
+
+def fsdp_step_case(rank, world, case):
+    """Steps of make_train_step over a mesh, each rank on its rows of each
+    whole batch (each microbatch's) with its rows of the whole batch's
+    noise; returns the
+    losses, norms and (rank 0) every trained tensor gathered whole."""
+    from textflux_torch.cli.train import batch_part
+    from textflux_torch.parallel import partitioning as PT
+    from textflux_torch.training import train as TR
+
+    if "estim_lr0" in case:
+        TR.ClippedProdigy.estim_lr0 = case["estim_lr0"]
+    mesh = PT.make_mesh(case["shape"], device="cpu")
+    model, vae, opt, step, named = _train_model(case, mesh)
+    losses, norms = [], []
+    for batch, noise in zip(case["batches"], case["noise"]):
+        b = batch["pixel_values"].shape[1]
+        part = batch_part(mesh, b)
+        local = {k: torch.tensor(v[:, part]) for k, v in batch.items()}
+        local_noise = [{k: torch.tensor(v[part]) for k, v in mb.items()} for mb in noise]
+        got = step(model, vae, opt, local, noise=local_noise, batch_rows=(part.start, b))
+        losses.append(float(got["loss"]))
+        norms.append(float(got["grad_norm"]))
+    whole = {n: PT.full_tensor(p).float().numpy() for n, p in model.named_parameters()}
+    local_leaves = sum(getattr(opt, "local", []))
+    return dict(losses=losses, norms=norms, params=whole if rank == 0 else None,
+                local_leaves=local_leaves, leaves=len(getattr(opt, "leaves", [])),
+                trained=sorted(named))
+
+
+def fsdp_optimizer_case(rank, world, case):
+    """An optimizer over a sharded DiT given the same whole gradients on
+    every rank, step after step: the norms, Prodigy's D and the state in
+    its whole layout."""
+    from textflux_torch.io.from_jax import load_jax_params
+    from textflux_torch.parallel import partitioning as PT
+    from textflux_torch.training import train as TR
+
+    if "estim_lr0" in case:
+        TR.ClippedProdigy.estim_lr0 = case["estim_lr0"]
+    mesh = PT.make_mesh(case["shape"], device="cpu")
+    tc = TR.TrainConfig(**case["tc"])
+    model = load_jax_params(case["flux"], case["flux_cfg"], device="cpu")
+    masks = TR.trainable_mask(model, tc)
+    TR.freeze_to_mask(model, masks)
+    PT.shard_for_training(model, mesh, compute_dtype=torch.float32)
+    named = {n: p for n, p in model.named_parameters() if n in masks}
+    opt = TR.make_optimizer(tc, named, masks)
+    norms = []
+    for grads in case["grads"]:
+        opt.zero_grad()
+        for name, p in named.items():
+            p.grad = sharded_grad(p, torch.tensor(grads[name]))
+        norms.append(float(opt.step()))
+    state = opt.state_dict()
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu().numpy()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [host(v) for v in x]
+        return x
+
+    return dict(norms=norms, state=host(state) if rank == 0 else None,
+                local=list(getattr(opt, "local", [])),
+                leaf_names=[TR.jax_leaf(opt.names[idx[0]])[0]
+                            for idx, _, _ in getattr(opt, "leaves", [])],
+                params={n: PT.full_tensor(p).numpy() for n, p in named.items()})
+
+
+_RESTORED = {}
+
+
+def _capture_restore():
+    """Wrap cli.train's two state loaders (once per process) to record in
+    ``_RESTORED``, right after a resume, the live state in the checkpoint's
+    layout (gathered: every rank)."""
+    from textflux_torch.cli import train as CLI
+
+    if _RESTORED.get("installed"):
+        return
+    _RESTORED["installed"] = True
+    for load, dump in (("load_full_train_state", CLI.full_train_state),
+                       ("load_train_state", CLI.train_state)):
+        orig = getattr(CLI, load)
+
+        def wrapped(live, opt, state, orig=orig, dump=dump):
+            step = orig(live, opt, state)
+            _RESTORED["state"] = torch_tree_to_numpy(dump(live, opt, step))
+            return step
+
+        setattr(CLI, load, wrapped)
+
+
+def fsdp_main_case(rank, world, runs):
+    """cli.train.main over the default mesh (1, world, 1), one run after
+    another (every rank writes into the same output directories; rank 0
+    alone writes files). A run may resume (the restored state, gathered, is
+    returned) or be preempted by a SIGTERM that only rank 0 receives."""
+    import signal as sig
+    import threading
+
+    from textflux_torch.cli import train as CLI
+
+    out = {}
+    for name, run in runs:
+        _RESTORED.pop("state", None)
+        if run.get("capture"):
+            _capture_restore()
+        if run.get("sigterm") and rank == 0:
+            log = os.path.join(run["argv"][run["argv"].index("--output-dir") + 1],
+                               "train_log.jsonl")
+
+            def preempt(log=log):
+                deadline = time.time() + 120
+                while time.time() < deadline:
+                    if os.path.exists(log) and open(log).read().strip():
+                        os.kill(os.getpid(), sig.SIGTERM)
+                        return
+                    time.sleep(0.05)
+
+            threading.Thread(target=preempt, daemon=True).start()
+        try:
+            CLI.main(run["argv"])
+            result = {"ok": True}
+            if "state" in _RESTORED and rank == 0:
+                result["restored"] = _RESTORED["state"]
+        except BaseException:
+            result = {"error": traceback.format_exc()}
+        out[name] = result
+    return out
+
+
+def torch_tree_to_numpy(x):
+    """A nested state's tensors as numpy copies (bf16 as float32)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return np.array((x.float() if x.dtype == torch.bfloat16 else x).numpy())
+    if isinstance(x, dict):
+        return {k: torch_tree_to_numpy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [torch_tree_to_numpy(v) for v in x]
+    return x
+
+
+def fsdp_load_case(rank, world, spec):
+    """io.params.load_flux_fsdp of a checkpoint at mesh (1, world, 1), each
+    rank reading its slices from the files, with --mode attn's dtypes;
+    returns every parameter gathered whole (rank 0)."""
+    from textflux_torch.io.params import load_flux_fsdp
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.parallel import partitioning as PT
+    from textflux_torch.training import train as TR
+
+    mesh = PT.make_mesh((1, world, 1), device="cpu")
+    masks = TR.trainable_mask(FluxTransformer(spec["cfg"], device="meta"),
+                              TR.TrainConfig(mode="attn"))
+    model = load_flux_fsdp(spec["path"], spec["cfg"], mesh, device="cpu",
+                           dtype=TR.mask_dtypes(masks, lambda name: torch.bfloat16))
+    whole = {n: torch_tree_to_numpy(PT.full_tensor(p)) for n, p in model.named_parameters()}
+    dtypes = {n: str(p.dtype) for n, p in model.named_parameters()}
+    return dict(params=whole if rank == 0 else None, dtypes=dtypes)
+
+
+def fsdp_cases(rank, world, spec):
+    """Every FSDP case of tests/test_torch_fsdp.py in one spawn."""
+    cases = {f"step:{k}": (lambda c=c: fsdp_step_case(rank, world, c))
+             for k, c in spec["steps"].items()}
+    cases.update({f"opt:{k}": (lambda c=c: fsdp_optimizer_case(rank, world, c))
+                  for k, c in spec["optimizers"].items()})
+    cases["load"] = lambda: fsdp_load_case(rank, world, spec["load"])
+    cases["main"] = lambda: fsdp_main_case(rank, world, spec["main"])
+    return run_cases(cases)
+
+
+def gloo_cuda_collectives(rank, world, n):
+    """all_gather_into_tensor (bf16) and reduce_scatter_tensor (float32,
+    FSDP's reduce dtype) over the gloo group on CUDA tensors of cuda:0:
+    what FSDP2 calls for ranks sharing one card."""
+    torch.cuda.set_device(0)
+    small = torch.full((n,), float(rank + 1), device="cuda", dtype=torch.bfloat16)
+    big = torch.empty(n * world, device="cuda", dtype=torch.bfloat16)
+    dist.all_gather_into_tensor(big, small)
+    out = torch.empty(n, device="cuda", dtype=torch.float32)
+    dist.reduce_scatter_tensor(out, torch.full((n * world,), float(rank + 1), device="cuda"))
+    return dict(gathered=big.float().cpu().numpy(), reduced=out.cpu().numpy())

@@ -262,7 +262,7 @@ def main(argv=None):
                         "mode implies --quantize")
     p.add_argument("--mesh", default=None,
                    help="dp,fsdp,tp: serve over the ranks torchrun starts, the DiT "
-                        f"tensor-parallel over tp; fsdp must be 1 ({PT.ITEM_FSDP}). "
+                        f"tensor-parallel over tp; fsdp must be 1 ({PT.ITEM_6B_II}). "
                         "Rank 0 serves the UI")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)

@@ -22,7 +22,7 @@ starts (an item is served only when every rank prepared, and with
 outputs): an item one rank dropped would leave the others waiting in a
 collective. A failure inside the denoise is not recorded per item on a
 mesh: it ends the run (torchrun then stops every rank). fsdp > 1 raises
-before anything loads (ROADMAP Queue 1 item 6b).
+before anything loads (ROADMAP Queue 1 item 6b-ii).
 
 Failures are caught per item (reference worker: scripts/run_eval.py:195-198)
 and written with context to <output-dir>/failures.json so runs are auditable.
@@ -47,7 +47,7 @@ import numpy as np
 from PIL import Image
 
 from textflux_torch.data.native import fill_poly as native_fill_poly
-from textflux_torch.parallel.partitioning import ITEM_FSDP
+from textflux_torch.parallel.partitioning import ITEM_6B_II
 from textflux_torch.pipeline.prompts import build_prompts
 from textflux_torch.rendering import (
     concat_multiline,
@@ -302,7 +302,7 @@ def main(argv=None):
     p.add_argument("--mesh", default=None,
                    help="dp,fsdp,tp: serve over the ranks torchrun starts (dp*tp of "
                         "them): the DiT tensor-parallel over tp, batches data-parallel "
-                        f"over dp; fsdp must be 1 ({ITEM_FSDP}). Rank 0 writes")
+                        f"over dp; fsdp must be 1 ({ITEM_6B_II}). Rank 0 writes")
     p.add_argument("--quantize", action="store_true",
                    help="quantise the DiT as it loads (int8 weight-only by default)")
     p.add_argument("--quantize-mode", choices=["weight_only", "w8a8", "nf4", "mixed"],

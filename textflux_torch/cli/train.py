@@ -12,7 +12,7 @@ The port of ``textflux_tpu/cli/train.py``:
       [--learning-rate 2e-5] [--train-batch-size 1] [--grad-accum 8]
       [--max-train-steps 10000] [--checkpointing-steps 5000]
       [--resume-from-checkpoint latest] [--pretrained-lora file]
-      [--profile-steps N] [--device cuda|cpu]
+      [--profile-steps N] [--device cuda|cpu] [--mesh dp,fsdp,1]
 
 Per optimizer step: the batch's prompts are encoded (CLIP pooled + T5,
 frozen), then one step of ``training.train.make_train_step`` runs.
@@ -36,9 +36,16 @@ the step into its key, so a resumed run continues the stream. Checkpoints
 (the trained tensors, optimizer state, step) rotate under
 ``<output>/checkpoints/``; SIGTERM finishes the step, saves and exits.
 
-Runs on CUDA unless ``--device cpu`` is asked. The JAX flags parse
-unchanged; the choices not ported yet raise, naming their ROADMAP item: a
-``--mesh`` over more than one device (item 6), ``--loader-procs > 0``
+Runs on CUDA unless ``--device cpu`` is asked. Under ``torchrun
+--nproc-per-node N`` (or with ``--mesh dp,fsdp,1``) it trains over a mesh,
+every rank on the fsdp axis by default, as the JAX trainer: each rank loads
+its FSDP slice of the DiT (``io.params.load_flux_fsdp``), the optimizer
+state shards with it, every rank reads the same batches and trains on its
+rows of each (the batch over data x fsdp), and rank 0 alone logs, writes
+the checkpoints (in the whole tensors' layout, so they resume at any fsdp
+size) and exports. The JAX flags parse unchanged; the choices not ported
+yet raise, naming their ROADMAP item: a tensor axis (tp > 1) or
+``--quantize-base`` over fsdp > 1 (item 6b-ii), ``--loader-procs > 0``
 (item 7). ``train_lora`` and ``train_full`` are the in-memory entries:
 built models and collated batches in, the trained factors or model out.
 """
@@ -56,12 +63,13 @@ from typing import Callable, Iterable, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from textflux_torch.models.clip import CLIPTextModel, clip_encode
 from textflux_torch.models.t5 import T5Encoder, t5_encode
 from textflux_torch.models.transformer import FluxTransformer
 from textflux_torch.models.vae import FluxVAE
-from textflux_torch.parallel.partitioning import ITEM_FSDP
+from textflux_torch.parallel import partitioning as PT
 from textflux_torch.training import train as TR
 from textflux_torch.training.checkpoint import copy_into
 
@@ -90,20 +98,50 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
+def batch_part(mesh: PT.Mesh, b: int) -> slice:
+    """This rank's rows of a batch of `b` over the mesh's (data, fsdp)."""
+    n = mesh.batch_shards
+    if b % n:
+        raise ValueError(f"a batch of {b} does not split over the {n} ranks of data x fsdp")
+    return slice(mesh.batch_rank * b // n, (mesh.batch_rank + 1) * b // n)
+
+
+def local_rows(batch: Mapping, part: slice) -> dict:
+    """Rows `part` of each microbatch of a collated batch (its arrays
+    (A, B, ...), its prompts A*B in (A, B) order)."""
+    b = batch["pixel_values"].shape[1]
+    pick = [i * b + r for i in range(batch["pixel_values"].shape[0])
+            for r in range(part.start, part.stop)]
+    return dict(batch, pixel_values=batch["pixel_values"][:, part],
+                mask=batch["mask"][:, part],
+                prompts=[batch["prompts"][k] for k in pick],
+                clip_prompts=[batch["clip_prompts"][k] for k in pick])
+
+
 def train_steps(flux: FluxTransformer, vae: FluxVAE, clip: CLIPTextModel, t5: T5Encoder,
                 batches: Iterable[Mapping], opt: TR.ClippedOptimizer, *, tc: TR.TrainConfig,
                 clip_tokenize: Callable, t5_tokenize: Callable, seed: int,
-                start_step: int = 0) -> Iterator[Tuple[int, dict]]:
+                start_step: int = 0, mesh: Optional[PT.Mesh] = None
+                ) -> Iterator[Tuple[int, dict]]:
     """The step loop every entry point shares: one optimizer step of
     ``make_train_step`` per batch of `batches` (``BucketedLoader._collate``'s
     format), yielding (the step count after it, its metrics as 0-d device
     tensors). The caller stops by leaving the loop; no batch is fetched
-    past the last step it takes."""
+    past the last step it takes.
+
+    With `mesh` (`flux` sharded over its fsdp axis), every rank is given
+    the same batches and trains on its rows of each (``batch_part``),
+    drawing the whole batch's noise from the step's generator."""
     dev = next(flux.parameters()).device
     step_fn = TR.make_train_step(tc)
     cdt = getattr(torch, tc.compute_dtype)
     step = start_step
     for batch in batches:
+        rows = None
+        if mesh is not None:
+            b = batch["pixel_values"].shape[1]
+            part = batch_part(mesh, b)
+            batch, rows = local_rows(batch, part), (part.start, b)
         pooled, txt = encode_batch_text(clip, t5, batch, clip_tokenize=clip_tokenize,
                                         t5_tokenize=t5_tokenize, dtype=cdt)
         device_batch = {
@@ -112,21 +150,31 @@ def train_steps(flux: FluxTransformer, vae: FluxVAE, clip: CLIPTextModel, t5: T5
             "txt": txt, "pooled": pooled,
         }
         metrics = step_fn(flux, vae, opt, device_batch,
-                          generator=step_generator(seed, step, dev))
+                          generator=step_generator(seed, step, dev), batch_rows=rows)
         step += 1
         yield step, metrics
 
 
+def _cut(p: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """A sharded parameter's slice of a whole tensor (the whole tensor for
+    a plain parameter)."""
+    spec = PT.shard_spec(p)
+    return whole if spec is None else spec.cut(whole)
+
+
 def train_state(lora: TR.Lora, opt: TR.ClippedOptimizer, step: int) -> dict:
     """What a LoRA checkpoint holds: the factors, the optimizer state, the
-    step."""
-    return {"lora": {p: {k: f[k].detach() for k in ("a", "b")} for p, f in lora.items()},
+    step; sharded ones whole, on the host (gathered: every rank calls
+    this)."""
+    return {"lora": {p: {k: PT.full_tensor(f[k], host=True) for k in ("a", "b")}
+                     for p, f in lora.items()},
             "opt_state": opt.state_dict(), "step": step}
 
 
 def load_train_state(lora: TR.Lora, opt: TR.ClippedOptimizer, state: Mapping) -> int:
     """Copy a checkpoint's factors and optimizer state into the live ones
-    (same targets and shapes, or it raises); returns its step."""
+    (same targets and shapes, or it raises; a sharded factor takes its
+    slice); returns its step."""
     if set(state["lora"]) != set(lora):
         raise ValueError("the checkpoint's LoRA targets differ from the model's")
     with torch.no_grad():
@@ -136,7 +184,7 @@ def load_train_state(lora: TR.Lora, opt: TR.ClippedOptimizer, state: Mapping) ->
                     raise ValueError(f"checkpoint factor {path}.{k} has shape "
                                      f"{tuple(state['lora'][path][k].shape)}, the model "
                                      f"{tuple(f[k].shape)}")
-                f[k].copy_(state["lora"][path][k])
+                PT.local(f[k]).copy_(_cut(f[k], state["lora"][path][k]))
     opt.load_state_dict(state["opt_state"])
     return int(state["step"])
 
@@ -144,8 +192,9 @@ def load_train_state(lora: TR.Lora, opt: TR.ClippedOptimizer, state: Mapping) ->
 def full_train_state(flux: FluxTransformer, opt: TR.ClippedOptimizer, step: int) -> dict:
     """What a full-parameter checkpoint holds, as the JAX trainer's does:
     every DiT parameter (frozen ones too) in its dtype, the optimizer
-    state, the step."""
-    return {"params": {n: p.detach() for n, p in flux.named_parameters()},
+    state, the step; sharded ones whole, on the host (gathered: every rank
+    calls this)."""
+    return {"params": {n: PT.full_tensor(p, host=True) for n, p in flux.named_parameters()},
             "opt_state": opt.state_dict(), "step": step}
 
 
@@ -153,8 +202,11 @@ def load_full_train_state(flux: FluxTransformer, opt: TR.ClippedOptimizer,
                           state: Mapping) -> int:
     """Copy a full-parameter checkpoint into the live model and optimizer,
     in place and in their dtypes (``checkpoint.copy_into``: the names,
-    shapes and dtypes must match); returns its step."""
-    copy_into({n: p.detach() for n, p in flux.named_parameters()}, state["params"], "params")
+    shapes and dtypes must match; a sharded parameter takes its slice);
+    returns its step."""
+    named = dict(flux.named_parameters())
+    saved = {n: _cut(named[n], v) if n in named else v for n, v in state["params"].items()}
+    copy_into({n: PT.local(p.detach()) for n, p in named.items()}, saved, "params")
     opt.load_state_dict(state["opt_state"])
     return int(state["step"])
 
@@ -247,6 +299,7 @@ def train_full(
     log_every: int = 10,
     on_step: Optional[Callable[[int, dict, FluxTransformer], None]] = None,
     state: Optional[dict] = None,
+    mesh: Optional[PT.Mesh] = None,
 ) -> Tuple[FluxTransformer, List[dict]]:
     """Train `flux` itself, in place, for `steps` optimizer steps:
     ``tc.mode`` "attn" (the attention unfreeze) or "all". The trainable
@@ -260,6 +313,10 @@ def train_full(
     in place; an empty dict starts afresh. Either way it holds the state
     after the last step (the live tensors) when the call returns.
 
+    With `mesh`, `flux` is sharded over its fsdp axis
+    (``shard_for_training``) after the cast, with the optimizer state, and
+    each rank trains on its rows of each batch (``train_steps``).
+
     Returns (the model, one {"step", "loss", "grad_norm", "elapsed_s"} dict
     per step)."""
     masks = TR.trainable_mask(flux, tc)
@@ -267,11 +324,15 @@ def train_full(
     stored = {name: p.dtype for name, p in flux.named_parameters()}
     TR.cast_params(flux, TR.mask_dtypes(masks, lambda name: TR.frozen_dtype(compute,
                                                                          stored[name])))
-    opt = TR.make_optimizer(tc, TR.freeze_to_mask(flux, masks), masks)
+    named = TR.freeze_to_mask(flux, masks)
+    if mesh is not None:
+        PT.shard_for_training(flux, mesh, compute_dtype=compute)
+        named = {n: p for n, p in flux.named_parameters() if n in masks}
+    opt = TR.make_optimizer(tc, named, masks)
     start = load_full_train_state(flux, opt, state) if state else 0
     step, history = _run_steps(
         train_steps(flux, vae, clip, t5, batches, opt, tc=tc, clip_tokenize=clip_tokenize,
-                    t5_tokenize=t5_tokenize, seed=seed, start_step=start),
+                    t5_tokenize=t5_tokenize, seed=seed, start_step=start, mesh=mesh),
         steps, start, log_every, on_step, flux)
     if state is not None:
         state.update(full_train_state(flux, opt, step))
@@ -379,8 +440,8 @@ def parse_args(argv=None):
     p.add_argument("--max-sequence-length", type=int, default=512)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--mesh", default=None,
-                   help=f"dp,fsdp,tp; only a product of 1 (one device) is ported "
-                        f"({ITEM_FSDP})")
+                   help="dp,fsdp,tp over the ranks (default under torchrun: 1,<world>,1, "
+                        f"every rank on fsdp); tp > 1 is not ported yet ({PT.ITEM_6B_II})")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--report-to", default="jsonl", choices=["jsonl", "wandb"])
     p.add_argument("--profile-steps", type=int, default=0,
@@ -390,15 +451,40 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def mesh_shape(args) -> Optional[Tuple[int, int, int]]:
+    """The training mesh (data, fsdp, tensor): ``--mesh``, else the JAX
+    trainer's default (1, world, 1) when the process is one of several
+    ranks (torchrun's WORLD_SIZE, or an initialised process group); None
+    for one device without ``--mesh``."""
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if not args.mesh:
+        return (1, world, 1) if world > 1 else None
+    try:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"--mesh {args.mesh!r}: expected three positive sizes dp,fsdp,tp")
+    if world > 1 and math.prod(shape) != world:
+        raise ValueError(f"--mesh {args.mesh} spans {math.prod(shape)} ranks, the run has "
+                         f"{world}")
+    return shape
+
+
 def check_ported(args) -> None:
     """Exit on a choice the JAX trainer refuses, with its message; raise on
     one the port does not have yet, naming its ROADMAP item."""
     if args.quantize_base != "none" and args.mode != "lora":
         raise SystemExit("--quantize-base requires --mode lora (full-param "
                          "training cannot update a quantized base)")
-    if args.mesh and math.prod(int(x) for x in args.mesh.split(",")) > 1:
-        raise NotImplementedError(f"--mesh {args.mesh} spans more than one device; "
-                                  f"multi-GPU training is not ported yet: {ITEM_FSDP}")
+    shape = mesh_shape(args)
+    if shape is not None and shape[2] > 1:
+        raise NotImplementedError(f"--mesh {args.mesh}: tensor parallelism in training is not "
+                                  f"ported yet ({PT.ITEM_6B_II}); use dp,fsdp,1")
+    if shape is not None and shape[1] > 1 and args.quantize_base != "none":
+        raise NotImplementedError(f"--quantize-base {args.quantize_base} over fsdp = "
+                                  f"{shape[1]} > 1 is not ported yet ({PT.ITEM_6B_II})")
     if args.loader_procs > 0:
         from textflux_torch.data.loader import PROCESS_MODE_ITEM
 
@@ -452,7 +538,8 @@ def resume_step(want: str, ckpt) -> Optional[int]:
     return step
 
 
-def load_models(args, dev: torch.device, tc: TR.TrainConfig):
+def load_models(args, dev: torch.device, tc: TR.TrainConfig, mesh: Optional[PT.Mesh] = None,
+                prepare: Optional[Callable] = None):
     """The models from a diffusers-layout directory: the DiT in the
     checkpoint's interleaved q/k layout (the training attention takes it as
     it is) -- in bf16 for LoRA (quantised as it streams in with
@@ -462,23 +549,30 @@ def load_models(args, dev: torch.device, tc: TR.TrainConfig):
     so, else in float32 (``frozen_dtype``: a float32 checkpoint's frozen
     weights come back unchanged in the export, as the JAX trainer's do),
     each loaded once in its dtype; the VAE, CLIP and T5 in bf16; and the
-    tokenizers."""
+    tokenizers. With `mesh`, the DiT is this rank's FSDP slice, read from
+    the mapped files (``io.params.load_flux_fsdp``, which hands the module
+    on the meta device to `prepare` before sharding it)."""
     from textflux_torch.io.config_io import (clip_config_from, flux_config_from,
                                              t5_config_from, vae_config_from)
     from textflux_torch.io.params import (checkpoint_dtypes, load_checkpoint_dir,
-                                          load_flux_transformer)
+                                          load_flux_fsdp, load_flux_transformer)
     from textflux_torch.pipeline.tokenizers import load_tokenizers
 
     t_path = args.transformer or os.path.join(args.model, "transformer")
     flux_cfg = flux_config_from(t_path)
     dtype = torch.bfloat16
+    compute = getattr(torch, tc.compute_dtype)
     if tc.mode != "lora":
         masks = TR.trainable_mask(FluxTransformer(flux_cfg, device="meta"), tc)
-        compute, stored = getattr(torch, tc.compute_dtype), checkpoint_dtypes(t_path, flux_cfg)
+        stored = checkpoint_dtypes(t_path, flux_cfg)
         dtype = TR.mask_dtypes(masks, lambda name: TR.frozen_dtype(compute, stored[name]))
-    flux = load_flux_transformer(
-        t_path, flux_cfg, dtype=dtype, device=dev,
-        quantize=None if args.quantize_base == "none" else args.quantize_base)
+    if mesh is not None:
+        flux = load_flux_fsdp(t_path, flux_cfg, mesh, dtype=dtype, device=dev,
+                              compute_dtype=compute, prepare=prepare)
+    else:
+        flux = load_flux_transformer(
+            t_path, flux_cfg, dtype=dtype, device=dev,
+            quantize=None if args.quantize_base == "none" else args.quantize_base)
     parts = []
     for sub, cfg_from in (("vae", vae_config_from), ("text_encoder", clip_config_from),
                           ("text_encoder_2", t5_config_from)):
@@ -489,13 +583,23 @@ def load_models(args, dev: torch.device, tc: TR.TrainConfig):
     return (flux_cfg, flux, *parts, *tokenizers)
 
 
+def any_rank(flag: bool, mesh: Optional[PT.Mesh], dev) -> bool:
+    """`flag` OR-ed over every rank (a collective), so the ranks decide
+    together and none waits in a collective that another has left."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([float(flag)], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def main(argv=None):
     args = parse_args(argv)
     check_ported(args)
     from textflux_torch.data import BucketedLoader
     from textflux_torch.device import resolve_device
-    from textflux_torch.io.export import (export_lora_state_dict, save_safetensors,
-                                          save_transformer_checkpoint)
+    from textflux_torch.io.export import (export_lora_state_dict, gathered_flux,
+                                          save_safetensors, save_transformer_checkpoint)
     from textflux_torch.io.params import load_safetensors_dir
     from textflux_torch.training.checkpoint import CheckpointManager
     from textflux_torch.utils.tracking import Tracker, profile_trace
@@ -542,12 +646,21 @@ def main(argv=None):
         lr_power=args.lr_power,
     )
 
-    flux_cfg, flux, vae, clip, t5, clip_tok, t5_tok = load_models(args, dev, tc)
-    ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
-                             max_to_keep=args.checkpoints_total_limit)
+    # the mesh (the JAX trainer's exit when the batch does not split over it)
+    shape, mesh = mesh_shape(args), None
+    if shape is not None:
+        dp = shape[0] * shape[1]
+        if args.train_batch_size % dp:
+            raise SystemExit(
+                f"--train-batch-size {args.train_batch_size} must be divisible by "
+                f"the mesh's data x fsdp product ({shape[0]}x{shape[1]}={dp}): "
+                f"the batch axis shards over both mesh axes")
+        if math.prod(shape) > 1:
+            mesh = PT.make_mesh(shape, device=dev)
+    rank0 = mesh is None or dist.get_rank() == 0
 
-    if args.mode == "lora":
-        lora = TR.lora_init(flux, tc.lora_rank,
+    def make_lora(model):
+        lora = TR.lora_init(model, tc.lora_rank, device=dev,
                             generator=torch.Generator(device=dev).manual_seed(args.seed))
         if args.pretrained_lora:
             # warm start (reference train_lora.py:536-553): imported targets
@@ -555,13 +668,45 @@ def main(argv=None):
             from textflux_torch.io.lora import import_lora_factors, resolve_lora_path
 
             imported = import_lora_factors(
-                load_safetensors_dir(resolve_lora_path(args.pretrained_lora)), flux_cfg,
+                load_safetensors_dir(resolve_lora_path(args.pretrained_lora)), model.cfg,
                 tc.lora_alpha / tc.lora_rank)
             for path, f in imported.items():
                 lora[path] = {k: torch.nn.Parameter(v.to(dev)) for k, v in f.items()}
-            n_targets = len({path.split(".", 2)[2] for path in imported})
-            print(f"warm-started {n_targets} LoRA targets from {args.pretrained_lora}")
-        TR.lora_insert(flux, lora, tc.lora_alpha / tc.lora_rank)
+            if rank0:
+                n_targets = len({path.split(".", 2)[2] for path in imported})
+                print(f"warm-started {n_targets} LoRA targets from {args.pretrained_lora}")
+        return lora
+
+    made = {}
+
+    def prepare(model):
+        """On the meta device, before FSDP shards it: attach the LoRA
+        factors' shapes, or freeze what does not train."""
+        if args.mode == "lora":
+            made["lora"] = make_lora(model)
+            TR.lora_insert(model, {p: {k: torch.empty_like(v, device="meta")
+                                       for k, v in f.items()}
+                                   for p, f in made["lora"].items()},
+                           tc.lora_alpha / tc.lora_rank)
+        else:
+            TR.freeze_to_mask(model, TR.trainable_mask(model, tc))
+
+    flux_cfg, flux, vae, clip, t5, clip_tok, t5_tok = load_models(
+        args, dev, tc, **({} if mesh is None else {"mesh": mesh, "prepare": prepare}))
+    ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
+                             max_to_keep=args.checkpoints_total_limit)
+
+    if args.mode == "lora":
+        if mesh is None:
+            lora = make_lora(flux)
+            TR.lora_insert(flux, lora, tc.lora_alpha / tc.lora_rank)
+        else:   # this rank's slices of the factors drawn whole
+            lora = TR.attached_lora(flux, made["lora"])
+            with torch.no_grad():
+                for path, f in lora.items():
+                    for k in ("a", "b"):
+                        PT.local(f[k]).copy_(_cut(f[k], made["lora"][path][k]))
+            del made["lora"]
         opt = TR.make_optimizer(tc, TR.lora_named_parameters(lora))
 
         def state_at(step):
@@ -571,7 +716,9 @@ def main(argv=None):
             return load_train_state(lora, opt, state)
     else:
         masks = TR.trainable_mask(flux, tc)
-        opt = TR.make_optimizer(tc, TR.freeze_to_mask(flux, masks), masks)
+        named = (TR.freeze_to_mask(flux, masks) if mesh is None else
+                 {n: p for n, p in flux.named_parameters() if n in masks})
+        opt = TR.make_optimizer(tc, named, masks)
 
         def state_at(step):
             return full_train_state(flux, opt, step)
@@ -585,7 +732,8 @@ def main(argv=None):
         if restored is not None:
             step = load_state(restored)
             del restored
-            print(f"resumed from step {step}")
+            if rank0:
+                print(f"resumed from step {step}")
 
     samples_per_batch = args.train_batch_size * args.grad_accum
     if len(dataset) < samples_per_batch:
@@ -597,8 +745,11 @@ def main(argv=None):
             f"{samples_per_batch}; reduce them or add data (and note "
             f"per-bucket batches must FILL — mixed-resolution data "
             f"needs enough samples per bucket, see --bucket-quant)")
+    # over a mesh every rank must read the same batches: one worker thread,
+    # whose order is the shuffle's alone
     loader = BucketedLoader(dataset, batch_size=args.train_batch_size,
-                            grad_accum=args.grad_accum, seed=args.seed)
+                            grad_accum=args.grad_accum, seed=args.seed,
+                            **({} if mesh is None else {"num_workers": 1}))
     if step:
         # position the data order too: the completed-epoch count (the exact
         # position inside an epoch is undefined under racing prefetch
@@ -606,7 +757,8 @@ def main(argv=None):
         loader.set_epoch(step // max(1, len(dataset) // samples_per_batch))
 
     # preemption safety: on SIGTERM, finish the in-flight step, checkpoint
-    # and exit cleanly so `--resume-from-checkpoint latest` continues
+    # and exit cleanly so `--resume-from-checkpoint latest` continues; over
+    # a mesh the ranks agree after each step on whether any saw it
     preempt = {"seen": False}
 
     def on_sigterm(signum, frame):
@@ -619,25 +771,26 @@ def main(argv=None):
 
     log_path = os.path.join(args.output_dir, "train_log.jsonl")
     os.makedirs(args.output_dir, exist_ok=True)
-    tracker = Tracker(args.output_dir, use_wandb=(args.report_to == "wandb"),
-                      config=vars(args))
-    # the trace covers this run's first --profile-steps steps
+    tracker = (Tracker(args.output_dir, use_wandb=(args.report_to == "wandb"),
+                       config=vars(args)) if rank0 else None)
+    # the trace covers this run's first --profile-steps steps (rank 0's)
     profiler, first_step = None, step
-    if args.profile_steps and step < args.max_train_steps:
+    if args.profile_steps and step < args.max_train_steps and rank0:
         profiler = profile_trace(os.path.join(args.output_dir, "profile"))
         profiler.__enter__()
     t_start = time.time()
+    stop = False
     try:
         while step < args.max_train_steps:
             epoch_batches = 0
             for step, metrics in train_steps(flux, vae, clip, t5, loader, opt, tc=tc,
                                              clip_tokenize=clip_tok, t5_tokenize=t5_tok,
-                                             seed=args.seed, start_step=step):
+                                             seed=args.seed, start_step=step, mesh=mesh):
                 epoch_batches += 1
                 if profiler is not None and step - first_step == args.profile_steps:
                     profiler.__exit__(None, None, None)
                     profiler = None
-                if step % args.log_every == 0:
+                if step % args.log_every == 0 and rank0:
                     entry = {"step": step, "loss": float(metrics["loss"]),
                              "grad_norm": float(metrics["grad_norm"]),
                              "elapsed_s": round(time.time() - t_start, 1)}
@@ -646,11 +799,15 @@ def main(argv=None):
                         f.write(json.dumps(entry) + "\n")
                     tracker.log({"loss": entry["loss"], "grad_norm": entry["grad_norm"]},
                                 step)
-                if step % args.checkpointing_steps == 0 or preempt["seen"]:
-                    ckpt.save(step, state_at(step), wait=preempt["seen"])
-                if preempt["seen"] or step >= args.max_train_steps:
+                stop = any_rank(preempt["seen"], mesh, dev)
+                if step % args.checkpointing_steps == 0 or stop:
+                    state = state_at(step)   # every rank: sharded tensors are gathered
+                    if rank0:
+                        ckpt.save(step, state, wait=stop)
+                    del state
+                if stop or step >= args.max_train_steps:
                     break
-            if preempt["seen"]:
+            if stop:
                 break
             if epoch_batches == 0:
                 # enough samples overall, but no (H, W) bucket ever filled a
@@ -665,25 +822,38 @@ def main(argv=None):
             profiler.__exit__(None, None, None)
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
-        tracker.finish()
+        if tracker is not None:
+            tracker.finish()
 
-    if preempt["seen"]:
-        entry = {"step": step, "preempted": True}
-        print(json.dumps(entry))
-        with open(log_path, "a") as f:
-            f.write(json.dumps(entry) + "\n")
-        print("preempted: checkpoint saved; resume with "
-              "--resume-from-checkpoint latest")
+    if stop:
+        if rank0:
+            entry = {"step": step, "preempted": True}
+            print(json.dumps(entry))
+            with open(log_path, "a") as f:
+                f.write(json.dumps(entry) + "\n")
+            print("preempted: checkpoint saved; resume with "
+                  "--resume-from-checkpoint latest")
+        if mesh is not None:
+            dist.barrier()
         return
 
     if args.mode == "lora":   # the trained factors in the diffusers/peft layout
-        sd = export_lora_state_dict(lora, flux_cfg, tc.lora_alpha, rank=tc.lora_rank)
-        save_safetensors(sd, os.path.join(args.output_dir, "pytorch_lora_weights.safetensors"))
+        whole = {p: {k: PT.full_tensor(f[k]) for k in ("a", "b")} for p, f in lora.items()}
+        if rank0:
+            sd = export_lora_state_dict(whole, flux_cfg, tc.lora_alpha, rank=tc.lora_rank)
+            save_safetensors(sd, os.path.join(args.output_dir,
+                                              "pytorch_lora_weights.safetensors"))
     else:   # the DiT in the diffusers layout, float32 as the JAX trainer writes it
-        save_transformer_checkpoint(flux, os.path.join(args.output_dir, "transformer"),
-                                    dtype=torch.float32)
+        whole = flux if mesh is None else gathered_flux(flux, keep=rank0)
+        if rank0:
+            save_transformer_checkpoint(whole, os.path.join(args.output_dir, "transformer"),
+                                        dtype=torch.float32)
+    del whole
     ckpt.wait()  # drain an in-flight checkpoint write before exit
-    print("training complete")
+    if mesh is not None:
+        dist.barrier()
+    if rank0:
+        print("training complete")
 
 
 if __name__ == "__main__":

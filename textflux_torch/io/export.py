@@ -117,6 +117,30 @@ def _shard(keys, sizes, n: int):
     return groups
 
 
+@torch.no_grad()
+def gathered_flux(model, *, keep: bool = True):
+    """A whole FluxTransformer on the host, each parameter in its dtype,
+    from one sharded over the fsdp axis
+    (``parallel.partitioning.shard_for_training``): every parameter is
+    gathered in turn, a collective every fsdp rank takes part in; a rank
+    with ``keep=False`` (all but the one that writes) keeps nothing and
+    gets None. The exporters then write what they write of a model that was
+    never sharded."""
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.parallel.partitioning import full_tensor
+
+    whole = FluxTransformer(model.cfg, device="meta") if keep else None
+    for name, p in model.named_parameters():
+        t = full_tensor(p, host=keep)
+        if keep:
+            path, _, leaf = name.rpartition(".")
+            owner = whole.get_submodule(path) if path else whole
+            owner._parameters[leaf] = torch.nn.Parameter(t, requires_grad=False)
+    if keep:
+        whole.rope_layout = model.rope_layout
+    return whole
+
+
 def save_transformer_checkpoint(model, out_dir: str, *, shards: int = 1, dtype=None) -> int:
     """Save a diffusers-layout transformer/ directory: config.json and the
     weights, in one file or in `shards` files named as diffusers names them

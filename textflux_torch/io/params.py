@@ -542,3 +542,50 @@ def load_flux_shard(path: str, cfg: FluxConfig, *, tp: int, rank: int, device="c
                     target = getattr(mod, attr)
                     (target if rows is None else target[rows]).copy_(tensor)
     return model
+
+
+@torch.no_grad()
+def load_flux_fsdp(path: str, cfg: FluxConfig, mesh, *, dtype: DType = torch.bfloat16,
+                   device="cuda", compute_dtype: torch.dtype = torch.bfloat16,
+                   prepare: Optional[Callable[[nn.Module], None]] = None):
+    """This rank's FSDP shard of a transformer checkpoint for training over
+    the fsdp axis of `mesh`: the module is built on the meta device (each
+    parameter in its dtype, see ``empty_module``), handed to `prepare` (to
+    attach what must shard with it, e.g. LoRA factors on the meta device),
+    sharded by ``parallel.partitioning.shard_for_training`` and allocated,
+    and each checkpoint tensor's rows or columns of this rank's slices are
+    copied from the mapped file: the whole DiT never sits on a rank. What
+    `prepare` attached is left uninitialised for the caller to fill."""
+    from textflux_torch.parallel import partitioning as PT
+
+    check_flux_config(path, cfg)
+    device = resolve_device(device)
+    model = _meta_module(cfg, dtype)
+    if prepare is not None:
+        prepare(model)
+    PT.shard_for_training(model, mesh, compute_dtype=compute_dtype)
+    model.to_empty(device=device)
+    keys = flux_key_map(model)
+    use = _resolve_keys(keys, checkpoint_keys(path))
+    for f in safetensors_files(path):
+        with SafetensorsFile(f) as reader:
+            for src_key in reader.keys():
+                if src_key not in use:
+                    continue
+                param, rows = keys[use[src_key]]
+                tensor = reader.get_tensor(src_key)
+                want = (param.shape[0] if rows is None else rows.stop - rows.start,
+                        *param.shape[1:])
+                if tuple(tensor.shape) != want:
+                    raise ValueError(f"{src_key}: checkpoint shape {tuple(tensor.shape)} != "
+                                     f"module shape {want}")
+                spec, dst = PT.shard_spec(param), PT.local(param)
+                lo = 0 if rows is None else rows.start
+                if spec.dim == 0:   # rows [lo, lo + len) of the whole, this rank's part
+                    a, b = max(lo, spec.start), min(lo + tensor.shape[0], spec.stop)
+                    if a < b:
+                        dst[a - spec.start:b - spec.start].copy_(tensor[a - lo:b - lo])
+                else:
+                    part = tensor.narrow(spec.dim, spec.start, spec.stop - spec.start)
+                    (dst if rows is None else dst[rows]).copy_(part)
+    return model

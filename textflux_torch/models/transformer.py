@@ -70,8 +70,14 @@ ATTN_IMPLS = ("plain", "flash", "fused")
 # ---------------------------------------------------------------------------
 
 class DoubleBlock(nn.Module):
+    """One double-stream block's parameters; calling it runs the block
+    (``double_block``) with its own modulation linears, so a wrapper that
+    hooks the module's call (FSDP's gather of the block's weights) sees
+    every use of them."""
+
     def __init__(self, cfg: FluxConfig, **kw):
         super().__init__()
+        self.cfg = cfg
         d, m, hd = cfg.hidden_dim, cfg.mlp_dim, cfg.head_dim
         pkw = {k: kw[k] for k in ("device", "dtype")}
         self.img_mod = make_linear(d, 6 * d, **kw)
@@ -87,10 +93,24 @@ class DoubleBlock(nn.Module):
         self.img_mlp = MLP(d, m, d, **kw)
         self.txt_mlp = MLP(d, m, d, **kw)
 
+    def forward(self, txt, img, sv, mods, rope_cos, rope_sin, attn_impl: str,
+                kv_len: Optional[int] = None, mesh=None):
+        """(txt, img) after the block. `mods` is the block's (img, txt)
+        modulation vectors, or None to compute them here from `sv` =
+        silu(vec)."""
+        if mods is None:
+            mods = (_whole(self.img_mod, sv, mesh), _whole(self.txt_mod, sv, mesh))
+        return double_block(self, self.cfg, txt, img, mods, rope_cos, rope_sin, attn_impl,
+                            kv_len, mesh)
+
 
 class SingleBlock(nn.Module):
+    """One single-stream block's parameters; calling it runs the block
+    (``single_block``) with its own modulation linear (see DoubleBlock)."""
+
     def __init__(self, cfg: FluxConfig, **kw):
         super().__init__()
+        self.cfg = cfg
         d, m, hd = cfg.hidden_dim, cfg.mlp_dim, cfg.head_dim
         pkw = {k: kw[k] for k in ("device", "dtype")}
         self.mod = make_linear(d, 3 * d, **kw)
@@ -98,6 +118,15 @@ class SingleBlock(nn.Module):
         self.q_scale = ones_param(hd, **pkw)
         self.k_scale = ones_param(hd, **pkw)
         self.linear2 = make_linear(d + m, d, **kw)
+
+    def forward(self, x, sv, mod, rope_cos, rope_sin, attn_impl: str,
+                kv_len: Optional[int] = None, mesh=None):
+        """x after the block; `mod` is its modulation vector, or None to
+        compute it here from `sv` = silu(vec)."""
+        if mod is None:
+            mod = _whole(self.mod, sv, mesh)
+        return single_block(self, self.cfg, x, mod, rope_cos, rope_sin, attn_impl, kv_len,
+                            mesh)
 
 
 class FluxTransformer(nn.Module):
@@ -134,6 +163,53 @@ class FluxTransformer(nn.Module):
             DoubleBlock(cfg, **kw) for _ in range(cfg.num_double_layers))
         self.single_blocks = nn.ModuleList(
             SingleBlock(cfg, **kw) for _ in range(cfg.num_single_layers))
+
+    def forward(self, img_tokens, txt_tokens, pooled, timestep, guidance, rope_cos, rope_sin,
+                *, attn_impl: str, remat: bool = False, kv_len: Optional[int] = None,
+                mods=None, mesh=None) -> torch.Tensor:
+        """The velocity (see ``flux_apply``, which checks the arguments and
+        calls this): the embedders and the output head run here, each block
+        through its own module call, so a wrapper hooking the calls (FSDP's
+        gathers) sees every use of every weight. With `remat`, each block
+        call is checkpointed (non-reentrant): its recompute in the backward
+        calls the block again."""
+        cfg = self.cfg
+        n_txt = txt_tokens.shape[1]
+        dtype = img_tokens.dtype
+        if mods is None:
+            # each block computes its modulation from sv as it runs
+            sv = silu(flux_vec(self, timestep, guidance, pooled, dtype))
+            double_mods = [None] * len(self.double_blocks)
+            single_mods = [None] * len(self.single_blocks)
+            final = dense(self.final_mod, sv)
+        else:
+            sv = None
+            double_mods, single_mods, final = mods["double"], mods["single"], mods["final"]
+
+        img = _whole(self.img_in, img_tokens, mesh)
+        txt = _whole(self.txt_in, txt_tokens.to(dtype), mesh)
+        rope_cos, rope_sin = rope_cos.float(), rope_sin.float()
+
+        def call(blk, *args):
+            if remat:
+                return checkpoint(blk, *args, use_reentrant=False)
+            return blk(*args)
+
+        for blk, m in zip(self.double_blocks, double_mods):
+            txt, img = call(blk, txt, img, sv, m, rope_cos, rope_sin, attn_impl, kv_len, mesh)
+        x = torch.cat([txt, img], dim=1)
+        for blk, m in zip(self.single_blocks, single_mods):
+            x = call(blk, x, sv, m, rope_cos, rope_sin, attn_impl, kv_len, mesh)
+        x = x[:, n_txt:]
+
+        # AdaLN-continuous output head: chunk order is (scale, shift)
+        scale, shift = final.chunk(2, dim=-1)
+        x = layer_norm(x) * (1.0 + scale[:, None]) + shift[:, None]
+        # a product this narrow (out_channels columns) gets a split reduction
+        # from cuBLAS whose factor depends on the row count: per sample, a
+        # batch's rows are bitwise the single-sample call's
+        return torch.cat([dense(self.final_proj, x[i:i + 1]) for i in range(x.shape[0])])
+
 
 
 # ---------------------------------------------------------------------------
@@ -340,9 +416,10 @@ def flux_apply(
     mesh: with a tensor axis tp > 1, `model` is this rank's shard (see the
     module docstring) and every rank of the tensor sub-group calls this on
     the same inputs; the output is whole on each. No backward: the
-    collectives are not autograd-aware (training over a sharded model is
-    ROADMAP Queue 1 item 6b)."""
-    cfg = model.cfg
+    collectives are not autograd-aware (tensor parallelism in training is
+    ROADMAP Queue 1 item 6b-ii). Training over the fsdp axis passes no
+    mesh: FSDP (``parallel.partitioning.shard_for_training``) gathers each
+    module's weights as it is called."""
     check_tp(model, mesh)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
@@ -351,42 +428,8 @@ def flux_apply(
         raise ValueError(f"attn_impl={attn_impl!r} needs q/k weights in the {want!r} "
                          f"layout, the model is {model.rope_layout!r} "
                          "(see half_permute_flux_params)")
-    n_txt = txt_tokens.shape[1]
-    dtype = img_tokens.dtype
-    if mods is None:
-        # per-block modulation computed as each block runs
-        sv = silu(flux_vec(model, timestep, guidance, pooled, dtype))
-        double_mods = ((_whole(b.img_mod, sv, mesh), _whole(b.txt_mod, sv, mesh))
-                       for b in model.double_blocks)
-        single_mods = (_whole(b.mod, sv, mesh) for b in model.single_blocks)
-        final = dense(model.final_mod, sv)
-    else:
-        double_mods, single_mods, final = mods["double"], mods["single"], mods["final"]
-
-    img = _whole(model.img_in, img_tokens, mesh)
-    txt = _whole(model.txt_in, txt_tokens.to(dtype), mesh)
-    rope_cos, rope_sin = rope_cos.float(), rope_sin.float()
-
-    def call(fn, *args):
-        if remat:
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
-
-    for blk, m in zip(model.double_blocks, double_mods):
-        txt, img = call(double_block, blk, cfg, txt, img, m, rope_cos, rope_sin, attn_impl,
-                        kv_len, mesh)
-    x = torch.cat([txt, img], dim=1)
-    for blk, m in zip(model.single_blocks, single_mods):
-        x = call(single_block, blk, cfg, x, m, rope_cos, rope_sin, attn_impl, kv_len, mesh)
-    x = x[:, n_txt:]
-
-    # AdaLN-continuous output head: chunk order is (scale, shift)
-    scale, shift = final.chunk(2, dim=-1)
-    x = layer_norm(x) * (1.0 + scale[:, None]) + shift[:, None]
-    # a product this narrow (out_channels columns) gets a split reduction
-    # from cuBLAS whose factor depends on the row count: per sample, a
-    # batch's rows are bitwise the single-sample call's
-    return torch.cat([dense(model.final_proj, x[i:i + 1]) for i in range(x.shape[0])])
+    return model(img_tokens, txt_tokens, pooled, timestep, guidance, rope_cos, rope_sin,
+                 attn_impl=attn_impl, remat=remat, kv_len=kv_len, mods=mods, mesh=mesh)
 
 
 def _fused_tensors(lin: nn.Module):

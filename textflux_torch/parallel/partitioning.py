@@ -3,9 +3,11 @@
 The port of ``textflux_tpu/parallel/partitioning.py``. Mesh axes:
 
   data   -- batch parallelism: each data rank serves its own slice of a batch;
-  fsdp   -- parameter sharding (training; serving refuses fsdp > 1, see
-            ``ITEM_FSDP``); the batch shards over (data, fsdp) jointly;
-  tensor -- Megatron tensor parallelism over attention heads and MLP columns.
+  fsdp   -- parameter sharding (training, ``shard_for_training``; serving
+            refuses fsdp > 1, see ``ITEM_6B_II``); the batch shards over
+            (data, fsdp) jointly;
+  tensor -- Megatron tensor parallelism over attention heads and MLP columns
+            (serving; training refuses tp > 1).
 
 The JAX package places whole arrays on the mesh and lets GSPMD insert the
 collectives. Here every rank holds plain local shards and runs explicit
@@ -23,14 +25,21 @@ that onto every tensor of a module, quantised layouts included;
 ``shard_module`` slices a module to one rank's shard. Each collective here
 counts its calls (``<function>.calls``), beside the kernels' launch
 counters.
+
+Training shards over the fsdp axis with FSDP2 (``shard_for_training``):
+every parameter becomes a ``DTensor`` holding this rank's slice, each block
+and the root gather their weights as they are called and reduce-scatter
+their gradients; ``ShardSpec`` says where a rank's slice lies in the whole
+tensor, for the optimizer's reductions, checkpoints and export.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from datetime import timedelta
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,7 +53,9 @@ COLUMN, ROW, REPLICATED = "column", "row", "replicated"
 # adapt_specs_to_params: a tensor that is not sliced but quantised anew from
 # the rank's slice of the unquantised weight (an NF4 row-parallel linear)
 REQUANTIZE = "requantize"
-ITEM_FSDP = "ROADMAP Queue 1 item 6b"
+# what stays open of the sharded axes: tensor parallelism in training, the
+# fsdp axis in serving, a quantised base over fsdp > 1
+ITEM_6B_II = "ROADMAP Queue 1 item 6b-ii"
 LORA_KEYS = ("lora_a", "lora_b", "lora_ga", "lora_gb")
 
 
@@ -134,7 +145,7 @@ def make_mesh(shape: Optional[Sequence[int]] = None, *, device="cuda",
 
 def serving_mesh_shape(text: str) -> Tuple[int, int, int]:
     """A CLI's ``--mesh dp,fsdp,tp`` as a shape, checked before anything
-    loads: serving takes no fsdp axis yet (``ITEM_FSDP``)."""
+    loads: serving takes no fsdp axis yet (``ITEM_6B_II``)."""
     try:
         shape = tuple(int(x) for x in text.split(","))
     except ValueError:
@@ -144,14 +155,14 @@ def serving_mesh_shape(text: str) -> Tuple[int, int, int]:
     if shape[1] > 1:
         raise NotImplementedError(
             f"--mesh {text}: serving with fsdp > 1 (weights sharded for training) is not "
-            f"ported yet ({ITEM_FSDP}); use dp,1,tp")
+            f"ported yet ({ITEM_6B_II}); use dp,1,tp")
     return shape
 
 
 def check_serving_mesh(mesh: Mesh) -> None:
     if mesh.shape["fsdp"] > 1:
         raise NotImplementedError(f"serving on a mesh with fsdp = {mesh.shape['fsdp']} > 1 "
-                                  f"is not ported yet ({ITEM_FSDP})")
+                                  f"is not ported yet ({ITEM_6B_II})")
 
 
 def batch_spec() -> Tuple[str, str]:
@@ -313,7 +324,7 @@ def _shard_linear(lin: nn.Module, kind: str, tp: int, rank: int) -> None:
     if any(getattr(lin, k, None) is not None for k in LORA_KEYS):
         raise NotImplementedError(
             "a linear carrying LoRA factors cannot be sharded: fold the LoRA into the "
-            f"base first (serving folds it at load); LoRA over a sharded base is {ITEM_FSDP}")
+            f"base first (serving folds it at load); LoRA over a sharded base is {ITEM_6B_II}")
     quant = isinstance(lin, QuantLinear)
     if quant and kind == ROW and lin.mode == "nf4":
         raise ValueError("cannot slice the input rows of NF4 codes (packed as a half "
@@ -381,3 +392,153 @@ def shard_module(model: nn.Module, specs: Dict[str, str], mesh: Mesh, *,
     model.tp_rank = mesh.tensor_rank
     return model
 
+
+
+# ---------------------------------------------------------------------------
+# FSDP: training over the fsdp axis (tp = 1)
+# ---------------------------------------------------------------------------
+
+def check_training_mesh(mesh: Mesh) -> None:
+    """Training shards parameters over fsdp and the batch over (data, fsdp);
+    a tensor axis in training is not ported yet."""
+    if mesh.tensor > 1:
+        raise NotImplementedError(f"training at tp = {mesh.tensor} > 1 (mesh {mesh.shape}) is "
+                                  f"not ported yet ({ITEM_6B_II}); use dp,fsdp,1")
+
+
+def fsdp_mesh(mesh: Mesh):
+    """The ``DeviceMesh`` FSDP shards over: the fsdp axis, or (data, fsdp)
+    with data > 1 (HSDP: each data replica holds the same fsdp shards, as
+    the JAX package replicates its fsdp-sharded arrays over data)."""
+    dm = mesh.device_mesh
+    return dm["fsdp"] if mesh.shape["data"] == 1 else dm["data", "fsdp"]
+
+
+def shard_for_training(model: nn.Module, mesh: Mesh, *,
+                       compute_dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """FSDP over the fsdp axis of `mesh` (the JAX ``shard_tree`` of
+    ``flux_param_specs`` at tp = 1), in place: ``fully_shard`` of each
+    double and single block, then of the root, which takes the embedders
+    and the output head. Each parameter becomes a ``DTensor`` holding this
+    rank's slice: an ``nn.Linear`` weight, stored (out, in), is split along
+    its input axis (dim 1; the JAX package's fsdp axis of a column-parallel
+    weight), every other tensor along dim 0 (biases, q/k scales, LoRA
+    factors). A module gathers its weights when called, in
+    `compute_dtype` (each product casts its weight to the activation dtype
+    anyway: ``models.layers.dense``), and reduce-scatters the gradients in
+    float32, averaged over the batch's ranks. Attached LoRA factors shard
+    with their block. A quantised base (buffers, which FSDP does not
+    shard) raises."""
+    check_training_mesh(mesh)
+    if any(isinstance(m, QuantLinear) for m in model.modules()):
+        raise NotImplementedError(f"a quantised base over fsdp > 1 is not ported yet "
+                                  f"({ITEM_6B_II}): its codes are buffers, which FSDP does "
+                                  "not shard")
+    from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
+    from torch.distributed.tensor import Shard
+
+    weights = {id(m.weight) for m in model.modules() if isinstance(m, nn.Linear)}
+    kw = dict(mesh=fsdp_mesh(mesh),
+              mp_policy=MixedPrecisionPolicy(param_dtype=compute_dtype,
+                                             reduce_dtype=torch.float32,
+                                             cast_forward_inputs=False),
+              shard_placement_fn=lambda p: Shard(1) if id(p) in weights else Shard(0))
+    for blk in [*model.double_blocks, *model.single_blocks]:
+        fully_shard(blk, **kw)
+    fully_shard(model, **kw)
+    return model
+
+
+def chunk_bounds(size: int, n: int) -> list:
+    """[(start, stop)] of each of `n` ranks' slices of an axis of `size`:
+    torch.chunk's split, as FSDP2 shards (the last slices may be short or
+    empty)."""
+    c = -(-size // n)
+    return [(min(r * c, size), min((r + 1) * c, size)) for r in range(n)]
+
+
+def all_gather_parts(x: torch.Tensor, bounds, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim`, rank r's holding
+    bounds[r]'s extent there (``all_gather`` of the parts padded to the
+    longest, which gloo runs on CUDA tensors too)."""
+    shape = list(x.shape)
+    shape[dim] = max(b - a for a, b in bounds)
+    pad = x.new_zeros(shape)
+    pad.narrow(dim, 0, x.shape[dim]).copy_(x)
+    parts = [torch.empty_like(pad) for _ in bounds]
+    dist.all_gather(parts, pad, group=group)
+    return torch.cat([part.narrow(dim, 0, b - a) for part, (a, b) in zip(parts, bounds)],
+                     dim=dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """Where a ``shard_for_training`` parameter's local slice lies: indices
+    [start, stop) of dim `dim` of the whole tensor of `shape` (torch.chunk's
+    split over the fsdp ranks; a slice may be empty), gathered over
+    `group`, the fsdp ranks (data replicas hold the same slices)."""
+
+    dim: int
+    start: int
+    stop: int
+    shape: torch.Size
+    group: Any
+
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole tensor (a view)."""
+        return full.narrow(self.dim, self.start, self.stop - self.start)
+
+    def full(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every fsdp rank's `local` slice (shaped as
+        this parameter's), on every rank: a collective."""
+        bounds = chunk_bounds(self.shape[self.dim], dist.get_world_size(self.group))
+        return all_gather_parts(local, bounds, self.group, self.dim)
+
+    def run(self, transpose: bool) -> Tuple[int, int]:
+        """[first, last) of the slice's elements in the whole tensor
+        flattened in the JAX package's order (transposed first where the
+        port stores it so): one contiguous run, as the split dim comes first
+        in that order."""
+        shape = tuple(self.shape)[::-1] if transpose else tuple(self.shape)
+        if self.dim != (len(shape) - 1 if transpose else 0):
+            raise ValueError(f"dim {self.dim} of {shape} is not the leading one in the JAX order")
+        inner = math.prod(shape[1:])
+        return self.start * inner, self.stop * inner
+
+
+def shard_spec(p: torch.Tensor) -> Optional[ShardSpec]:
+    """The ``ShardSpec`` of a parameter ``shard_for_training`` sharded;
+    None for a plain tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(p, DTensor):
+        return None
+    axes = [i for i, pl in enumerate(p.placements) if isinstance(pl, Shard)]
+    if len(axes) != 1:
+        raise ValueError(f"expected one sharded mesh axis, got placements {p.placements}")
+    axis = axes[0]
+    dim = p.placements[axis].dim
+    start, stop = chunk_bounds(p.shape[dim], p.device_mesh.size(axis))[
+        p.device_mesh.get_local_rank(axis)]
+    if p.to_local().shape[dim] != stop - start:
+        raise ValueError(f"a local slice of {tuple(p.to_local().shape)} is not rows "
+                         f"[{start}, {stop}) of dim {dim} of {tuple(p.shape)}")
+    return ShardSpec(dim, start, stop, p.shape, p.device_mesh.get_group(axis))
+
+
+def local(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A ``DTensor``'s local slice (sharing its storage), a plain tensor as
+    it is."""
+    to_local = getattr(t, "to_local", None)
+    return t if to_local is None else to_local()
+
+
+def full_tensor(p: torch.Tensor, *, host: bool = False) -> torch.Tensor:
+    """The whole value of a parameter: a plain one detached as it is, a
+    sharded one gathered (a collective: every fsdp rank calls this in the
+    same order), on the host with `host`."""
+    spec = shard_spec(p)
+    if spec is None:
+        return p.detach()
+    whole = spec.full(local(p.detach()))
+    return whole.cpu() if host else whole

@@ -21,6 +21,14 @@ in any dtype (``dense`` casts every weight to the activation dtype per
 product). Randomness comes from a ``torch.Generator`` or is handed in
 (``flow_matching_loss(noise=...)``), so a test can give the port the JAX
 package's draws.
+
+Over the fsdp axis (``parallel.partitioning.shard_for_training``) each
+parameter is a ``DTensor`` holding this rank's slice: the optimizers update
+the local slices (their masks sliced to match), sum the global norm's
+squares and Prodigy's two sums over the fsdp ranks, and give and take their
+state in the whole tensors' layout (``state_dict``), so a checkpoint does
+not depend on the mesh. The step draws each microbatch's noise for the
+whole batch and keeps this rank's rows (``flow_matching_loss(batch_rows=)``).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, 
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from textflux_torch.io.quantize import QuantLinear
@@ -39,6 +48,7 @@ from textflux_torch.models.transformer import FluxTransformer, flux_apply
 from textflux_torch.models.vae import FluxVAE, vae_encode
 from textflux_torch.ops import packing, samplers
 from textflux_torch.ops.rope import rope_tables
+from textflux_torch.parallel import partitioning as PT
 from textflux_torch.training import optim8bit
 
 
@@ -229,21 +239,36 @@ def lora_target_dims(lin: nn.Module) -> Tuple[int, int]:
 
 
 def lora_init(model: FluxTransformer, rank: int, *,
-              generator: Optional[torch.Generator] = None) -> Lora:
+              generator: Optional[torch.Generator] = None, device=None) -> Lora:
     """Per-target fp32 factors: A ~ N(0, 1/r^2) (the JAX package's
-    normal / rank), B = 0. Grouped targets (LORA_GROUPED) get M independent
-    per-module factors. Returns {path: {"a": Parameter, "b": Parameter}}."""
+    normal / rank), B = 0, on `device` (default: each target's). Grouped
+    targets (LORA_GROUPED) get M independent per-module factors. Returns
+    {path: {"a": Parameter, "b": Parameter}}."""
     d = model.cfg.hidden_dim
     lora = {}
     for path, lin in lora_targets(model).items():
         d_in, d_out = lora_target_dims(lin)
-        dev = next(itertools.chain(lin.parameters(), lin.buffers())).device
+        dev = device if device is not None else next(
+            itertools.chain(lin.parameters(), lin.buffers())).device
         m = LORA_GROUPED.get(path.split(".", 2)[2])   # "double_blocks.3.img_qkv" -> "img_qkv"
         a_shape, b_shape = ((m, d_in, rank), (m, rank, d)) if m else ((d_in, rank), (rank, d_out))
         a = torch.randn(a_shape, generator=generator, device=dev, dtype=torch.float32) / rank
         lora[path] = {"a": nn.Parameter(a),
                       "b": nn.Parameter(torch.zeros(b_shape, device=dev, dtype=torch.float32))}
     return lora
+
+
+def attached_lora(model: FluxTransformer, paths: Iterable[str]) -> Lora:
+    """The factors ``lora_insert`` attached at `paths`, as the module holds
+    them now ({path: {"a", "b"}}; after ``shard_for_training``, the
+    sharded parameters that replaced the ones inserted)."""
+    out = {}
+    for path in paths:
+        lin = model.get_submodule(path)
+        grouped = getattr(lin, "lora_ga", None) is not None
+        out[path] = {"a": lin.lora_ga if grouped else lin.lora_a,
+                     "b": lin.lora_gb if grouped else lin.lora_b}
+    return out
 
 
 def lora_parameters(lora: Lora) -> List[torch.Tensor]:
@@ -363,6 +388,19 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def _local_mask(m: Optional[torch.Tensor], p: torch.Tensor,
+                spec: Optional[PT.ShardSpec]) -> Optional[torch.Tensor]:
+    """A parameter's mask for its local slice: sliced along the sharded dim
+    where it is not broadcast there (a (rows, 1) mask on a weight split
+    along dim 1 stays as it is)."""
+    if m is None or spec is None:
+        return m
+    dim = spec.dim - (p.dim() - m.dim())
+    if dim < 0 or m.shape[dim] == 1:
+        return m
+    return m.narrow(dim, spec.start, spec.stop - spec.start)
+
+
 class ClippedOptimizer:
     """optax.chain(clip_by_global_norm(max_grad_norm), <update>(schedule))
     over parameters by name (names ``jax_leaf`` places in the JAX trees)
@@ -377,29 +415,75 @@ class ClippedOptimizer:
 
     The clip is optax's: gradients are scaled by max/||g|| only when
     ||g|| > max (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm).
-    The learning rate is the schedule's at the update count."""
+    The learning rate is the schedule's at the update count.
+
+    A parameter sharded by ``shard_for_training`` is updated through its
+    local slice (``params[i]``, a leaf sharing its storage; ``sources[i]``
+    is the parameter, whose ``.grad`` FSDP fills): the norm's squares are
+    summed over the fsdp ranks, and ``state_dict`` / ``load_state_dict``
+    speak of the whole tensors."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], tc: TrainConfig,
                  masks: Optional[Masks] = None):
         self.names = list(params)
-        self.params = list(params.values())
-        self.masks = [None if masks is None else masks[name] for name in self.names]
+        self.sources = list(params.values())
+        self.specs = [PT.shard_spec(p) for p in self.sources]
+        self.params = [p if s is None else nn.Parameter(PT.local(p.detach()), requires_grad=False)
+                       for p, s in zip(self.sources, self.specs)]
+        self.masks = [None if masks is None else _local_mask(masks[name], p, s)
+                      for name, p, s in zip(self.names, self.sources, self.specs)]
+        # the fsdp ranks the sums run over (shard_for_training shards every
+        # parameter of a model over one mesh)
+        self.group = next((s.group for s in self.specs if s is not None), None)
         self.schedule = make_lr_schedule(tc)
         self.max_grad_norm = tc.max_grad_norm
         self.weight_decay = tc.weight_decay
         self.count = 0
+
+    def zero_grad(self) -> None:
+        for p in self.sources + self.params:
+            p.grad = None
+
+    def _total(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of per-parameter partial sums (0-d) over the whole
+        tensors: the sharded parameters' parts summed over the fsdp ranks
+        (data replicas hold the same slices, so they count once)."""
+        if self.group is None:
+            return torch.stack(list(parts)).sum()
+        sharded = [x for x, s in zip(parts, self.specs) if s is not None]
+        total = torch.stack(sharded).sum()
+        dist.all_reduce(total, group=self.group)
+        whole = [x for x, s in zip(parts, self.specs) if s is None]
+        return total + torch.stack(whole).sum() if whole else total
+
+    def _full(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """A tensor shaped like parameter i's local slice, made whole (on
+        the host) over the fsdp ranks."""
+        spec = self.specs[i]
+        return t if spec is None else spec.full(t).cpu()
+
+    def _cut(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Parameter i's slice of a tensor shaped like the whole parameter."""
+        spec = self.specs[i]
+        return t if spec is None else spec.cut(t)
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """Mask, clip, update, advance the schedule. Returns the global norm
         of the masked gradients before clipping (a 0-d tensor, no host
         sync)."""
-        for p in self.params:
+        for src, p in zip(self.sources, self.params):
+            if p is not src:
+                p.grad = None if src.grad is None else PT.local(src.grad)
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         apply_mask(grads, self.masks)
-        norm = global_norm(grads)
+        if self.group is None:
+            norm = global_norm(grads)
+        else:
+            norms = torch._foreach_norm([g.float() for g in grads])
+            norm = torch.sqrt(self._total(torch._foreach_mul(norms, norms)))
         factor = torch.where(norm > self.max_grad_norm, self.max_grad_norm / norm,
                              torch.ones_like(norm))
         torch._foreach_mul_(grads, factor)
@@ -424,6 +508,8 @@ class ClippedAdamW(ClippedOptimizer):
     their trainable elements only; their masked elements have zero moments,
     so Adam's step leaves them as they are."""
 
+    MOMENTS = ("exp_avg", "exp_avg_sq")
+
     def __init__(self, params, tc: TrainConfig, masks=None):
         super().__init__(params, tc, masks)
         whole = [p for p, m in zip(self.params, self.masks) if m is None]
@@ -433,6 +519,9 @@ class ClippedAdamW(ClippedOptimizer):
         self.opt = torch.optim.AdamW(groups, lr=self.schedule(0),
                                      betas=(tc.adam_b1, tc.adam_b2), eps=tc.adam_eps,
                                      weight_decay=tc.weight_decay)
+        # torch's state index -> the parameter's index here
+        index = {id(p): i for i, p in enumerate(self.params)}
+        self._order = [index[id(p)] for g in self.opt.param_groups for p in g["params"]]
 
     def _update(self, lr: float) -> None:
         for group in self.opt.param_groups:
@@ -442,12 +531,22 @@ class ClippedAdamW(ClippedOptimizer):
                 p.mul_(1 - lr * self.weight_decay * m)
         self.opt.step()
 
+    def _moments(self, state: Mapping, fn) -> dict:
+        return {k: {key: fn(self._order[k], v) if key in self.MOMENTS else v
+                    for key, v in s.items()} for k, s in state.items()}
+
     def state_dict(self) -> dict:
-        return {"count": self.count, "adamw": self.opt.state_dict()}
+        sd = self.opt.state_dict()
+        if self.group is not None:
+            sd = dict(sd, state=self._moments(sd["state"], self._full))
+        return {"count": self.count, "adamw": sd}
 
     def load_state_dict(self, state: Mapping) -> None:
         self.count = int(state["count"])
-        self.opt.load_state_dict(state["adamw"])
+        sd = state["adamw"]
+        if self.group is not None:
+            sd = dict(sd, state=self._moments(sd["state"], self._cut))
+        self.opt.load_state_dict(sd)
 
 
 class ClippedAdamW8bit(ClippedOptimizer):
@@ -466,31 +565,55 @@ class ClippedAdamW8bit(ClippedOptimizer):
     per-layer slices are whole blocks is updated layer by layer, any other
     is stacked for its update (no stacked copy of a large leaf is made: at
     FLUX width every matrix and bias is whole blocks, only the 128-wide
-    q/k scales stack)."""
+    q/k scales stack).
+
+    Sharded (``shard_for_training``): a rank's slice of a layer is one
+    contiguous run of the leaf's elements (``ShardSpec.run``). Where every
+    rank's run is whole blocks, the rank keeps and updates only its blocks,
+    which then equal the JAX leaf's same blocks; any other leaf's gradients
+    are gathered whole, every rank updates the whole leaf as above (its
+    moments whole on each) and keeps its slice of the update. Either way
+    ``state_dict`` gives each leaf's whole (n_blocks, 256) codes."""
 
     def __init__(self, params, tc: TrainConfig, masks=None):
         super().__init__(params, tc, masks)
         self.betas = (tc.adam_b1, tc.adam_b2)
         self.eps = tc.adam_eps
         leaves: Dict[str, list] = {}
-        for i, p in enumerate(self.params):
+        for i, p in enumerate(self.sources):
             key, layer, transpose = jax_leaf(self.names[i])
             leaves.setdefault(key, []).append((layer or 0, i, transpose and p.dim() == 2))
-        # (parameter indices in layer order, transposed, updated layer by layer)
-        self.leaves = []
+        # (parameter indices in layer order, transposed, updated layer by
+        # layer), and whether only the local blocks are kept
+        self.leaves, self.local = [], []
         for members in leaves.values():
             idx = [i for _, i, _ in sorted(members)]
-            per_layer = all(self.params[i].numel() % optim8bit.BLOCK == 0 for i in idx)
-            self.leaves.append((idx, members[0][2], per_layer))
+            transpose = members[0][2]
+            local = all(self._whole_block_runs(i, transpose) for i in idx)
+            per_layer = local or all(self.sources[i].numel() % optim8bit.BLOCK == 0 for i in idx)
+            self.leaves.append((idx, transpose, per_layer))
+            self.local.append(local)
         self.state = {k: [] for k in ("mu_q", "mu_scale", "nu_q", "nu_scale")}
-        for idx, _, _ in self.leaves:
-            p = self.params[idx[0]]
-            nb = optim8bit.n_blocks(sum(self.params[i].numel() for i in idx))
+        for (idx, _, _), local in zip(self.leaves, self.local):
+            size = (self.params if local else self.sources)
+            nb = optim8bit.n_blocks(sum(size[i].numel() for i in idx))
+            dev = self.params[idx[0]].device
             for m in ("mu", "nu"):
                 self.state[f"{m}_q"].append(torch.zeros((nb, optim8bit.BLOCK), dtype=torch.int8,
-                                                        device=p.device))
+                                                        device=dev))
                 self.state[f"{m}_scale"].append(torch.zeros(nb, dtype=torch.float32,
-                                                            device=p.device))
+                                                            device=dev))
+
+    def _runs(self, i: int, transpose: bool) -> List[Tuple[int, int]]:
+        """Every fsdp rank's run of parameter i's elements in the JAX order."""
+        spec = self.specs[i]
+        return [dataclasses.replace(spec, start=a, stop=b).run(transpose) for a, b in
+                PT.chunk_bounds(spec.shape[spec.dim], dist.get_world_size(spec.group))]
+
+    def _whole_block_runs(self, i: int, transpose: bool) -> bool:
+        return self.specs[i] is not None and all(
+            a % optim8bit.BLOCK == 0 and b % optim8bit.BLOCK == 0
+            for a, b in self._runs(i, transpose))
 
     @staticmethod
     def _flat(tensors: Sequence[torch.Tensor], transpose: bool) -> torch.Tensor:
@@ -505,11 +628,16 @@ class ClippedAdamW8bit(ClippedOptimizer):
         k = torch.tensor(float(self.count + 1), dtype=torch.float32)
         c1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** k)
         c2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** k)
-        for j, (idx, transpose, per_layer) in enumerate(self.leaves):
+        for j, ((idx, transpose, per_layer), local) in enumerate(zip(self.leaves, self.local)):
+            # the elements updated here: the local slices, or the whole
+            # parameters (gathered where sharded)
+            grad = ((lambda i: self.params[i].grad) if local else
+                    (lambda i: self._whole_grad(i)))
+            shape = ((lambda i: self.params[i].shape) if local else
+                     (lambda i: self.sources[i].shape))
             start = 0
             for chunk in ([[i] for i in idx] if per_layer else [idx]):
-                ps = [self.params[i] for i in chunk]
-                g = self._flat([p.grad for p in ps], transpose)
+                g = self._flat([grad(i) for i in chunk], transpose)
                 blocks = slice(start, start + optim8bit.n_blocks(g.numel()))
                 start = blocks.stop
                 mu = optim8bit.dequantize_dynamic((st["mu_q"][j][blocks],
@@ -526,23 +654,75 @@ class ClippedAdamW8bit(ClippedOptimizer):
                     st[f"{m}_scale"][j][blocks] = scale
                 del g, mu, nu
                 offset = 0
-                for i, p in zip(chunk, ps):
-                    u = upd[offset:offset + p.numel()]
-                    offset += p.numel()
-                    u = u.view(p.shape[::-1]).T if transpose else u.view(p.shape)
+                for i in chunk:
+                    p, n = self.params[i], math.prod(shape(i))
+                    u = upd[offset:offset + n]
+                    offset += n
+                    u = u.view(shape(i)[::-1]).T if transpose else u.view(shape(i))
+                    if not local:
+                        u = self._cut(i, u)
                     u = u + self.weight_decay * p
                     if self.masks[i] is not None:
                         u = u * self.masks[i]
                     p.add_(u.to(p.dtype), alpha=-lr)
 
+    def _whole_grad(self, i: int) -> torch.Tensor:
+        spec = self.specs[i]
+        return self.params[i].grad if spec is None else spec.full(self.params[i].grad)
+
+    def _layer_blocks(self, j: int):
+        """(parameter index, its local blocks' slice of leaf j's state, the
+        fsdp ranks' block runs of it) for each layer of a leaf kept local."""
+        idx, transpose, _ = self.leaves[j]
+        start, out = 0, []
+        for i in idx:
+            runs = [(a // optim8bit.BLOCK, b // optim8bit.BLOCK)
+                    for a, b in self._runs(i, transpose)]
+            n = self.params[i].numel() // optim8bit.BLOCK
+            out.append((i, slice(start, start + n), runs))
+            start += n
+        return out
+
     def state_dict(self) -> dict:
-        return {"count": self.count, "adamw8bit": self.state}
+        if self.group is None:
+            return {"count": self.count, "adamw8bit": self.state}
+        out = {k: [] for k in self.state}
+        for j, local in enumerate(self.local):
+            for key, arrays in self.state.items():
+                x = arrays[j]
+                if local:
+                    x = torch.cat([PT.all_gather_parts(x[sl], runs, self.group).cpu()
+                                   for _, sl, runs in self._layer_blocks(j)])
+                out[key].append(x)
+        return {"count": self.count, "adamw8bit": out}
+
+    def _local_state(self, saved: Mapping) -> dict:
+        """A whole-layout state cut to this rank's blocks."""
+        rank = dist.get_rank(self.group)
+        out = {k: list(v) for k, v in saved.items()}
+        for j, local in enumerate(self.local):
+            if not local:
+                continue
+            for key in out:
+                x, start, parts = saved[key][j], 0, []
+                for i, _, runs in self._layer_blocks(j):
+                    a, b = runs[rank]
+                    parts.append(x[start + a:start + b])
+                    start += runs[-1][1]
+                if start != x.shape[0]:
+                    raise ValueError(f"8-bit AdamW state {key}[{j}] has {x.shape[0]} blocks, "
+                                     f"its leaf {start}")
+                out[key][j] = torch.cat(parts)
+        return out
 
     def load_state_dict(self, state: Mapping) -> None:
         """Restore a state this layout saved; one blocked otherwise (another
         set of parameters, or moments kept per parameter rather than per
         JAX leaf) raises."""
         saved = state["adamw8bit"]
+        if self.group is not None and set(saved) == set(self.state) and all(
+                len(saved[k]) == len(self.state[k]) for k in saved):
+            saved = self._local_state(saved)
         if set(saved) != set(self.state) or any(
                 len(saved[k]) != len(self.state[k])
                 or any(x.shape != y.shape for x, y in zip(self.state[k], saved[k]))
@@ -571,10 +751,13 @@ class ClippedProdigy(ClippedOptimizer):
     gradient sum, a copy of the initial parameters (a copy, not an alias of
     them: the JAX wrapper copies for the same reason) and the scalar D
     estimate and weighted numerator, kept on the parameters' device so no
-    step waits for the host."""
+    step waits for the host. Sharded, the two sums over every tensor (the
+    numerator's inner product and the denominator's L1 norm) run over the
+    whole tensors."""
 
     estim_lr0 = 1e-6
     estim_lr_coef = 1.0
+    PER_PARAMETER = ("exp_avg", "exp_avg_sq", "grad_sum", "params0")
 
     def __init__(self, params, tc: TrainConfig, masks=None):
         super().__init__(params, tc, masks)
@@ -603,8 +786,8 @@ class ClippedProdigy(ClippedOptimizer):
         dlr = d * lr * bc
         # <g, p0 - p> over every tensor (optax.tree.vdot)
         diffs = torch._foreach_sub(st["params0"], params)
-        numerator = torch.stack([torch.vdot(g.reshape(-1), x.reshape(-1))
-                                 for g, x in zip(grads, diffs)]).sum()
+        numerator = self._total([torch.vdot(g.reshape(-1), x.reshape(-1))
+                                 for g, x in zip(grads, diffs)])
         del diffs
         dg = torch._foreach_mul(grads, d)
         torch._foreach_mul_(st["exp_avg"], b1)
@@ -615,7 +798,7 @@ class ClippedProdigy(ClippedOptimizer):
         torch._foreach_mul_(st["grad_sum"], b3)
         torch._foreach_add_(st["grad_sum"], dg)
         del dg
-        denominator = torch.stack(torch._foreach_norm(st["grad_sum"], 1)).sum()
+        denominator = self._total(torch._foreach_norm(st["grad_sum"], 1))
         st["numerator_weighted"] = (b3 * st["numerator_weighted"]
                                     + (d / d0) * dlr * numerator)
         d_new = torch.maximum(d, self.estim_lr_coef * st["numerator_weighted"] / denominator)
@@ -634,7 +817,11 @@ class ClippedProdigy(ClippedOptimizer):
         torch._foreach_addcdiv_(params, st["exp_avg"], denom)
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "prodigy": self.state}
+        st = self.state
+        if self.group is not None:
+            st = {k: [self._full(i, x) for i, x in enumerate(v)] if k in self.PER_PARAMETER
+                  else v for k, v in st.items()}
+        return {"count": self.count, "prodigy": st}
 
     def load_state_dict(self, state: Mapping) -> None:
         self.count = int(state["count"])
@@ -643,8 +830,8 @@ class ClippedProdigy(ClippedOptimizer):
                 if isinstance(value, torch.Tensor):
                     self.state[key].copy_(value)
                 else:
-                    for x, y in zip(self.state[key], value, strict=True):
-                        x.copy_(y)
+                    for i, (x, y) in enumerate(zip(self.state[key], value, strict=True)):
+                        x.copy_(self._cut(i, y))
 
 
 OPTIMIZERS = {"adamw": ClippedAdamW, "adamw8bit": ClippedAdamW8bit, "prodigy": ClippedProdigy}
@@ -683,6 +870,7 @@ def flow_matching_loss(
     attn_impl: str = "auto",
     generator: Optional[torch.Generator] = None,
     noise: Optional[Mapping[str, torch.Tensor]] = None,
+    batch_rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """One microbatch loss (fp32 scalar). batch: pixel_values (B,H,W,3) in
     [-1,1], mask (B,H,W) in {0,1}, txt (B,L,joint), pooled (B,pooled).
@@ -692,6 +880,12 @@ def flow_matching_loss(
     like the latents); "u", the raw timestep-density draw (B,); "noise", the
     flow-matching noise (like the latents, fp32). The conditioning dropout
     (cond_dropout_prob > 0) always draws from `generator`.
+
+    `batch_rows` = (first, total): `batch` is rows [first, first + B) of a
+    batch of `total` spread over ranks; each draw from `generator` is made
+    for the whole batch, in the same order, and this rank keeps its rows,
+    so the draws do not depend on how the batch is split (`noise`, when
+    given, holds this rank's rows already).
 
     The VAE encodes and the inputs run without gradient in the compute
     dtype, as the JAX loss casts them; norms and softmax stay fp32 inside
@@ -708,9 +902,17 @@ def flow_matching_loss(
     cdt = getattr(torch, tc.compute_dtype)
     f = vae.cfg.spatial_factor
 
-    def given(key):
+    def rows(shape, draw=torch.randn):
+        """This rank's rows of the whole batch's draw."""
+        first, total = batch_rows
+        whole = draw((total, *shape[1:]), generator=generator, device=dev, dtype=torch.float32)
+        return whole[first:first + shape[0]]
+
+    def given(key, shape, draw=torch.randn):
         x = noise.get(key)
-        return None if x is None else torch.as_tensor(x, device=dev)
+        if x is not None:
+            return torch.as_tensor(x, device=dev)
+        return None if batch_rows is None else rows(shape, draw)
 
     with torch.no_grad():
         pixels = batch["pixel_values"].to(cdt)
@@ -718,21 +920,26 @@ def flow_matching_loss(
         mask = batch["mask"]
         txt = batch["txt"].to(cdt)
         pooled = batch["pooled"].to(cdt)
-        b = pixels.shape[0]
-        x = vae_encode(vae, pixels, noise=given("vae"), generator=generator).to(cdt)
+        b, h, w = pixels.shape[:3]
+        latent = (b, h // f, w // f, vae.cfg.latent_channels)
+        x = vae_encode(vae, pixels, noise=given("vae", latent), generator=generator).to(cdt)
         masked = pixels * (1.0 - mask[..., None]).to(cdt)
-        z_cond = vae_encode(vae, masked, noise=given("cond_vae"), generator=generator).to(cdt)
+        z_cond = vae_encode(vae, masked, noise=given("cond_vae", latent),
+                            generator=generator).to(cdt)
         cond = torch.cat([packing.pack_latents(z_cond),
                           packing.pack_mask(mask.to(z_cond.dtype), f)], dim=-1)
         if tc.cond_dropout_prob > 0:
-            keep = torch.rand(cond.shape, generator=generator, device=dev) >= tc.cond_dropout_prob
+            drop = (torch.rand(cond.shape, generator=generator, device=dev)
+                    if batch_rows is None else rows(cond.shape, torch.rand))
+            keep = drop >= tc.cond_dropout_prob
             cond = cond * keep.to(cond.dtype) / (1.0 - tc.cond_dropout_prob)
 
+        raw = torch.randn if tc.weighting_scheme == "logit_normal" else torch.rand
         u = samplers.sample_timestep_density(
             b, tc.weighting_scheme, tc.logit_mean, tc.logit_std, tc.mode_scale,
-            generator=generator, u=given("u"))
+            generator=generator, u=given("u", (b,), raw))
         sigmas = samplers.train_sigmas(u, shift=tc.schedule_shift)
-        eps = given("noise")
+        eps = given("noise", x.shape)
         if eps is None:
             eps = torch.randn(x.shape, generator=generator, device=dev, dtype=torch.float32)
         eps = eps.to(x.dtype)
@@ -765,31 +972,42 @@ def make_train_step(tc: TrainConfig, *, attn_impl: str = "auto"):
     weight-gradient product, the JAX ``trainable_leaves``); in LoRA mode the
     factors that ``lora_insert`` attached (the JAX ``make_lora_train_step``).
 
-    step(model, vae, opt, batch, *, generator=None, noise=None) -> metrics.
-    ``batch`` leaves carry a leading grad-accum axis (A, B, ...); `noise`,
-    when given, is one ``flow_matching_loss`` noise dict per microbatch.
-    Each microbatch's loss / A is backpropagated in turn (the JAX scan's
-    sum of gradients / A), then `opt` steps. The parameters are updated in
-    place; metrics are 0-d device tensors: {"loss": mean microbatch loss,
-    "grad_norm": global norm of the masked gradients before clipping}. The
-    gradients stay in ``.grad`` until the next step."""
+    step(model, vae, opt, batch, *, generator=None, noise=None, batch_rows=None)
+    -> metrics. ``batch`` leaves carry a leading grad-accum axis (A, B, ...);
+    `noise`, when given, is one ``flow_matching_loss`` noise dict per
+    microbatch. Each microbatch's loss / A is backpropagated in turn (the
+    JAX scan's sum of gradients / A), then `opt` steps. The parameters are
+    updated in place; metrics are 0-d device tensors: {"loss": mean
+    microbatch loss, "grad_norm": global norm of the masked gradients
+    before clipping}. The gradients stay in ``.grad`` until the next step.
 
-    def step(model, vae, opt: ClippedOptimizer, batch, *, generator=None, noise=None):
+    Over the fsdp axis every rank of the default group calls this on its
+    rows of each microbatch (`batch_rows`, see ``flow_matching_loss``):
+    FSDP averages the gradients of the ranks' mean losses, which over equal
+    slices is the whole batch's mean gradient, and the loss reported is the
+    mean over the ranks."""
+
+    def step(model, vae, opt: ClippedOptimizer, batch, *, generator=None, noise=None,
+             batch_rows=None):
         accum = batch["pixel_values"].shape[0]
         if noise is not None and len(noise) != accum:
             raise ValueError(f"noise has {len(noise)} microbatches, the batch {accum}")
-        for p in opt.params:
-            p.grad = None
+        opt.zero_grad()
         loss_sum = None
         for i in range(accum):
             mb = {k: v[i] for k, v in batch.items()}
             loss = flow_matching_loss(model, vae, tc, mb, attn_impl=attn_impl,
                                       generator=generator,
-                                      noise=None if noise is None else noise[i])
+                                      noise=None if noise is None else noise[i],
+                                      batch_rows=batch_rows)
             (loss / accum).backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
         grad_norm = opt.step()
-        return {"loss": loss_sum / accum, "grad_norm": grad_norm}
+        loss = loss_sum / accum
+        if batch_rows is not None:
+            dist.all_reduce(loss)
+            loss /= dist.get_world_size()
+        return {"loss": loss, "grad_norm": grad_norm}
 
     return step
 
