@@ -156,8 +156,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -175,7 +177,8 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BF16_TOL = 2e-2              # unit-scale inputs, bf16 rounding of q/k/p/out
 PHASES = ("device", "build", "kernels", "main", "profile", "train", "checkpoint",
-          "train_main", "quantized", "qlora", "eval", "train_full", "tp_serve", "fsdp_train")
+          "train_main", "quantized", "qlora", "eval", "train_full", "tp_serve", "fsdp_train",
+          "tp_train")
 
 
 def log(msg: str) -> None:
@@ -460,6 +463,8 @@ def phase_flash_kernels() -> dict:
         ("train", 1, 4224, 24, 128, None, False),
         ("train_kv_len", 1, 4224, 24, 128, 4100, False),
         ("train_single_block", 1, 4224, 24, 128, None, True),
+        # a tp = 2 rank's heads in training (tp_train)
+        ("train_h12", 1, 4224, 12, 128, None, False),
         ("s1408", 1, 1408, 24, 128, None, False),
         ("ragged_s1000", 1, 1000, 24, 128, None, False),
         # ragged query and key tiles, a batch stride in the tensor maps
@@ -1514,8 +1519,8 @@ class _TrainMainRecorder:
             return checked
 
         def make_opt(orig):
-            def kept(tc, params):
-                self.opt = orig(tc, params)
+            def kept(tc, params, *a, **kw):
+                self.opt = orig(tc, params, *a, **kw)
                 return self.opt
             return kept
 
@@ -2751,8 +2756,8 @@ class _TrainFullRecorder:
             return timed
 
         def make_opt(orig):
-            def kept(tc, params, masks=None):
-                self.opt, self.masks = orig(tc, params, masks), masks
+            def kept(tc, params, masks=None, **kw):
+                self.opt, self.masks = orig(tc, params, masks, **kw), masks
                 self.before = full_checksums(self.model, masks)
                 inner = self.opt.step
 
@@ -3126,10 +3131,11 @@ def _tp_load(mesh, preps, *, batch: int):
 
 
 def tp_child(spec_path: str) -> int:
-    """One rank of the tp_serve phase (``--tp-child``): "tp" and "dp" ranks
-    join a gloo group on cuda:0 the phase names and serve on a mesh;
-    "nccl" runs cli.run_eval.main with --mesh 1,1,1 as torchrun would start
-    it (an NCCL group of one). Writes its record beside the spec."""
+    """One rank of the tp_serve phase (``--tp-child``): "two" ranks join a
+    gloo group on cuda:0 and serve on each mesh of the spec's runs in turn
+    (tp, dp, fsdp), "int8" ranks the int8 DiT at (1, 2, 2); "nccl" runs
+    cli.run_eval.main with --mesh 1,1,1 as torchrun would start it (an
+    NCCL group of one). Writes its record beside the spec."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -3160,28 +3166,43 @@ def tp_child(spec_path: str) -> int:
                    launches=fused.launches,
                    report={k: report[k] for k in ("total", "done", "failed")})
         dist.destroy_process_group()
-    else:
+    elif spec["role"] == "int8":
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
                                 rank=spec["rank"], world_size=spec["world"],
                                 timeout=timedelta(seconds=TP_TIMEOUT))
         mesh = PT.make_mesh(tuple(spec["shape"]), device="cuda:0")
+        rec.update(_int8_serve(spec, mesh, arrays))
+        dist.barrier()
+        dist.destroy_process_group()
+    else:   # "two": each of spec["runs"] in turn, on a mesh of its own
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                                rank=spec["rank"], world_size=spec["world"],
+                                timeout=timedelta(seconds=TP_TIMEOUT))
         _, _, preps = _tp_data(os.path.join(spec["work"], f"data_rank{spec['rank']}"))
         noise = _tp_noise(preps)
-        batch = spec["batch"]
-        pipe, load = _tp_load(mesh, preps, batch=batch)
-        torch.cuda.reset_peak_memory_stats()
-        calls = _tp_serve_calls(pipe, preps, noise, single=spec["role"] == "tp", batch=batch)
-        rec.update(mesh=mesh.shape, coords=mesh.coords, backend=dist.get_backend(),
-                   device=str(mesh.device), load=load,
-                   serve_peak_bytes=torch.cuda.max_memory_allocated(),
-                   heads_per_rank=pipe.flux.double_blocks[0].img_qkv.out_features // 3 // 128)
-        for name, c in calls.items():
-            arrays[f"{name}_images"] = c.pop("images")
-            arrays[f"{name}_velocity"] = c.pop("velocity")
-            rec[name] = c
+        for run in spec["runs"]:
+            role = run["role"]
+            mesh = PT.make_mesh(tuple(run["shape"]), device="cuda:0")
+            batch = run["batch"]
+            pipe, load = _tp_load(mesh, preps, batch=batch)
+            torch.cuda.reset_peak_memory_stats()
+            calls = _tp_serve_calls(pipe, preps, noise, single=role == "tp", batch=batch)
+            r = dict(role=role, rank=spec["rank"], mesh=mesh.shape, coords=mesh.coords,
+                     batch_rank=mesh.batch_rank, backend=dist.get_backend(),
+                     device=str(mesh.device), load=load,
+                     serve_peak_bytes=torch.cuda.max_memory_allocated(),
+                     heads_per_rank=pipe.flux.double_blocks[0].img_qkv.out_features // 3 // 128)
+            for name, c in calls.items():
+                arrays[f"{role}_{name}_images"] = c.pop("images")
+                arrays[f"{role}_{name}_velocity"] = c.pop("velocity")
+                r[name] = c
+            rec[role] = r
+            del pipe
+            gc.collect()
+            torch.cuda.empty_cache()
         try:   # what FSDP (ROADMAP item 6b) would need of gloo on the card
-            shard = torch.empty(2, device=mesh.device)
-            dist.reduce_scatter_tensor(shard, torch.ones(2 * spec["world"], device=mesh.device))
+            shard = torch.empty(2, device="cuda:0")
+            dist.reduce_scatter_tensor(shard, torch.ones(2 * spec["world"], device="cuda:0"))
             rec["gloo_reduce_scatter_cuda"] = f"ok, {shard.tolist()}"
         except Exception as e:   # the same on every rank: gloo refuses before any transfer
             rec["gloo_reduce_scatter_cuda"] = f"{type(e).__name__}: {str(e)[:200]}"
@@ -3191,6 +3212,74 @@ def tp_child(spec_path: str) -> int:
     with open(spec["out"] + ".json", "w") as f:
         json.dump(rec, f)
     return 0
+
+
+TP_INT8_BATCH = 4     # __graft_entry__.py _dryrun_serving's batch at (2, 2, 2)
+
+
+def _int8_pipeline(mesh):
+    """A FillPipeline of a full-width DiT at TRAIN_FULL_REDUCED_DEPTH (seed
+    0, bf16, the fused serving path) and the VAE, no text encoders (the
+    prompts come in as embeddings), its DiT quantised int8 weight-only:
+    sharded over `mesh`, or whole (None)."""
+    from textflux_torch.config import flux_fill_config, flux_vae_config
+    from textflux_torch.io.quantize import quantize_tree
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.models.vae import FluxVAE
+    from textflux_torch.pipeline.fill import FillPipeline
+
+    n_double, n_single = TRAIN_FULL_REDUCED_DEPTH
+    cfg = dataclasses.replace(flux_fill_config(), num_double_layers=n_double,
+                              num_single_layers=n_single)
+    flux = FluxTransformer(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    vae = FluxVAE(flux_vae_config(), device="cuda", dtype=torch.bfloat16,
+                  generator=torch.Generator(device="cuda").manual_seed(1))
+    pipe = FillPipeline(flux=flux, vae=vae, clip=None, t5=None, device="cuda")
+    if mesh is None:
+        quantize_tree(pipe.flux, mode="weight_only")
+    else:
+        pipe.shard_for_serving(mesh, quantize="weight_only")
+    return pipe
+
+
+def _int8_serve(spec, mesh, arrays) -> dict:
+    """generate_batch of TP_INT8_BATCH samples (2 euler steps, fixed noise
+    and prompt embeddings) through the int8 DiT sharded over `mesh`: each
+    rank's images, first-step velocity, step ms, launches, collectives and
+    DiT bytes; then (rank 0, the others waiting) the same on one rank."""
+    import torch.distributed as dist
+
+    from textflux_torch.parallel import partitioning as PT
+
+    _, _, preps = _tp_data(os.path.join(spec["work"], f"data_rank{spec['rank']}"))
+    preps = (preps + preps)[:TP_INT8_BATCH]
+    noise = _tp_noise(preps)
+    g = torch.Generator().manual_seed(7)
+    embeds = (torch.randn(TP_INT8_BATCH, 768, generator=g).cuda().bfloat16(),
+              torch.randn(TP_INT8_BATCH, 512, 4096, generator=g).cuda().bfloat16())
+    out = {}
+    for label, m in (("sharded", mesh), ("single", None)):
+        if label == "single":
+            dist.barrier()
+            if spec["rank"] != 0:
+                break
+        pipe = _int8_pipeline(m)
+        pipe._tp_embeds = {"batch": embeds}
+        torch.cuda.reset_peak_memory_stats()
+        r = _tp_serve_calls(pipe, preps, noise, single=False, batch=TP_INT8_BATCH)["batch"]
+        arrays[f"{label}_images"] = r.pop("images")
+        arrays[f"{label}_velocity"] = r.pop("velocity")
+        r.update(dit_bytes=(PT.storage_bytes(pipe.flux) if m is not None else
+                            sum(t.numel() * t.element_size() for t in
+                                list(pipe.flux.parameters()) + list(pipe.flux.buffers()))),
+                 serve_peak_bytes=torch.cuda.max_memory_allocated())
+        out[label] = r
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    out.update(mesh=mesh.shape, coords=mesh.coords, batch_rank=mesh.batch_rank)
+    return out
 
 
 def _run_ranks(work: str, role: str, world: int, *, child: str = "--tp-child",
@@ -3300,7 +3389,22 @@ def phase_tp_serve(smi: str, have_checkpoint: bool) -> dict:
                                 for k, v in ref.items()})}
     log("tp_serve reference " + json.dumps(out["reference"]))
 
-    tp = _run_ranks(work, "tp", 2, shape=[1, 1, 2], batch=2)
+    # the 2-rank meshes in one spawn: tp=2 (vs tp=1), dp=2 (bitwise), fsdp=2
+    two = _run_ranks(work, "two", 2, runs=[dict(role="tp", shape=[1, 1, 2], batch=2),
+                                           dict(role="dp", shape=[2, 1, 1], batch=len(preps)),
+                                           dict(role="fsdp", shape=[1, 2, 1], batch=2)])
+
+    def ranks_of(role):
+        """Each rank's record of one run of the spawn, its arrays unprefixed."""
+        out = []
+        for r in two:
+            x = dict(r[role], gloo_reduce_scatter_cuda=r["gloo_reduce_scatter_cuda"])
+            x["arrays"] = {k[len(role) + 1:]: v for k, v in r["arrays"].items()
+                           if k.startswith(role + "_")}
+            out.append(x)
+        return out
+
+    tp = ranks_of("tp")
     tp_out = []
     for r in tp:
         a = r.pop("arrays")
@@ -3336,7 +3440,7 @@ def phase_tp_serve(smi: str, have_checkpoint: bool) -> dict:
             problems.append(f"tp ranks return different {name}")
     out["tp"] = [rec for rec, _ in tp_out]
 
-    dp = _run_ranks(work, "dp", 2, shape=[2, 1, 1], batch=len(preps))
+    dp = ranks_of("dp")
     out["dp"] = []
     for r in dp:
         a = r.pop("arrays")
@@ -3349,6 +3453,64 @@ def phase_tp_serve(smi: str, have_checkpoint: bool) -> dict:
                             f"({diff})")
         out["dp"].append(r)
         log("tp_serve dp " + json.dumps(r))
+
+    # over the fsdp axis: the DiT storage-sharded, a sample a rank, 0 all-reduces
+    fsdp = ranks_of("fsdp")
+    out["fsdp"] = []
+    for r in fsdp:
+        a = r.pop("arrays")
+        rows = {"batch": slice(r["batch_rank"], r["batch_rank"] + 1)}
+        for name in ("batch",):   # each block gathered through the host: one call
+            c = r[name]
+            steps = len(c["step_ms"])
+            c.update(launches_per_step=c["launches"] / steps,
+                     all_gather_storage_per_step=c["collectives"]["all_gather_storage"] / steps,
+                     velocity_rel_l2=_rel_l2(torch.from_numpy(a[f"{name}_velocity"]),
+                                             torch.from_numpy(ref[name]["velocity"][rows[name]])),
+                     image_diff=[_image_diff(x, y) for x, y in
+                                 zip(a[f"{name}_images"], ref[name]["images"][:2])])
+            if c["launches"] != per_step * steps or c["collectives"]["all_reduce_sum"]:
+                problems.append(f"fsdp rank {r['rank']} {name}: {c['launches']} launches, "
+                                f"{c['collectives']['all_reduce_sum']} all-reduces")
+            if not c["velocity_rel_l2"] <= TP_VELOCITY_TOL:
+                problems.append(f"fsdp rank {r['rank']} {name}: velocity rel-L2 "
+                                f"{c['velocity_rel_l2']}")
+            for d in c["image_diff"]:
+                if d["mean"] > BATCH_MEAN_TOL or d["max"] > BATCH_MAX_TOL:
+                    problems.append(f"fsdp rank {r['rank']} {name}: image diff {d}")
+        if not r["load"]["dit_device_bytes"] <= TP_DIT_BYTES_MAX:
+            problems.append(f"fsdp rank {r['rank']}: DiT {r['load']['dit_device_bytes']} bytes")
+        out["fsdp"].append(r)
+        log("tp_serve fsdp " + json.dumps(r))
+
+    # (1, 2, 2): an int8 DiT at 2 + 4 blocks, batch 4, against one rank
+    int8 = _run_ranks(work, "int8", 4, shape=[1, 2, 2])
+    single = int8[0]["single"]
+    single_a = int8[0]["arrays"]
+    out["int8_fsdp2_tp2"] = []
+    for r in int8:
+        a = r.pop("arrays")
+        c = r["sharded"]
+        b0 = r["batch_rank"] * (TP_INT8_BATCH // 2)
+        c["velocity_rel_l2"] = _rel_l2(
+            torch.from_numpy(a["sharded_velocity"]),
+            torch.from_numpy(single_a["single_velocity"][b0:b0 + TP_INT8_BATCH // 2]))
+        c["image_diff"] = [_image_diff(x, y) for x, y in
+                           zip(a["sharded_images"], single_a["single_images"])]
+        c["dit_bytes_ratio"] = c["dit_bytes"] / single["dit_bytes"]
+        steps = len(c["step_ms"])
+        n_double, n_single = TRAIN_FULL_REDUCED_DEPTH
+        if (c["launches"] != (n_double + n_single) * steps
+                or c["collectives"]["all_reduce_sum"] != (4 * n_double + n_single) * steps):
+            problems.append(f"int8 rank {r['rank']}: {c['launches']} launches, "
+                            f"{c['collectives']} collectives in {steps} steps")
+        if not c["velocity_rel_l2"] <= TP_VELOCITY_TOL:
+            problems.append(f"int8 rank {r['rank']}: velocity rel-L2 {c['velocity_rel_l2']}")
+        for d in c["image_diff"]:
+            if d["mean"] > BATCH_MEAN_TOL or d["max"] > BATCH_MAX_TOL:
+                problems.append(f"int8 rank {r['rank']}: image diff {d}")
+        out["int8_fsdp2_tp2"].append(r)
+        log("tp_serve int8 (1,2,2) " + json.dumps(r))
 
     nccl = _run_ranks(work, "nccl", 1, data_json=data_json, imgs=imgs)[0]
     nccl.pop("arrays")
@@ -3548,9 +3710,10 @@ def _fsdp_run(mode, optimizer, models, batch, mesh, keep_delta: bool) -> dict:
 
     orig = TR.make_optimizer
 
-    def keep_opt(tc_, params, masks_=None):
-        seen["opt"] = orig(tc_, params, masks_)
-        seen["before"] = _local_checksums(flux, masks)
+    def keep_opt(tc_, params, masks_=None, **kw):
+        seen["opt"] = orig(tc_, params, masks_, **kw)
+        seen["masks"] = masks_   # a tensor shard's masks are cut like its weights
+        seen["before"] = _local_checksums(flux, masks_)
         return seen["opt"]
 
     for k in FLASH_KERNELS:
@@ -3571,17 +3734,19 @@ def _fsdp_run(mode, optimizer, models, batch, mesh, keep_delta: bool) -> dict:
         by_step.append({k: c[k] - prev[k] for k in FLASH_KERNELS})
         prev = c
     r = dict(mode=mode, optimizer=optimizer, adam_eps=tc.adam_eps,
-             fsdp=None if mesh is None else mesh.shape["fsdp"],
+             mesh=None if mesh is None else mesh.shape,
              loss=[e["loss"] for e in history], grad_norm=[e["grad_norm"] for e in history],
              step_ms=ms, launches_per_step=by_step,
              max_memory_allocated=torch.cuda.max_memory_allocated(),
              bytes=_local_bytes(flux, set(masks), seen["opt"]),
-             checksums=_checksum_report(seen["before"], _local_checksums(flux, masks)))
+             local_8bit_leaves=sum(getattr(seen["opt"], "local", [])),
+             checksums=_checksum_report(seen["before"], _local_checksums(flux, seen["masks"])))
     delta = None
     for name, p in flux.named_parameters():   # every rank: a sharded tensor is gathered
         if name in masks:
-            whole = PT.full_tensor(p, host=True).float().cpu()
+            whole = PT.whole_tensor(flux, name, p)
             if keep_delta:
+                whole = whole.float().cpu()
                 delta = {} if delta is None else delta
                 delta[name] = whole - p0[name]
     del flux, seen
@@ -3590,12 +3755,24 @@ def _fsdp_run(mode, optimizer, models, batch, mesh, keep_delta: bool) -> dict:
     return r, delta
 
 
-def _fsdp_reduced(spec, mesh, rank) -> dict:
-    """Each of FSDP_REDUCED_RUNS over the mesh, then (rank 0, the other
-    ranks waiting) on rank 0 alone on the same whole batch: the agreement
-    (loss, grad norm, the trained tensors' change) and the halved bytes."""
-    import torch.distributed as dist
+def _rel_report(sharded, single, delta, ref) -> dict:
+    """The agreement of a sharded run with one rank's on the same batch:
+    the loss and grad norm relative, the trained tensors' change relative
+    L2, and the share of elements that stepped the other way."""
+    num = sum(float((delta[k] - ref[k]).square().sum()) for k in ref)
+    den = sum(float(ref[k].square().sum()) for k in ref)
+    flips = sum(int((torch.sign(delta[k]) * torch.sign(ref[k]) < 0).sum()) for k in ref)
+    return dict(delta_rel_l2=(num / den) ** 0.5,
+                sign_flip_share=flips / sum(ref[k].numel() for k in ref),
+                loss_rel=[abs(a - b) / abs(b) for a, b in zip(sharded["loss"], single["loss"])],
+                grad_norm_rel=[abs(a - b) / abs(b) for a, b in
+                               zip(sharded["grad_norm"], single["grad_norm"])])
 
+
+@functools.lru_cache(maxsize=None)
+def _reduced_models():
+    """The VAE, CLIP and T5 at full width (bf16, seed 1) of the reduced runs,
+    made once a process."""
     from textflux_torch.config import clip_l_config, flux_vae_config, t5_xxl_config
     from textflux_torch.models.clip import CLIPTextModel
     from textflux_torch.models.t5 import T5Encoder
@@ -3603,33 +3780,34 @@ def _fsdp_reduced(spec, mesh, rank) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     dt = torch.bfloat16
-    models = (FluxVAE(flux_vae_config(), device="cuda", dtype=dt, generator=gen),
-              CLIPTextModel(clip_l_config(), device="cuda", dtype=dt, generator=gen),
-              T5Encoder(t5_xxl_config(), device="cuda", dtype=dt, generator=gen))
+    return (FluxVAE(flux_vae_config(), device="cuda", dtype=dt, generator=gen),
+            CLIPTextModel(clip_l_config(), device="cuda", dtype=dt, generator=gen),
+            T5Encoder(t5_xxl_config(), device="cuda", dtype=dt, generator=gen))
+
+
+def _reduced_vs_one_rank(mesh, rank, runs) -> dict:
+    """Each (mode, optimizer) of `runs` at full width and
+    TRAIN_FULL_REDUCED_DEPTH over `mesh`, then (rank 0, the other ranks
+    waiting) on rank 0 alone on the same whole batch of 2: the agreement
+    (``_rel_report``) and the bytes against one rank's."""
+    import torch.distributed as dist
+
+    models = _reduced_models()
     batch = _two_row_batch()
     out = {}
-    for mode, optimizer in FSDP_REDUCED_RUNS:
-        name = f"{mode}_{optimizer}"
+    for mode, optimizer in runs:
         sharded, delta = _fsdp_run(mode, optimizer, models, batch, mesh, keep_delta=rank == 0)
         rec = dict(sharded=sharded)
         dist.barrier()
         if rank == 0:
             single, ref = _fsdp_run(mode, optimizer, models, batch, None, keep_delta=True)
-            num = sum(float((delta[k] - ref[k]).square().sum()) for k in ref)
-            den = sum(float(ref[k].square().sum()) for k in ref)
-            flips = sum(int((torch.sign(delta[k]) * torch.sign(ref[k]) < 0).sum()) for k in ref)
-            rec.update(single=single, delta_rel_l2=(num / den) ** 0.5,
-                       sign_flip_share=flips / sum(ref[k].numel() for k in ref),
-                       loss_rel=[abs(a - b) / abs(b) for a, b in
-                                 zip(sharded["loss"], single["loss"])],
-                       grad_norm_rel=[abs(a - b) / abs(b) for a, b in
-                                      zip(sharded["grad_norm"], single["grad_norm"])],
+            rec.update(single=single, **_rel_report(sharded, single, delta, ref),
                        bytes_ratio={k: sharded["bytes"][k] / single["bytes"][k]
                                     for k in ("master_bytes", "optimizer_state_bytes")})
             del delta, ref
             gc.collect()
         dist.barrier()
-        out[name] = rec
+        out[f"{mode}_{optimizer}"] = rec
     return out
 
 
@@ -3640,11 +3818,15 @@ class _FsdpMainRecorder:
     (torch.profiler's FSDP::all_gather / FSDP::post_backward_reduce
     ranges, CPU activity only), the sharded DiT load (seconds and the
     rank's bytes), the device in use after the last step, and the LoRA
-    export through a sink that checks it and writes nothing."""
+    export through a sink that checks it and writes nothing. Where the
+    loaded DiT holds no FSDP-sharded parameter the second step is not
+    traced (no FSDP collective to count)."""
 
     def __init__(self):
+        self.fsdp = False
         self.seconds, self.counts, self.collectives = [], [], None
         self.load, self.export, self.in_use = {}, None, None
+        self.tensor_collectives = []   # parallel.partitioning's counts, a step
         self._undo = []
 
     def _patch(self, owner, name, make):
@@ -3667,8 +3849,9 @@ class _FsdpMainRecorder:
 
                 def timed(*a, **k):
                     torch.cuda.synchronize()
+                    PT.reset_counts()
                     t0 = time.perf_counter()
-                    if len(self.seconds) == 1:
+                    if len(self.seconds) == 1 and self.fsdp:
                         with profile(activities=[ProfilerActivity.CPU]) as prof:
                             metrics = step(*a, **k)
                             torch.cuda.synchronize()
@@ -3683,6 +3866,7 @@ class _FsdpMainRecorder:
                         metrics = step(*a, **k)
                     torch.cuda.synchronize()
                     self.seconds.append(time.perf_counter() - t0)
+                    self.tensor_collectives.append(PT.counts())
                     self.counts.append({n: getattr(FA, n).launches for n in FLASH_KERNELS})
                     free, total = torch.cuda.mem_get_info()
                     self.in_use = total - free
@@ -3692,23 +3876,36 @@ class _FsdpMainRecorder:
 
         def load(orig):
             def timed(path, cfg, mesh, **kw):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 module = orig(path, cfg, mesh, **kw)
                 torch.cuda.synchronize()
                 sizes = {n: PT.local(p).numel() * p.element_size()
                          for n, p in module.named_parameters()}
+                self.fsdp = any(PT.shard_spec(p) is not None for p in module.parameters())
                 self.load = dict(seconds=time.perf_counter() - t0,
                                  dit_bytes=sum(v for n, v in sizes.items() if ".lora_" not in n),
-                                 lora_bytes=sum(v for n, v in sizes.items() if ".lora_" in n))
+                                 lora_bytes=sum(v for n, v in sizes.items() if ".lora_" in n),
+                                 storage_bytes=PT.storage_bytes(module),
+                                 # what the load left allocated, and the most it held at once
+                                 held_bytes=torch.cuda.memory_allocated() - before,
+                                 peak_bytes=torch.cuda.max_memory_allocated() - before)
                 return module
             return timed
 
         def sink(sd, path, dtype=None):
+            b_keys = [k for k in sd if k.endswith("lora_B.weight")]
             self.export = dict(path=os.path.relpath(path, REPO), keys=len(sd),
+                               lora_keys=sorted(k for k in sd if k.endswith(
+                                   ("lora_A.weight", "lora_B.weight"))),
                                bytes_it_would_write=sum(v.numel() * v.element_size()
                                                         for v in sd.values()),
                                nonfinite=[k for k, v in sd.items()
                                           if not bool(torch.isfinite(v).all())][:5],
+                               b_targets=len(b_keys),
+                               b_targets_moved=sum(bool(sd[k].abs().max() > 0) for k in b_keys),
                                bytes_written=0)
             return 0
 
@@ -3746,8 +3943,10 @@ def _fsdp_lora_main(spec, rank) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with byte_tokenizers(f"fsdp_train rank {rank}"), _FsdpMainRecorder() as rec:
         CLI.main(argv)
+    export = dict(rec.export or {})
+    export.pop("lora_keys", None)
     r = dict(load=rec.load, step_seconds=rec.seconds, launches_per_step=rec.per_step_launches(),
-             collectives_step2=rec.collectives, export=rec.export,
+             collectives_step2=rec.collectives, export=export,
              max_memory_allocated=torch.cuda.max_memory_allocated(),
              device_in_use_bytes=rec.in_use, device_total_bytes=torch.cuda.mem_get_info()[1])
     if rank == 0:
@@ -3833,7 +4032,8 @@ def fsdp_child(spec_path: str) -> int:
             gc.collect()
             torch.cuda.empty_cache()
         mesh = PT.make_mesh((1, world, 1), device="cuda:0")
-        rec.update(backend=dist.get_backend(), reduced=_fsdp_reduced(spec, mesh, rank))
+        rec.update(backend=dist.get_backend(),
+                   reduced=_reduced_vs_one_rank(mesh, rank, FSDP_REDUCED_RUNS))
     dist.barrier()
     dist.destroy_process_group()
     with open(spec["out"] + ".json", "w") as f:
@@ -3991,6 +4191,492 @@ def phase_fsdp_train(smi: str, have_checkpoint: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 15. tp_train: training over the tensor axis, ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+TP_TRAIN_STEPS = 2
+TP_TRAIN_TIMEOUT = 1000        # seconds a group of ranks may take, loads included
+TP_QLORA_MODES = ("weight_only", "nf4")
+TP_QLORA_LR = 1e-4
+# the most a sharded load may hold above what it keeps: the linear being
+# filled and one chunk of its quantisation (io.quantize.QUANT_CHUNK
+# elements, ~17 bytes each)
+TP_LOAD_SLACK_BYTES = 1 << 30
+# the full-depth reckoning's meshes (data, fsdp, tensor)
+TP_RECKON_MESHES = ((1, 1, 2), (1, 2, 2), (1, 1, 4))
+
+
+# the JAX package's 8-bit block: a leaf's elements, in its (in, out) order,
+# in runs of this many (textflux_tpu/training/optim8bit.py)
+JAX_8BIT_BLOCK = 256
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_jax_blocks(sizes: tuple, split_axis, segs: tuple, tp: int, t: int, dim: int,
+                      a: int, b: int, transpose: bool) -> bool:
+    """Whether the elements that tensor rank `t` (of `tp`, its device-major
+    share of axis `split_axis`, made of `segs`: every segment's t-th chunk)
+    and fsdp slice [a, b) of axis `dim` hold of a tensor of `sizes` are
+    whole JAX 8-bit blocks: each block of the leaf's order (transposed
+    first with `transpose`) has all of its elements held, or none. Counted
+    element by element, apart from the optimizer's own rule."""
+    axes = [np.arange(n) for n in sizes]
+    if split_axis is not None:
+        offsets = np.concatenate([[0], np.cumsum(segs)[:-1]])
+        axes[split_axis] = np.concatenate(
+            [off + t * (seg // tp) + np.arange(seg // tp) for off, seg in zip(offsets, segs)])
+    axes[dim] = axes[dim][a:b]
+    shape = list(sizes)
+    if transpose:
+        axes, shape = axes[::-1], shape[::-1]
+    held = np.zeros(shape, bool)
+    held[np.ix_(*axes)] = True
+    if held.size % JAX_8BIT_BLOCK:    # its last block runs on into the next layer's
+        return False
+    held = held.reshape(-1, JAX_8BIT_BLOCK)
+    return bool((held.all(axis=1) | ~held.any(axis=1)).all())
+
+
+def tp_reckoning(cfg, mode: str, optimizer: str, fsdp: int, tp: int,
+                 lora_rank: int = 128) -> dict:
+    """Bytes one rank holds of the training state at (1, `fsdp`, `tp`), from
+    the sharding plan alone (a DiT of `cfg` on the meta device): each
+    parameter's tensor share (``shard_linears``: column-parallel linears
+    split their output rows, row-parallel ones their input columns, the
+    rest whole), then its fsdp chunk (torch.chunk's first, largest share;
+    nn.Linear weights along dim 1, the rest dim 0) in its dtype, a float32
+    gradient per trained slice, and the optimizer's state as
+    ``fsdp_reckoning`` counts it; 8-bit AdamW keeps a leaf local when
+    every rank's elements are whole JAX blocks (``_whole_jax_blocks``, on
+    the ranks that bound every rank's alignment). LoRA factors stay whole
+    over tensor."""
+    from torch import nn
+
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.parallel import partitioning as PT
+    from textflux_torch.training import optim8bit as O
+    from textflux_torch.training import train as TR
+
+    model = FluxTransformer(cfg, device="meta", dtype=torch.bfloat16)
+    if tp > 1:
+        PT.shard_linears(model, PT.flux_param_specs(cfg), tp, 0)
+        model.tp_rank, model.tp_layout = 0, tp
+    if mode == "lora":
+        TR.lora_insert(model, TR.lora_init(model, lora_rank, device="meta"), 1.0)
+        trained = {n_ for n_, p in model.named_parameters() if p.requires_grad}
+    else:
+        trained = set(TR.trainable_mask(model, TR.TrainConfig(mode=mode)))
+    weights = {id(m.weight) for m in model.modules() if isinstance(m, nn.Linear)}
+    out = dict(master_bytes=0, frozen_bytes=0, grad_bytes=0, optimizer_state_bytes=0)
+    leaves = {}
+    for name, p in model.named_parameters():
+        dim = 1 if id(p) in weights else 0
+        c = -(-p.shape[dim] // fsdp)
+        local = p.numel() // p.shape[dim] * min(c, p.shape[dim])
+        if name not in trained:
+            out["frozen_bytes"] += 2 * local
+            continue
+        out["master_bytes"] += 4 * local
+        out["grad_bytes"] += 4 * local
+        if optimizer == "adamw":
+            out["optimizer_state_bytes"] += 8 * local + 4
+            continue
+        key, _, transpose = TR.jax_leaf(name)
+        transpose = transpose and p.dim() == 2
+        split = PT.tensor_split(model, name)
+        sizes = list(p.shape)
+        if split is not None:
+            sizes[split[0]] = sum(split[1].segs)
+        whole = math.prod(sizes)
+        is_local = split is not None or fsdp > 1
+        # the first and last fsdp slices and the first two tensor shares
+        # cover every rank's alignment: the other slices start at multiples
+        # of the first's length, the other shares at multiples of the second's
+        for f in sorted({0, fsdp - 1}):
+            for t in sorted({0, min(1, tp - 1)} if split is not None else {0}):
+                a, b = min(f * c, p.shape[dim]), min((f + 1) * c, p.shape[dim])
+                is_local = is_local and _whole_jax_blocks(
+                    tuple(sizes), None if split is None else split[0],
+                    () if split is None else split[1].segs, tp, t, dim, a, b, transpose)
+        leaf = leaves.setdefault(key, dict(local=True, local_numel=0, numel=0))
+        leaf["local"] &= is_local
+        leaf["local_numel"] += local
+        leaf["numel"] += whole
+    for leaf in leaves.values():
+        blocks = O.n_blocks(leaf["local_numel"] if leaf["local"] else leaf["numel"])
+        out["optimizer_state_bytes"] += 2 * blocks * (O.BLOCK + 4)
+    out["total_bytes"] = sum(out.values())
+    return out
+
+
+def _tp_lora_main(spec, rank) -> dict:
+    """--mode lora (rank 128, AdamW) through cli.train.main at full depth
+    on the checkpoint under CKPT_DIR at mesh (1, 1, 2): a batch of 1, the
+    same row on both tensor ranks, each holding its tensor shard of the DiT
+    and the factors whole."""
+    from textflux_torch.cli import train as CLI
+
+    out_dir = os.path.join(spec["work"], "lora_out")
+    argv = ["--model", CKPT_DIR, "--data-json", spec["data_json"],
+            "--data-images", os.path.join(EXAMPLE, "ori"), "--mode", "lora",
+            "--lora-rank", "128", "--lora-alpha", "128", "--optimizer", "adamw",
+            "--learning-rate", "1e-4", "--resolution", str(TRAIN_RESOLUTION),
+            "--train-batch-size", "1", "--grad-accum", "1", "--mesh", "1,1,2",
+            "--max-train-steps", str(TP_TRAIN_STEPS),
+            "--checkpointing-steps", str(TP_TRAIN_STEPS + 1),
+            "--log-every", "1", "--seed", "0", "--output-dir", out_dir]
+    torch.cuda.reset_peak_memory_stats()
+    with byte_tokenizers(f"tp_train rank {rank}"), _FsdpMainRecorder() as rec:
+        CLI.main(argv)
+    r = dict(load=rec.load, step_seconds=rec.seconds, launches_per_step=rec.per_step_launches(),
+             collectives_per_step=rec.tensor_collectives, export=rec.export,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             device_in_use_bytes=rec.in_use, device_total_bytes=torch.cuda.mem_get_info()[1])
+    if rank == 0:
+        log_ = _train_log(out_dir)
+        r.update(steps=[e["step"] for e in log_], loss=[e["loss"] for e in log_],
+                 grad_norm=[e["grad_norm"] for e in log_])
+    return r
+
+
+def _tp_qlora_run(base_mode, models, batch, mesh) -> tuple:
+    """TP_TRAIN_STEPS steps of train_lora (rank 128, AdamW) over a DiT of
+    full width and TRAIN_FULL_REDUCED_DEPTH (seed 0, bf16) quantised as
+    `base_mode`, sharded over `mesh` or (None) on this rank alone: the
+    losses, norms, the rank's code bytes and the factors' change (whole,
+    host)."""
+    from textflux_torch.cli.train import train_lora
+    from textflux_torch.config import flux_fill_config
+    from textflux_torch.io.quantize import quantize_tree
+    from textflux_torch.models.transformer import FluxTransformer
+    from textflux_torch.ops import flash_attention as FA
+    from textflux_torch.parallel import partitioning as PT
+    from textflux_torch.training import train as TR
+
+    vae, clip, t5 = models
+    n_double, n_single = TRAIN_FULL_REDUCED_DEPTH
+    cfg = dataclasses.replace(flux_fill_config(), num_double_layers=n_double,
+                              num_single_layers=n_single)
+    flux = FluxTransformer(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    quantize_tree(flux, mode=base_mode)
+    whole_code_bytes = sum(b.numel() * b.element_size() for b in flux.buffers())
+    tc = TR.TrainConfig(mode="lora", optimizer="adamw", learning_rate=TP_QLORA_LR,
+                        lora_rank=128, lora_alpha=128.0, adam_eps=FSDP_ADAM_EPS)
+    counts, ms, t = [], [], [None]
+
+    def batches():
+        while True:
+            torch.cuda.synchronize()
+            t[0] = time.perf_counter()
+            yield batch
+
+    def on_step(step, metrics, lora):
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t[0]))
+        counts.append({k: getattr(FA, k).launches for k in FLASH_KERNELS})
+
+    for k in FLASH_KERNELS:
+        getattr(FA, k).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    lora, history = train_lora(flux, vae, clip, t5, batches(), tc=tc,
+                               clip_tokenize=clip_byte_tokenize, t5_tokenize=t5_byte_tokenize,
+                               steps=TP_TRAIN_STEPS, seed=0, log_every=1, on_step=on_step,
+                               mesh=mesh)
+    torch.cuda.synchronize()
+    code_bytes = (PT.storage_bytes(flux) if mesh is not None
+                  else whole_code_bytes)
+    prev, by_step = {k: 0 for k in FLASH_KERNELS}, []
+    for c in counts:
+        by_step.append({k: c[k] - prev[k] for k in FLASH_KERNELS})
+        prev = c
+    b = {f"{p}.b": PT.full_tensor(f["b"], host=True).float().cpu() for p, f in lora.items()}
+    r = dict(base=base_mode, mesh=None if mesh is None else mesh.shape,
+             loss=[e["loss"] for e in history], grad_norm=[e["grad_norm"] for e in history],
+             step_ms=ms, launches_per_step=by_step, code_bytes=code_bytes,
+             whole_code_bytes=whole_code_bytes,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             b_targets=len(b), b_targets_moved=sum(bool(x.abs().max() > 0) for x in b.values()))
+    del flux, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r, b   # B starts at zero: its value is its change
+
+
+def _tp_qlora(mesh, rank) -> dict:
+    import torch.distributed as dist
+
+    models = _reduced_models()
+    batch = _two_row_batch()
+    out = {}
+    for base_mode in TP_QLORA_MODES:
+        sharded, delta = _tp_qlora_run(base_mode, models, batch, mesh)
+        rec = dict(sharded=sharded)
+        dist.barrier()
+        if rank == 0:
+            single, ref = _tp_qlora_run(base_mode, models, batch, None)
+            rec.update(single=single, **_rel_report(sharded, single, delta, ref),
+                       code_bytes_ratio=sharded["code_bytes"] / single["code_bytes"])
+            del ref
+            gc.collect()
+        dist.barrier()
+        out[f"qlora_{base_mode}"] = rec
+    return out
+
+
+def _tp_load_probe(mesh, quantize) -> dict:
+    """The full-depth DiT of the checkpoint under CKPT_DIR loaded for
+    training over `mesh` (``io.params.load_flux_fsdp``, bf16, quantised as
+    `quantize` streams in): the seconds, the bytes this process's allocator
+    holds after the load and the most it held during it, above what it held
+    before."""
+    from textflux_torch.io.config_io import flux_config_from
+    from textflux_torch.io.params import load_flux_fsdp
+    from textflux_torch.parallel import partitioning as PT
+
+    path = os.path.join(CKPT_DIR, "transformer")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flux = load_flux_fsdp(path, flux_config_from(path), mesh, device=mesh.device,
+                          quantize=quantize)
+    torch.cuda.synchronize()
+    r = dict(mesh=[mesh.shape[a] for a in PT.MESH_AXES], quantize=quantize,
+             seconds=time.perf_counter() - t0,
+             held_bytes=torch.cuda.memory_allocated() - before,
+             peak_bytes=torch.cuda.max_memory_allocated() - before,
+             storage_bytes=PT.storage_bytes(flux))
+    del flux
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def tp_train_child(spec_path: str) -> int:
+    """One rank of the tp_train phase (``--tp-train-child``): "two" runs
+    full-depth LoRA through cli.train.main at (1, 1, 2), the reduced-depth
+    modes at (1, 1, 2) and QLoRA at (1, 2, 1) against one rank, then the
+    full-depth load over an NF4 base at (1, 2, 1); "four" runs --mode attn
+    / 8-bit AdamW at (1, 2, 2) against one rank, then the full-depth bf16
+    load at (1, 2, 2). Ranks join a
+    gloo group on cuda:0 (NCCL refuses two ranks on one device). Writes its
+    record beside the spec."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from textflux_torch.parallel import partitioning as PT
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = spec["rank"], spec["world"]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=TP_TRAIN_TIMEOUT))
+    rec = dict(role=spec["role"], rank=rank, world=world)
+    t0 = time.perf_counter()
+    if spec["role"] == "two":
+        rec["lora"] = _tp_lora_main(spec, rank)
+        rec["lora_seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec["reduced"] = _reduced_vs_one_rank(PT.make_mesh((1, 1, 2), device="cuda:0"), rank,
+                                              FSDP_REDUCED_RUNS)
+        rec["reduced_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fsdp2 = PT.make_mesh((1, 2, 1), device="cuda:0")
+        rec["qlora"] = _tp_qlora(fsdp2, rank)
+        rec["qlora_seconds"] = time.perf_counter() - t0
+        rec["load_probe"] = _tp_load_probe(fsdp2, "nf4")
+    else:
+        mesh = PT.make_mesh((1, 2, 2), device="cuda:0")
+        rec["reduced"] = _reduced_vs_one_rank(mesh, rank, (("attn", "adamw8bit"),))
+        rec["reduced_seconds"] = time.perf_counter() - t0
+        rec["load_probe"] = _tp_load_probe(mesh, None)
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(spec["out"] + ".json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _tp_train_problems(name: str, r: dict, *, shards: int) -> list:
+    """_fsdp_problems' checks of a reduced run; a QLoRA rank's code bytes
+    against 1/shards of one rank's (the reckoning checks the other bytes:
+    replicated parameters keep a tensor rank above 1/shards)."""
+    problems = []
+    s, o = r["sharded"], r.get("single")
+    if not all(np.isfinite(s["loss"])) or not all(np.isfinite(s["grad_norm"])):
+        problems.append(f"{name}: non-finite loss or grad norm")
+    c = s.get("checksums")
+    if c and (c["frozen_changed"] or c["masked_changed"] or not c["trained"]
+              or c["trained_unmoved"]):
+        problems.append(f"{name}: frozen changed {c['frozen_changed'][:3]}, masked changed "
+                        f"{c['masked_changed'][:3]}, unmoved {c['trained_unmoved'][:3]}")
+    if o is None:
+        return problems
+    if max(r["loss_rel"]) > FSDP_LOSS_RTOL or max(r["grad_norm_rel"]) > FSDP_NORM_RTOL:
+        problems.append(f"{name}: loss rel {r['loss_rel']}, grad norm rel {r['grad_norm_rel']}")
+    if not r["delta_rel_l2"] <= FSDP_DELTA_RTOL:
+        problems.append(f"{name}: change rel-L2 {r['delta_rel_l2']}")
+    if "code_bytes_ratio" in r:
+        if s["b_targets_moved"] != s["b_targets"]:
+            problems.append(f"{name}: B of {s['b_targets'] - s['b_targets_moved']} targets "
+                            "did not move")
+        if abs(r["code_bytes_ratio"] * shards - 1) > FSDP_HALF_RTOL:
+            problems.append(f"{name}: a rank's code bytes are {r['code_bytes_ratio']:.4f} of "
+                            "one rank's")
+    return problems
+
+
+def phase_tp_train(smi: str, have_checkpoint: bool) -> dict:
+    """Phase 15. Training over the tensor axis (and fsdp x tensor), ranks
+    on the one card over gloo (this script again, --tp-train-child): --mode
+    lora (rank 128, AdamW) through cli.train.main at full depth at (1, 1,
+    2) on phase 7's checkpoint (written here when no earlier phase did), a
+    batch of 1 at 1024 px, TP_TRAIN_STEPS steps; at full width and 2 + 4
+    blocks, --mode attn with AdamW and 8-bit AdamW and --mode all with
+    8-bit AdamW at (1, 1, 2), QLoRA over weight_only and nf4 bases at (1, 2,
+    1), and --mode attn with 8-bit AdamW at (1, 2, 2) on four ranks, each
+    against one rank on the same whole batch; the full-depth sharded load
+    at (1, 2, 1) over an NF4 base and at (1, 2, 2) in bf16, its peak held
+    to what it keeps plus one linear; and the full-depth bytes a rank holds
+    at (1, 1, 2), (1, 2, 2) and (1, 1, 4) reckoned from the sharding plan. Ranks sharing one card: every collective goes through
+    the host, so the step times are not a multi-GPU number. Writes no
+    training checkpoint (the disk budget of a call)."""
+    from textflux_torch.config import flux_fill_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not have_checkpoint:
+        _, flux = write_checkpoint(load_manifest())
+        del flux
+        gc.collect()
+        torch.cuda.empty_cache()
+    work = os.path.join(CKPT_DIR, "tp_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    cfg = flux_fill_config()
+    blocks = cfg.num_double_layers + cfg.num_single_layers
+    per_step = {"flash_attention": 2 * blocks, "flash_attention_lse": 0,
+                "flash_attention_dq": blocks, "flash_attention_dkv": blocks}
+    # forward all-reduces: 4 a double block, 1 a single, again in remat's
+    # recompute; the embedders' two outputs and each block's modulation
+    # vectors gathered, again in the recompute
+    row = 4 * cfg.num_double_layers + cfg.num_single_layers
+    expected = dict(all_reduce_sum=2 * row,
+                    all_gather_last=2 + 2 * (2 * cfg.num_double_layers + cfg.num_single_layers))
+    manifest = load_manifest()
+    want_keys = sorted(k for k in manifest["lora"]
+                       if k.endswith(("lora_A.weight", "lora_B.weight")))
+    log(f"tp_train: gloo ranks on cuda:0; expect {per_step} launches at H = "
+        f"{cfg.num_heads // 2} and forward collectives {expected} a step per rank (full depth, "
+        f"LoRA, (1, 1, 2)); the export's {len(want_keys)} LoRA keys; reduced runs vs one rank: "
+        f"loss {FSDP_LOSS_RTOL}, grad norm {FSDP_NORM_RTOL}, change rel-L2 {FSDP_DELTA_RTOL}, "
+        f"QLoRA code bytes 1/2 within {FSDP_HALF_RTOL}, bytes vs reckoning {FSDP_RECKON_RTOL}")
+    out, problems = {}, []
+    ranks = partial(_run_ranks, work, child="--tp-train-child", phase="tp_train",
+                    timeout=TP_TRAIN_TIMEOUT)
+    data_json = os.path.join(work, "anyword.json")
+    with open(data_json, "w") as f:
+        json.dump({"data_list": [
+            {"img_name": name, "annotations": [
+                {"text": text, "polygon": [[x0, y0], [x1, y0], [x1, y1], [x0, y1]]}]}
+            for name, text, (x0, y0, x1, y1) in FSDP_MAIN_ITEMS[:1]]}, f)
+
+    two = ranks("two", 2, data_json=data_json)
+    out["lora"] = []
+    for r in two:
+        x = r["lora"]
+        x["seconds"] = r["lora_seconds"]
+        x["step_seconds_note"] = ("2 ranks sharing one H100 over gloo: every all-reduce goes "
+                                  "through the host; not a multi-GPU number")
+        if x["launches_per_step"] != [per_step] * TP_TRAIN_STEPS:
+            problems.append(f"lora rank {r['rank']}: launches {x['launches_per_step']}")
+        for c in x["collectives_per_step"]:
+            if any(c[k] != v for k, v in expected.items()) or not c["all_reduce_grad"]:
+                problems.append(f"lora rank {r['rank']}: collectives {c}, expected {expected}")
+        if r["rank"] == 0:   # rank 0 alone logs and exports
+            e = x["export"] or {}
+            x["export_keys_equal"] = e.get("lora_keys") == want_keys
+            e.pop("lora_keys", None)
+            if (x["steps"] != list(range(1, TP_TRAIN_STEPS + 1))
+                    or not all(np.isfinite(x["loss"])) or not x["export_keys_equal"]
+                    or e.get("nonfinite") or e.get("b_targets_moved") != e.get("b_targets")):
+                problems.append(f"lora: steps {x['steps']}, loss {x['loss']}, export {e}, "
+                                f"keys equal {x['export_keys_equal']}")
+        out["lora"].append(x)
+        log(f"tp_train lora rank {r['rank']} " + json.dumps(x))
+    out["reduced"], out["seconds_by_part"] = {}, dict(
+        lora=two[0]["lora_seconds"], reduced=two[0]["reduced_seconds"],
+        qlora=two[0]["qlora_seconds"])
+    for group, shards in (("reduced", 2), ("qlora", 2)):
+        for name, r in two[0][group].items():
+            r["rank1"] = two[1][group][name]["sharded"]
+            log(f"tp_train {name} " + json.dumps(r))
+            problems += _tp_train_problems(name, r, shards=shards)
+            out["reduced"][name] = r
+
+    four = ranks("four", 4)
+    # the full-depth sharded loads: a rank never holds more than its share
+    # and the one linear being filled
+    out["load_probe"] = [r["load_probe"] for r in two + four]
+    for r in two + four:
+        x = r["load_probe"]
+        log(f"tp_train load {x['mesh']} {x['quantize']} rank {r['rank']} " + json.dumps(x))
+        if x["peak_bytes"] - x["held_bytes"] > TP_LOAD_SLACK_BYTES:
+            problems.append(f"load {x['mesh']} {x['quantize']} rank {r['rank']}: peak "
+                            f"{x['peak_bytes']} over the held {x['held_bytes']} by more than "
+                            f"{TP_LOAD_SLACK_BYTES}")
+    for name, r in four[0]["reduced"].items():
+        r["other_ranks"] = [x["reduced"][name]["sharded"] for x in four[1:]]
+        log(f"tp_train fsdp2_tp2 {name} " + json.dumps(r))
+        problems += _tp_train_problems(f"fsdp2_tp2 {name}", r, shards=4)
+        out["reduced"][f"fsdp2_tp2_{name}"] = r
+    out["seconds_by_part"]["fsdp2_tp2"] = four[0]["reduced_seconds"]
+
+    # the reckoning, checked at reduced depth against the measured bytes
+    n_double, n_single = TRAIN_FULL_REDUCED_DEPTH
+    reduced_cfg = dataclasses.replace(cfg, num_double_layers=n_double,
+                                      num_single_layers=n_single)
+    checks = {}
+    for name, (fsdp, tp) in (("attn_adamw", (1, 2)), ("attn_adamw8bit", (1, 2)),
+                             ("all_adamw8bit", (1, 2)), ("fsdp2_tp2_attn_adamw8bit", (2, 2))):
+        r = out["reduced"].get(name)
+        if not r:
+            continue
+        mode, optimizer = name.split("_")[-2:]
+        want = tp_reckoning(reduced_cfg, mode, optimizer, fsdp, tp)
+        got = r["sharded"]["bytes"]
+        rel = {k: abs(want[k] - got[k]) / max(got[k], 1) for k in got}
+        checks[name] = rel
+        if max(rel.values()) > FSDP_RECKON_RTOL:
+            problems.append(f"reckoning {name}: {rel} (reckoned {want}, measured {got})")
+    reckoning = {}
+    for mode, optimizer in FSDP_RECKON_RUNS:
+        for shape in TP_RECKON_MESHES:
+            reckoning[f"{mode}_{optimizer}_{'x'.join(map(str, shape))}"] = tp_reckoning(
+                cfg, mode, optimizer, shape[1], shape[2])
+    out.update(reckoning=reckoning, reckoning_checks=checks,
+               seconds=time.perf_counter() - t_phase)
+    log("tp_train reckoning " + json.dumps(dict(reckoning=reckoning, checks=checks)))
+    log("tp_train seconds by part " + json.dumps(out["seconds_by_part"]))
+    log(f"tp_train: {out['seconds']:.1f} s; {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    if problems:
+        raise AssertionError("tp_train phase: " + "; ".join(problems))
+    return out
+
+
 def _ckpt_launches(ckpt_rec) -> dict:
     if not ckpt_rec:
         return {}
@@ -4021,11 +4707,15 @@ def _fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec=None, tm_rec=None,
         # every rank of each run launches the kernel on its own heads
         by_run.update({f"tp_serve_reference_{k}": v["launches"]
                        for k, v in tp_rec["reference"].items() if k in ("single", "batch")})
-        for group in ("tp", "dp"):
-            for r in tp_rec[group]:
+        for group in ("tp", "dp", "fsdp"):
+            for r in tp_rec.get(group, []):
                 for k in ("single", "batch"):
                     if k in r:
                         by_run[f"tp_serve_{group}_rank{r['rank']}_{k}"] = r[k]["launches"]
+        for r in tp_rec.get("int8_fsdp2_tp2", []):
+            for k in ("sharded", "single"):
+                if k in r:
+                    by_run[f"tp_serve_int8_rank{r['rank']}_{k}"] = r[k]["launches"]
         by_run["tp_serve_nccl_run_eval"] = tp_rec["nccl"]["launches"]
     entry = dict(
         name="flash_attention_qk_norm_rope", route="cuda",
@@ -4089,8 +4779,30 @@ def _fsdp_runs(fsdp_rec) -> dict:
     return runs
 
 
+def _tp_train_runs(tpt_rec) -> dict:
+    """The tp_train phase's runs in _flash_entries' form (as _fsdp_runs)."""
+    runs = {}
+    if not tpt_rec:
+        return runs
+
+    def add(key, per_step):
+        runs[key] = {"launches": {k: sum(c[k] for c in per_step) for k in FLASH_KERNELS},
+                     "launches_per_step": per_step}
+
+    for r, x in enumerate(tpt_rec.get("lora") or []):
+        add(f"tp_lora_rank{r}", x["launches_per_step"])
+    for name, r in (tpt_rec.get("reduced") or {}).items():
+        add(f"tp_{name}_rank0", r["sharded"]["launches_per_step"])
+        add(f"tp_{name}_rank1", r.get("rank1", r["sharded"])["launches_per_step"])
+        for i, o in enumerate(r.get("other_ranks") or []):
+            add(f"tp_{name}_rank{i + 1}", o["launches_per_step"])
+        if r.get("single"):
+            add(f"tp_{name}_one_rank", r["single"]["launches_per_step"])
+    return runs
+
+
 def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None,
-                   tf_rec=None, fsdp_rec=None) -> list:
+                   tf_rec=None, fsdp_rec=None, tpt_rec=None) -> list:
     """One JSON entry per training kernel: times at the `train` case,
     launches from the train phase, the train_main phase's runs A and B, the
     qlora phase's runs, the train_full phase's and the fsdp_train phase's
@@ -4106,6 +4818,7 @@ def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None
     for key, r in (tf_rec or {}).items():
         runs[f"train_full_{key}"] = r
     runs.update(_fsdp_runs(fsdp_rec))
+    runs.update(_tp_train_runs(tpt_rec))
     out = []
     for name in FLASH_KERNELS:
         by_run = {k: r["launches"][name] for k, r in runs.items()}
@@ -4132,6 +4845,14 @@ def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None
                             }.get(name))
             if name != "flash_attention":
                 entry.update(sdpa_bwd_ms=train["sdpa_bwd_ms"], bwd_total_ms=train["bwd_total_ms"])
+        h12 = flash_rows.get("train_h12")
+        if h12:   # a tp = 2 rank's 12 heads, the shape tp_train launches
+            k = h12["kernels"][name]
+            entry["h12"] = dict(ms=k["kernel_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+                                bound_by=k["bound_by"], rel_err=k["rel_err"],
+                                library_ms={"flash_attention": h12["sdpa_ms"],
+                                            "flash_attention_lse":
+                                                (h12["lse_library"] or {}).get("ms")}.get(name))
         out.append(entry)
     return out
 
@@ -4141,6 +4862,7 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--tp-child", default=None, help=argparse.SUPPRESS)   # a tp_serve rank
     ap.add_argument("--fsdp-child", default=None, help=argparse.SUPPRESS)   # a fsdp_train rank
+    ap.add_argument("--tp-train-child", default=None, help=argparse.SUPPRESS)   # a tp_train rank
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4154,43 +4876,64 @@ def main() -> int:
         return tp_child(args.tp_child)
     if args.fsdp_child:
         return fsdp_child(args.fsdp_child)
+    if args.tp_train_child:
+        return tp_train_child(args.tp_train_child)
     phases = args.phases.split(",")
-    dev = phase_device()
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def run(name, fn, *a, **kw):
+        """fn(*a, **kw) as phase `name`, its seconds logged and kept."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+            log(f"phase {name}: {seconds[name]:.1f} s")
+
+    dev = run("device", phase_device)
     build_rec = {}
     if set(PHASES[1:]) & set(phases):
-        build_rec = phase_build()
-    kernel_rows = phase_kernels() if "kernels" in phases else []
-    flash_rows = phase_flash_kernels() if "kernels" in phases else {}
-    main_rec = phase_main("profile" in phases) if "main" in phases else None
-    train_rec = phase_train("profile" in phases) if "train" in phases else None
+        build_rec = run("build", phase_build)
+    kernel_rows = run("kernels", phase_kernels) if "kernels" in phases else []
+    flash_rows = run("kernels_flash", phase_flash_kernels) if "kernels" in phases else {}
+    main_rec = run("main", phase_main, "profile" in phases) if "main" in phases else None
+    train_rec = run("train", phase_train, "profile" in phases) if "train" in phases else None
     smi = dev["nvidia_smi"]
     try:   # the checkpoint phases share the one under CKPT_DIR
-        ckpt_rec = phase_checkpoint() if "checkpoint" in phases else None
-        tm_rec = (phase_train_main(smi, have_checkpoint=ckpt_rec is not None)
+        ckpt_rec = run("checkpoint", phase_checkpoint) if "checkpoint" in phases else None
+        tm_rec = (run("train_main", phase_train_main, smi,
+                      have_checkpoint=ckpt_rec is not None)
                   if "train_main" in phases else None)
-        q_rec = (phase_quantized(smi, have_checkpoint=bool(ckpt_rec or tm_rec),
-                                 profile="profile" in phases)
+        q_rec = (run("quantized", phase_quantized, smi, have_checkpoint=bool(ckpt_rec or tm_rec),
+                     profile="profile" in phases)
                  if "quantized" in phases else None)
-        qlora_rec = phase_qlora(smi) if "qlora" in phases else None
-        eval_rec = (phase_eval(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec))
+        qlora_rec = run("qlora", phase_qlora, smi) if "qlora" in phases else None
+        eval_rec = (run("eval", phase_eval, smi,
+                        have_checkpoint=bool(ckpt_rec or tm_rec or q_rec))
                     if "eval" in phases else None)
-        tf_rec = (phase_train_full(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec
-                                                              or eval_rec))
+        tf_rec = (run("train_full", phase_train_full, smi,
+                      have_checkpoint=bool(ckpt_rec or tm_rec or q_rec or eval_rec))
                   if "train_full" in phases else None)
-        tp_rec = (phase_tp_serve(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec
-                                                            or eval_rec or tf_rec))
+        tp_rec = (run("tp_serve", phase_tp_serve, smi,
+                      have_checkpoint=bool(ckpt_rec or tm_rec or q_rec or eval_rec or tf_rec))
                   if "tp_serve" in phases else None)
-        fsdp_rec = (phase_fsdp_train(smi, have_checkpoint=bool(ckpt_rec or tm_rec or q_rec
-                                                                or eval_rec or tf_rec
-                                                                or tp_rec))
+        fsdp_rec = (run("fsdp_train", phase_fsdp_train, smi,
+                        have_checkpoint=bool(ckpt_rec or tm_rec or q_rec or eval_rec or tf_rec
+                                             or tp_rec))
                     if "fsdp_train" in phases else None)
+        tpt_rec = (run("tp_train", phase_tp_train, smi,
+                       have_checkpoint=bool(ckpt_rec or tm_rec or q_rec or eval_rec or tf_rec
+                                            or tp_rec or fsdp_rec))
+                   if "tp_train" in phases else None)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    log("phase seconds " + json.dumps(dict(seconds, total=time.perf_counter() - t_start)))
 
     kernel_entries = [_fused_entry(kernel_rows, main_rec, build_rec, ckpt_rec, tm_rec, q_rec,
                                    eval_rec, tp_rec)]
     kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec, qlora_rec, tf_rec,
-                                     fsdp_rec)
+                                     fsdp_rec, tpt_rec)
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -350,13 +350,16 @@ def test_run_eval_main_staged_and_skip_existing(pipes, items, jax_runs, monkeypa
 
 
 def test_run_eval_mesh_raises_before_loading(monkeypatch, items, tmp_path):
-    """--mesh serves over torch.distributed (tests/test_torch_parallel.py);
-    an fsdp axis > 1 is the next slice and raises before anything loads."""
+    """--mesh serves over torch.distributed (tests/test_torch_parallel.py),
+    an fsdp axis too: its process group is made before anything loads, so
+    one process without torchrun's environment raises there."""
     def never(*a, **k):
         raise AssertionError("loaded a pipeline")
 
     monkeypatch.setattr(FillPipeline, "from_pretrained", classmethod(never))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6b"):
+    for name in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         TR.main(["--model", "unused", "--json-path", items["json"]["items"],
                  "--original-images-dir", items["imgs"], "--output-dir", str(tmp_path),
                  "--mesh", "1,2,1", "--device", "cpu"])
@@ -516,5 +519,9 @@ def test_demo_main_checks_gradio_before_loading(monkeypatch):
     monkeypatch.setattr(FillPipeline, "from_pretrained", classmethod(never))
     with pytest.raises(RuntimeError, match="gradio is not installed"):
         TD.main(["--model", "unused", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6b"):
-        TD.main(["--model", "unused", "--mesh", "1,2,1"])
+    # a mesh with an fsdp axis is taken: its process group is made before
+    # the load (absent in one process without torchrun's environment)
+    for name in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        TD.main(["--model", "unused", "--mesh", "1,2,1", "--device", "cpu"])

@@ -1,8 +1,8 @@
-"""The port's training over the fsdp axis (parallel/partitioning.py
-shard_for_training, the sharded optimizers of training/train.py, the mesh
-paths of cli/train.py, io/params.py load_flux_fsdp, io/export.py
-gathered_flux) held against the JAX package's train step and against the
-port's single-device runs, on the CPU.
+"""The port's training over the fsdp and tensor axes (parallel/partitioning.py
+shard_for_training and the autograd collectives, the sharded optimizers of
+training/train.py, the mesh paths of cli/train.py, io/params.py
+load_flux_fsdp, io/export.py gathered_flux) held against the JAX package's
+train step and against the port's single-device runs, on the CPU.
 
 The ranks are spawned once for the whole file (tests/torch_dist_helpers.py
 fsdp_cases: 2 gloo ranks, one thread each, every join under a timeout, every
@@ -18,6 +18,11 @@ step. Given the same gradients, the 8-bit codes and scales are JAX's
 bitwise (see its test for the one exception); the global norm is the
 single-device port's to 1e-6 relative and Prodigy's D to 1e-5 (see its
 test). Checkpoints, resumes and exports are held bitwise.
+
+The tensor-axis cases (mesh (1, 1, 2), "_tp") run in the same spawn against
+the same JAX steps: each rank holds its tensor shard of the DiT (one of the
+two heads, device-major), the whole batch, and the LoRA factors whole.
+They meet the same tolerances.
 """
 
 import dataclasses
@@ -44,7 +49,6 @@ from textflux_torch.io.from_jax import load_jax_lora
 from textflux_torch.io.export import (export_lora_state_dict, save_safetensors,
                                       save_transformer_checkpoint)
 from textflux_torch.io.params import load_flux_transformer
-from textflux_torch.io.quantize import quantize_tree
 from textflux_torch.models import transformer as TT
 from textflux_torch.ops import packing
 from textflux_torch.ops.rope import rope_tables, rope_tables_half
@@ -77,7 +81,17 @@ STEP_CASES = {     # name: (mode, optimizer, mesh, grad accumulation)
     "attn_adamw_hsdp": ("attn", "adamw", (2, 1, 1), 1),
     # each microbatch reduce-scatters; FSDP sums them into the sharded grads
     "attn_adamw_accum2": ("attn", "adamw", (1, 2, 1), 2),
+    # the tensor axis: each rank its tensor shard, on the whole batch
+    "lora_adamw_tp": ("lora", "adamw", (1, 1, 2), 1),
+    "attn_adamw_tp": ("attn", "adamw", (1, 1, 2), 1),
+    "attn_adamw8bit_tp": ("attn", "adamw8bit", (1, 1, 2), 1),
+    "all_adamw8bit_tp": ("all", "adamw8bit", (1, 1, 2), 1),
 }
+QLORA_BASES = ("weight_only", "nf4")
+# the cases whose JAX reference is another's (the same whole batch and step)
+SAME_REF = {"attn_adamw_hsdp": "attn_adamw", "lora_adamw_tp": "lora_adamw",
+            "attn_adamw_tp": "attn_adamw", "attn_adamw8bit_tp": "attn_adamw8bit",
+            "all_adamw8bit_tp": "all_adamw8bit"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -225,6 +239,10 @@ def fsdp(tmp_path_factory):
                         noise=by_accum[accum][1],
                         tc=dataclasses.asdict(port_train_config(_jax_config(mode, optimizer))))
              for name, (mode, optimizer, shape, accum) in STEP_CASES.items()}
+    # QLoRA at (1, 2, 1): the base quantised (every linear) and its codes
+    # storage-sharded over fsdp, against the same base on one device
+    for base in QLORA_BASES:
+        steps[f"qlora_{base}"] = dict(steps["lora_adamw"], quantize=base)
 
     # optimizer cases: the same whole gradients on every rank
     exact = _tree(lambda k: init_flux_params(k, FLUX), 2, rounded=False)
@@ -243,6 +261,9 @@ def fsdp(tmp_path_factory):
                                         weight_decay=0.1)}
     optimizers = {"adamw8bit": dict(flux=_numpy(exact), flux_cfg=port_cfg(FLUX), shape=(1, 2, 1),
                                     tc=dataclasses.asdict(opt_tc["adamw8bit"]), grads=grads[:1]),
+                  "adamw8bit_tp": dict(flux=_numpy(exact), flux_cfg=port_cfg(FLUX),
+                                       shape=(1, 1, 2), tc=dataclasses.asdict(opt_tc["adamw8bit"]),
+                                       grads=grads[:1]),
                   "prodigy": dict(flux=_numpy(exact), flux_cfg=port_cfg(FLUX), shape=(1, 2, 1),
                                   tc=dataclasses.asdict(opt_tc["prodigy"]), grads=grads,
                                   estim_lr0=ESTIM_LR0)}
@@ -268,6 +289,28 @@ def fsdp(tmp_path_factory):
                              "--checkpointing-steps", "2", mode="lora", optimizer="adamw")}),
         ("D", {"argv": _argv(ckpt, data, root / "D", "--max-train-steps", "50",
                              "--checkpointing-steps", "100", mode="all"), "sigterm": True}),
+        # the tensor axis: T at (1, 1, 2); its checkpoints resumed at (1, 2, 1)
+        # (TF), A's at (1, 1, 2) (AT); LoRA at (1, 1, 2) (CT); QLoRA over an
+        # NF4 base at (1, 2, 1) (Q)
+        ("T", {"argv": _argv(ckpt, data, root / "T", "--mesh", "1,1,2", "--max-train-steps",
+                             "3", "--checkpointing-steps", "1")}),
+        ("TF", {"argv": _argv(ckpt, data, root / "TF", "--mesh", "1,2,1", "--max-train-steps",
+                              "3", "--resume-from-checkpoint", "latest"), "capture": True,
+                "copy": (str(root / "T" / "checkpoints"), str(root / "TF" / "checkpoints"))}),
+        ("AT", {"argv": _argv(ckpt, data, root / "AT", "--mesh", "1,1,2", "--max-train-steps",
+                              "3", "--resume-from-checkpoint", "latest"), "capture": True,
+                "copy": (str(root / "A" / "checkpoints"), str(root / "AT" / "checkpoints"))}),
+        # T's step-2 checkpoint resumed at (1, 1, 2) to step 3 (TR)
+        ("TR", {"argv": _argv(ckpt, data, root / "TR", "--mesh", "1,1,2", "--max-train-steps",
+                              "3", "--checkpointing-steps", "1", "--resume-from-checkpoint",
+                              "latest"),
+                "copy": (str(root / "T" / "checkpoints" / "2"),
+                         str(root / "TR" / "checkpoints" / "2"))}),
+        ("CT", {"argv": _argv(ckpt, data, root / "CT", "--mesh", "1,1,2", "--max-train-steps",
+                              "2", "--checkpointing-steps", "2", mode="lora", optimizer="adamw")}),
+        ("Q", {"argv": _argv(ckpt, data, root / "Q", "--mesh", "1,2,1", "--max-train-steps",
+                             "2", "--checkpointing-steps", "2", "--quantize-base", "nf4",
+                             mode="lora", optimizer="adamw")}),
     ]
     load = dict(path=str(root / "ckpt" / "transformer"), cfg=port_cfg(FLUX_CFG))
     spec = dict(steps=steps, optimizers=optimizers, main=main, load=load)
@@ -278,11 +321,10 @@ def fsdp(tmp_path_factory):
         mp.setattr(TR.ClippedProdigy, "estim_lr0", ESTIM_LR0)
         refs = {}
         for name, (mode, optimizer, _, accum) in STEP_CASES.items():
-            if name == "attn_adamw_hsdp":
-                continue
-            refs[name] = _jax_steps(mode, optimizer, accum, params, lora, vae,
-                                    by_accum[accum][0], keys)
-        refs["attn_adamw_hsdp"] = refs["attn_adamw"]
+            if name not in SAME_REF:
+                refs[name] = _jax_steps(mode, optimizer, accum, params, lora, vae,
+                                        by_accum[accum][0], keys)
+        refs.update({name: refs[other] for name, other in SAME_REF.items()})
 
         # 8-bit codes: JAX's masked update on the same gradients
         jtc = JTR.TrainConfig(mode="all", optimizer="adamw8bit", learning_rate=1e-3,
@@ -318,11 +360,28 @@ def fsdp(tmp_path_factory):
                 p.grad = torch.tensor(g[name])
             snorms.append(float(sopt.step()))
         prodigy = dict(norms=snorms, d=float(sopt.state["estim_lr"]))
+        qlora = {base: _one_device_steps(steps[f"qlora_{base}"]) for base in QLORA_BASES}
         results = ranks.results(timeout=240)
     for r, res in enumerate(results):
         assert "error" not in res, f"rank {r}: {res['error']}"
     return types.SimpleNamespace(ranks=results, refs=refs, codes=codes, prodigy=prodigy,
-                                 root=root, ckpt=ckpt, data=data, params=params, lora=lora)
+                                 qlora=qlora, root=root, ckpt=ckpt, data=data, params=params,
+                                 lora=lora)
+
+
+def _one_device_steps(case):
+    """A step case's steps on this process alone (no mesh, the whole batch)."""
+    one = types.SimpleNamespace(tensor=1, batch_shards=1)
+    model, vae, opt, step, named = D._train_model(case, one)
+    losses, norms = [], []
+    for batch, noise in zip(case["batches"], case["noise"]):
+        got = step(model, vae, opt, {k: torch.tensor(v) for k, v in batch.items()},
+                   noise=[{k: torch.tensor(v) for k, v in mb.items()} for mb in noise])
+        losses.append(float(got["loss"]))
+        norms.append(float(got["grad_norm"]))
+    return dict(losses=losses, norms=norms,
+                params={n: p.detach().float().numpy() for n, p in model.named_parameters()
+                        if p.requires_grad})
 
 
 def _ok(res):
@@ -454,6 +513,27 @@ def test_steps_match_jax(case, fsdp):
         assert 0 < got[0]["local_leaves"] < got[0]["leaves"]
 
 
+@pytest.mark.parametrize("base", QLORA_BASES)
+def test_qlora_over_fsdp_matches_one_device(base, fsdp):
+    """QLoRA (rank 4, AdamW) over a base quantised in every linear, at (1,
+    2, 1): each rank keeps half of the codes and scales (storage shards,
+    gathered block by block, never cast) and its FSDP slice of the factors,
+    against the same base on one device on the same batch: loss and grad
+    norm within 1e-5 relative, every factor within 1e-3 of a step (the
+    single-device LoRA tolerance)."""
+    want = fsdp.qlora[base]
+    for r in fsdp.ranks:
+        got = _ok(r[f"step:qlora_{base}"])
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+        np.testing.assert_allclose(got["norms"], want["norms"], rtol=1e-5)
+        assert got["counts"]["all_gather_storage"] > 0
+    params = _ok(fsdp.ranks[0][f"step:qlora_{base}"])["params"]
+    assert want["params"] and all(".lora_" in name for name in want["params"])
+    for name, y in want["params"].items():
+        np.testing.assert_allclose(params[name], y, rtol=0,
+                                   atol=1e-3 * LEARNING_RATES["lora"], err_msg=name)
+
+
 def _code_boundary(moment, scale):
     """Each element's distance, in code units, from the nearest rounding
     boundary of the log-domain code (float64): where it is within float32
@@ -464,9 +544,11 @@ def _code_boundary(moment, scale):
     return np.abs(v - np.floor(v) - 0.5)
 
 
-def test_8bit_codes_are_the_jax_blocks(fsdp):
-    """One 8-bit AdamW update over 2 ranks on the same gradients as JAX's
-    (a global norm under the clip): the state, gathered into its whole
+@pytest.mark.parametrize("case", ["adamw8bit", "adamw8bit_tp"])
+def test_8bit_codes_are_the_jax_blocks(case, fsdp):
+    """One 8-bit AdamW update over 2 ranks (fsdp, or the tensor axis: each
+    rank its device-major shard) on the same gradients as JAX's (a global
+    norm under the clip): the state, gathered into its whole natural
     layout, holds JAX's block scales bitwise and JAX's codes bitwise, for
     the leaves whose slices are whole blocks (kept and updated per rank)
     and for the others (gathered whole). The one exception is an element
@@ -475,7 +557,7 @@ def test_8bit_codes_are_the_jax_blocks(fsdp):
     and round it one code apart (the single-device port too: 2 such
     elements in this model's 1.2 M, in other leaves). The parameters
     match."""
-    got = _ok(fsdp.ranks[0]["opt:adamw8bit"])
+    got = _ok(fsdp.ranks[0][f"opt:{case}"])
     inner, grads = fsdp.codes["inner"], fsdp.codes["grads"]
     assert any(got["local"]) and not all(got["local"])
     at_boundary = 0
@@ -562,6 +644,25 @@ def _assert_trees_equal(got, want, path="state"):
         assert got == want, path
 
 
+def _resume_on_one_device(fsdp, out, monkeypatch):
+    """main() on one device resuming run `out`'s latest checkpoint (step 3):
+    the live state right after the resume, in the checkpoint's layout."""
+    root = fsdp.root / f"{out}1"
+    shutil.copytree(fsdp.root / out / "checkpoints", root / "checkpoints")
+    seen = {}
+    load = CLI.load_full_train_state
+
+    def capture(flux, opt, state):
+        s = load(flux, opt, state)
+        seen["state"] = D.torch_tree_to_numpy(CLI.full_train_state(flux, opt, s))
+        return s
+
+    monkeypatch.setattr(CLI, "load_full_train_state", capture)
+    CLI.main(_argv(fsdp.ckpt, fsdp.data, root, "--max-train-steps", "3",
+                   "--resume-from-checkpoint", "latest"))
+    return seen["state"]
+
+
 @pytest.mark.parametrize("written,read", [(2, 2), (1, 2), (2, 1)])
 def test_checkpoint_restores_bitwise_at_any_fsdp(written, read, fsdp, monkeypatch):
     """A checkpoint (the whole tensors: parameters in their dtypes, 8-bit
@@ -573,42 +674,63 @@ def test_checkpoint_restores_bitwise_at_any_fsdp(written, read, fsdp, monkeypatc
         restored = _main(fsdp, run)["restored"]
     else:   # one device resumes A's (fsdp = 2) step-3 checkpoint
         out, step = "A", 3
-        root = fsdp.root / "A1"
-        shutil.copytree(fsdp.root / "A" / "checkpoints", root / "checkpoints")
-        seen = {}
-        load = CLI.load_full_train_state
-
-        def capture(flux, opt, state):
-            s = load(flux, opt, state)
-            seen["state"] = D.torch_tree_to_numpy(CLI.full_train_state(flux, opt, s))
-            return s
-
-        monkeypatch.setattr(CLI, "load_full_train_state", capture)
-        CLI.main(_argv(fsdp.ckpt, fsdp.data, root, "--max-train-steps", "3",
-                       "--resume-from-checkpoint", "latest"))
-        restored = seen["state"]
+        restored = _resume_on_one_device(fsdp, out, monkeypatch)
     want = _state(fsdp.root / out, step)
     assert restored["step"] == step and restored["opt_state"]["count"] == step
     _assert_trees_equal(restored, want)
+
+
+def _assert_resume_continues(fsdp, straight, resumed):
+    """Run `resumed` (2 steps, then a resume to step 3) ends bitwise where
+    the straight 3-step run `straight` ends: its step-3 checkpoint and its
+    export."""
+    want, got = _state(fsdp.root / straight, 3), _state(fsdp.root / resumed, 3)
+    _assert_trees_equal(D.torch_tree_to_numpy(got), want)
+    for f in ("diffusion_pytorch_model.safetensors", "config.json"):
+        assert ((fsdp.root / straight / "transformer" / f).read_bytes()
+                == (fsdp.root / resumed / "transformer" / f).read_bytes()), f
 
 
 def test_resume_continues_bitwise(fsdp):
     """At fsdp = 2: 2 steps, then a resume to step 3, end bitwise where the
     straight 3-step run ends (its step-3 checkpoint and its export)."""
     _main(fsdp, "A"), _main(fsdp, "B2")
-    straight, resumed = _state(fsdp.root / "A", 3), _state(fsdp.root / "B", 3)
-    _assert_trees_equal(D.torch_tree_to_numpy(resumed), straight)
-    for f in ("diffusion_pytorch_model.safetensors", "config.json"):
-        assert ((fsdp.root / "A" / "transformer" / f).read_bytes()
-                == (fsdp.root / "B" / "transformer" / f).read_bytes()), f
+    _assert_resume_continues(fsdp, "A", "B")
 
 
-def test_export_is_the_one_device_export(fsdp, tmp_path):
+def test_resume_continues_bitwise_at_tp2(fsdp):
+    """At tp = 2: the straight 3-step run's step-2 checkpoint, resumed to
+    step 3, ends bitwise where the straight run ends (its step-3 checkpoint
+    and its export)."""
+    _main(fsdp, "T"), _main(fsdp, "TR")
+    _assert_resume_continues(fsdp, "T", "TR")
+
+
+@pytest.mark.parametrize("written,read", [("1,1,2", "1,2,1"), ("1,1,2", "1,1,1"),
+                                          ("1,2,1", "1,1,2")])
+def test_checkpoint_restores_bitwise_across_the_tensor_axis(written, read, fsdp, monkeypatch):
+    """A checkpoint written with the weights split over a tensor axis holds
+    them (and the 8-bit codes) whole in the natural layout: resumed at
+    fsdp = 2 or on one device it restores bitwise, and one written at fsdp
+    = 2 restores bitwise at tp = 2."""
+    out = {"1,1,2": "T", "1,2,1": "A"}[written]
+    if read == "1,1,1":
+        restored = _resume_on_one_device(fsdp, out, monkeypatch)
+    else:
+        restored = _main(fsdp, {"1,2,1": "TF", "1,1,2": "AT"}[read])["restored"]
+    want = _state(fsdp.root / out, 3)
+    assert restored["step"] == 3 and restored["opt_state"]["count"] == 3
+    _assert_trees_equal(restored, want)
+
+
+@pytest.mark.parametrize("full,lora", [("A", "C"), ("T", "CT")])
+def test_export_is_the_one_device_export(full, lora, fsdp, tmp_path):
     """Rank 0's float32 export of the sharded DiT and its LoRA export are,
     byte for byte, what the single-device exporters write of the same
-    weights gathered whole (the final checkpoints')."""
-    _main(fsdp, "A"), _main(fsdp, "C")
-    state = _state(fsdp.root / "A", 3)
+    weights gathered whole (the final checkpoints'): over fsdp = 2, and
+    over tp = 2 (the tensor shards gathered and un-permuted)."""
+    _main(fsdp, full), _main(fsdp, lora)
+    state = _state(fsdp.root / full, 3)
     whole = TT.FluxTransformer(port_cfg(FLUX_CFG), device="meta")
     for name, t in state["params"].items():
         path, _, leaf = name.rpartition(".")
@@ -617,13 +739,13 @@ def test_export_is_the_one_device_export(fsdp, tmp_path):
     save_transformer_checkpoint(whole, str(tmp_path / "transformer"), dtype=torch.float32)
     name = "diffusion_pytorch_model.safetensors"
     assert ((tmp_path / "transformer" / name).read_bytes()
-            == (fsdp.root / "A" / "transformer" / name).read_bytes())
+            == (fsdp.root / full / "transformer" / name).read_bytes())
 
-    lora = _state(fsdp.root / "C", 2)["lora"]
-    save_safetensors(export_lora_state_dict(lora, port_cfg(FLUX_CFG), 2.0, rank=2),
+    factors = _state(fsdp.root / lora, 2)["lora"]
+    save_safetensors(export_lora_state_dict(factors, port_cfg(FLUX_CFG), 2.0, rank=2),
                      str(tmp_path / "lora.safetensors"))
     assert ((tmp_path / "lora.safetensors").read_bytes()
-            == (fsdp.root / "C" / "pytorch_lora_weights.safetensors").read_bytes())
+            == (fsdp.root / lora / "pytorch_lora_weights.safetensors").read_bytes())
 
 
 def test_sigterm_on_one_rank_stops_every_rank(fsdp):
@@ -653,27 +775,69 @@ def test_batch_must_split_over_data_x_fsdp(fsdp):
                        "--train-batch-size", "1"))
 
 
-@pytest.mark.parametrize("extra", [["--mesh", "1,1,2"], ["--mesh", "2,1,2"],
-                                   ["--mesh", "1,2,1", "--mode", "lora", "--quantize-base",
-                                    "nf4"]])
-def test_what_stays_item_6b_ii_raises(extra, fsdp):
-    """Tensor parallelism in training and a quantised base over fsdp > 1
-    raise naming ROADMAP item 6b-ii (the words "item 6b" kept)."""
-    with pytest.raises(NotImplementedError, match="item 6b-ii"):
-        CLI.main(_argv(fsdp.ckpt, fsdp.data, fsdp.root / "X", *extra))
+@pytest.mark.parametrize("run", ["T", "CT", "Q"])
+def test_main_runs_what_was_refused(run, fsdp):
+    """What main() refused before (a tensor axis in training, --mode attn
+    and --mode lora; --quantize-base over fsdp > 1) runs over the 2 ranks:
+    finite losses logged at every step, a checkpoint and an export. (Data
+    x tensor meshes run in tests/test_torch_tp_train.py at (2, 2, 2).)"""
+    _main(fsdp, run)
+    steps = {"T": 3, "CT": 2, "Q": 2}[run]
+    log = [json.loads(x) for x in (fsdp.root / run / "train_log.jsonl").read_text()
+           .splitlines()]
+    assert [e["step"] for e in log] == list(range(1, steps + 1))
+    assert all(np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"]) for e in log)
+    assert steps in CheckpointManager(str(fsdp.root / run / "checkpoints")).all_steps()
+    export = ("transformer/diffusion_pytorch_model.safetensors" if run == "T"
+              else "pytorch_lora_weights.safetensors")
+    assert (fsdp.root / run / export).exists()
 
 
-def test_serving_and_quantised_sharding_raise_item_6b_ii():
-    """Serving over fsdp > 1 and FSDP over a quantised base raise naming
-    item 6b-ii: nothing replicates what the mesh asks to shard."""
-    with pytest.raises(NotImplementedError, match="item 6b-ii"):
-        PT.serving_mesh_shape("1,2,1")
-    with pytest.raises(NotImplementedError, match="item 6b-ii"):
-        PT.check_serving_mesh(types.SimpleNamespace(shape={"fsdp": 2}))
-    model = TT.FluxTransformer(port_cfg(FLUX), device="cpu")
-    quantize_tree(model, mode="weight_only", min_size=1)
-    mesh = types.SimpleNamespace(tensor=1, shape={"data": 1, "fsdp": 2, "tensor": 1})
-    with pytest.raises(NotImplementedError, match="item 6b-ii"):
-        PT.shard_for_training(model, mesh)
-    with pytest.raises(NotImplementedError, match="item 6b-ii"):
-        PT.shard_for_training(model, types.SimpleNamespace(tensor=2, shape={"tensor": 2}))
+def test_tensor_axis_decisions():
+    """Decided once per parameter from the specs: which parameters a
+    tensor axis splits (along which axis, with the device-major share of a
+    fused projection), and which replicated ones have a gradient that is a
+    rank's part, summed over the tensor ranks (the q/k norm scales of a
+    block whose heads are split, the LoRA factors of a split linear) or
+    whole on each (the embedders, the output head, a row-parallel bias, the
+    factors of a replicated linear)."""
+    cfg = port_cfg(FLUX)
+    model = TT.FluxTransformer(cfg, device="cpu")
+    lora = TR.lora_init(model, 2, generator=torch.Generator().manual_seed(1))
+    head = model.final_proj   # a replicated linear carrying factors too
+    lora["final_proj"] = {"a": torch.randn(head.in_features, 2),
+                          "b": torch.zeros(2, head.out_features)}
+    TR.lora_insert(model, lora, 1.0)
+    TT.tp_permute_flux_params(model, 2)
+    PT.shard_module(model, PT.flux_param_specs(cfg), types.SimpleNamespace(tensor=2,
+                                                                             tensor_rank=1))
+    split, partial = {}, set()
+    for name, _ in model.named_parameters():
+        x = PT.tensor_split(model, name)
+        if x is not None:
+            split[name] = (x[0], x[1].kind)
+        if PT.partial_over_tensor(model, name):
+            partial.add(name)
+    assert split["double_blocks.0.img_qkv.weight"] == (0, PT.COLUMN)
+    assert split["double_blocks.0.img_qkv.bias"] == (0, PT.COLUMN)
+    assert split["double_blocks.0.img_proj.weight"] == (1, PT.ROW)
+    assert split["single_blocks.1.linear2.weight"] == (1, PT.ROW)
+    assert split["img_in.weight"] == (0, PT.COLUMN)
+    for name in ("double_blocks.0.img_proj.bias", "single_blocks.0.linear2.bias",
+                 "final_proj.weight", "final_mod.bias", "time_in.fc1.weight",
+                 "double_blocks.0.img_q_scale", "single_blocks.0.linear1.lora_ga"):
+        assert name not in split, name
+    assert partial == {n for n, _ in model.named_parameters()
+                       if n.endswith(("_scale", ".lora_a", ".lora_b", ".lora_ga", ".lora_gb"))
+                       and not n.startswith("final_proj.")}
+    # the optimizer's names of the factors ("<linear path>.a" / ".b")
+    assert PT.partial_over_tensor(model, "double_blocks.0.img_qkv.a")
+    assert not PT.partial_over_tensor(model, "final_proj.b")
+    assert not any(n.startswith(("time_in", "vector_in", "guidance_in", "final_"))
+                   for n in partial)
+    # the rank's share of a fused projection: its head's q, k and v rows
+    share = model.double_blocks[0].img_qkv.tp_share
+    d = cfg.hidden_dim
+    assert share.index().tolist() == [j for s in (0, d, 2 * d) for j in range(s + d // 2, s + d)]
+    assert model.single_blocks[0].linear1.lora_ga.shape[1:] == (d, 2)   # factors stay whole
+    assert PT.serving_mesh_shape("1,2,1") == (1, 2, 1)

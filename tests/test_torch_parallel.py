@@ -228,9 +228,16 @@ def test_adapt_specs_lora_carrying_linears():
     assert specs["double_blocks.0.img_qkv.lora_ga"] is None        # grouped q/k/v
     assert specs["double_blocks.0.img_proj.lora_a"] is None        # single-module
     assert specs["double_blocks.0.img_proj.weight"] == 1
-    # replicated factors over a sharded base: LoRA over a sharded base is item 6b
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        PT.shard_module(model, PT.flux_param_specs(model.cfg), _fake_mesh(2, 0))
+    # replicated factors over a sharded base: the factors stay whole, the
+    # linears record the share a rank's forward takes of them
+    factors = {n: p.detach().clone() for n, p in model.named_parameters() if ".lora_" in n}
+    TT.tp_permute_flux_params(model, 2)
+    PT.shard_module(model, PT.flux_param_specs(model.cfg), _fake_mesh(2, 0))
+    for n, p in model.named_parameters():
+        if n in factors:
+            assert torch.equal(p, factors[n]), n
+    assert model.double_blocks[0].img_proj.tp_share.kind == PT.ROW
+    assert model.double_blocks[0].img_qkv.tp_share.kind == PT.COLUMN
 
 
 @pytest.mark.parametrize("mode", ["weight_only", "w8a8", "nf4"])
@@ -326,8 +333,7 @@ def test_sharded_load_is_permute_then_shard(wide_checkpoint, mode):
 
 def test_serving_mesh_shape_and_the_process_group(monkeypatch):
     assert PT.serving_mesh_shape("2,1,2") == (2, 1, 2)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        PT.serving_mesh_shape("1,2,1")
+    assert PT.serving_mesh_shape("1,2,1") == (1, 2, 1)   # the DiT storage-sharded over fsdp
     for bad in ("2,2", "a,1,1", "0,1,1"):
         with pytest.raises(ValueError, match="dp,fsdp,tp"):
             PT.serving_mesh_shape(bad)
@@ -441,6 +447,10 @@ def two_ranks(tmp_path_factory):
     wide = dict(modules=wide_trees, pipe_cfg=TC.PipelineConfig(num_inference_steps=STEPS))
     quant = {mode: dict(wide, shape=(1, 1, 2), call=qcall, quantize=mode, min_size=0)
              for mode in ("weight_only", "w8a8", "nf4")}
+    # over the fsdp axis: the DiT storage-sharded, the batch a sample a rank
+    quant["fsdp"] = dict(wide, shape=(1, 2, 1), call=qcall)
+    quant["weight_only_fsdp"] = dict(wide, shape=(1, 2, 1), call=qcall, quantize="weight_only",
+                                     min_size=0)
     ckpt = write_tiny_checkpoint(str(root / "ckpt"))
     pcfg = TC.PipelineConfig(num_inference_steps=STEPS, max_sequence_length=16)
     img, mask = _batch_inputs(1, seed=2)
@@ -450,7 +460,8 @@ def two_ranks(tmp_path_factory):
                  items["imgs"], "--steps", str(STEPS), "--max-sequence-length", "16",
                  "--device", "cpu"]
     runs = {"dp": eval_argv + ["--mesh", "2,1,1", "--batch-size", "2"],
-            "tp": eval_argv + ["--mesh", "1,1,2", "--batch-size", "1"]}
+            "tp": eval_argv + ["--mesh", "1,1,2", "--batch-size", "1"],
+            "fsdp": eval_argv + ["--mesh", "1,2,1", "--batch-size", "2"]}
     scene = _scene()
     demo = _pipe_spec(jax_pipe, shape=(1, 1, 2),
                       custom_args=({"image": scene[0], "mask": scene[1]}, "hi\nyo", STEPS,
@@ -462,15 +473,22 @@ def two_ranks(tmp_path_factory):
             quant=quant,
             pretrained=dict(shape=(1, 1, 2), checkpoint=ckpt, lora=os.path.join(ckpt, "lora"),
                             lora_scale=0.8, pipe_cfg=pcfg, call=pcall),
+            pretrained_fsdp=dict(shape=(1, 2, 1), checkpoint=ckpt,
+                                 lora=os.path.join(ckpt, "lora"), lora_scale=0.8,
+                                 pipe_cfg=pcfg, call=pcall),
+            tp_grad=dict(cfg=port_cfg(FLUX_HEADS4), tree=jax.tree.map(np.asarray, params),
+                         inputs=x),
             run_eval=dict(root=str(root / "eval"), argv=runs), demo=demo)) as ranks:
         # the single-rank references, on the port
         refs = {"flux": _jax_flux_refs(params, x, 2), "quant": {}, "pretrained": {}}
-        for mode in quant:
+        for mode in ("weight_only", "w8a8", "nf4", "fsdp"):
             pipe = D.build_pipeline(wide)
-            quantize_tree(pipe.flux, mode=mode, min_size=0)
+            if mode != "fsdp":
+                quantize_tree(pipe.flux, mode=mode, min_size=0)
             with D.float_images():
                 out = pipe.generate_batch(**qcall, dtype=torch.float32)
             refs["quant"][mode] = np.asarray(out)
+        refs["quant"]["weight_only_fsdp"] = refs["quant"]["weight_only"]
         for name, lora in (("base", None), ("lora", os.path.join(ckpt, "lora"))):
             pipe = FillPipeline.from_pretrained(ckpt, lora_path=lora, lora_scale=0.8,
                                                 dtype=torch.float32, pipe_cfg=pcfg,
@@ -481,6 +499,8 @@ def two_ranks(tmp_path_factory):
         single = str(root / "eval" / "single")
         with D.float32_pipelines():
             for name, argv in runs.items():
+                if name == "fsdp":   # the same batches as dp's (a sample a rank)
+                    continue
                 batch = argv[argv.index("--batch-size"):argv.index("--batch-size") + 2]
                 TR.main(eval_argv + batch + ["--output-dir", os.path.join(single, name)])
         ref_pipe = D.build_pipeline(_pipe_spec(jax_pipe))
@@ -563,8 +583,12 @@ def test_generate_batch_data_and_tensor_parallel_matches_jax(four_ranks):
         assert o["counts"]["all_reduce_sum"] == STEPS * 10
 
 
-@pytest.mark.parametrize("mode", ["weight_only", "w8a8", "nf4"])
+@pytest.mark.parametrize("mode", ["weight_only", "w8a8", "nf4", "fsdp", "weight_only_fsdp"])
 def test_quantized_shards_match_unsharded(two_ranks, mode):
+    """Each rank's images within 1e-4 of the unsharded port's: tensor
+    shards per quantise mode at (1, 1, 2), and at (1, 2, 1) the DiT
+    storage-sharded over fsdp (bf16 weights, and int8 codes), a sample a
+    rank, gathered over (data, fsdp): the same weights bit for bit."""
     ref = two_ranks["refs"]["quant"][mode]
     for res in two_ranks["results"]:
         o = _ok(_ok(res["quant"])[mode])
@@ -572,25 +596,36 @@ def test_quantized_shards_match_unsharded(two_ranks, mode):
         # w8a8: one max over the ranks per row-parallel product
         assert o["counts"]["all_reduce_max"] == (
             o["counts"]["all_reduce_sum"] if mode == "w8a8" else 0)
+        if mode.endswith("fsdp"):
+            assert o["counts"]["all_reduce_sum"] == 0 and o["counts"]["all_gather_batch"] == 1
+            assert o["counts"]["all_gather_storage"] > 0
+            assert abs(o["storage_bytes"] / o["whole_bytes"] - 0.5) < 0.01
 
 
 @pytest.mark.parametrize("case", ["base", "lora", "deferred"])
-def test_from_pretrained_mesh_matches_single_rank(two_ranks, case):
+@pytest.mark.parametrize("axis", ["pretrained", "pretrained_fsdp"])
+def test_from_pretrained_mesh_matches_single_rank(two_ranks, case, axis):
+    """from_pretrained(mesh=) at (1, 1, 2) (each rank its tensor shard) and
+    at (1, 2, 1) (each rank its storage shard over fsdp) against the one
+    rank's image, within 1e-4."""
     refs = two_ranks["refs"]["pretrained"]
     shard_bytes = []
     for rank, res in enumerate(two_ranks["results"]):
-        o = _ok(_ok(res["pretrained"])[case])
-        assert o["tp_rank"] == rank
+        o = _ok(_ok(res[axis])[case])
+        assert o["tp_rank"] == (rank if axis == "pretrained" else None)
         np.testing.assert_allclose(o["image"], refs["lora" if case == "lora" else "base"],
                                    atol=IMAGE_TOL)
         shard_bytes.append(o["dit_bytes"])
+    whole = refs["base_bytes"]
+    if axis == "pretrained_fsdp":   # the storage shards hold the DiT once
+        assert sum(shard_bytes) == whole and max(shard_bytes) < whole
+        return
     # each rank holds less than the whole DiT; together the shards hold
     # it once, and the replicated linears (embedders, output head) once more
-    whole = refs["base_bytes"]
     assert max(shard_bytes) < whole < sum(shard_bytes)
 
 
-@pytest.mark.parametrize("case", ["dp", "tp"])
+@pytest.mark.parametrize("case", ["dp", "tp", "fsdp"])
 def test_run_eval_mesh_matches_single_rank(two_ranks, case):
     for res in two_ranks["results"]:
         assert _ok(_ok(res["run_eval"])[case]) is True
@@ -602,8 +637,8 @@ def test_run_eval_mesh_matches_single_rank(two_ranks, case):
     for sub in ("full_images", "cropped_images"):
         for name in two_ranks["names"]:
             a = np.asarray(Image.open(out / "rank0" / sub / name), np.int16)
-            b = np.asarray(Image.open(os.path.join(two_ranks["single"], case, sub, name)),
-                           np.int16)
+            b = np.asarray(Image.open(os.path.join(
+                two_ranks["single"], "dp" if case == "fsdp" else case, sub, name)), np.int16)
             assert a.shape == b.shape and np.abs(a - b).max() <= 1, (sub, name)
 
 
@@ -614,3 +649,26 @@ def test_demo_callbacks_on_two_ranks(two_ranks):
         a = led[name].astype(np.int16)
         b = two_ranks["refs"]["demo"][name].astype(np.int16)
         assert a.shape == b.shape and np.abs(a - b).max() <= 1, name
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("impl", ["plain", "flash"])
+def test_flux_apply_tp2_gradients_match_tp1(two_ranks, impl, remat):
+    """Training's tensor-parallel forward and backward at (1, 1, 2) (the
+    autograd collectives, remat's recompute replaying them) against the
+    port's tp = 1 on the same weights: the output within 2e-5 (the sharded
+    forward's bound) and every parameter's gradient, gathered and
+    un-permuted (a replicated one's rank parts summed), within 1e-5 of its
+    largest |value| (measured: 1.4e-6 at most). The forward with no gradient
+    (serving) is bitwise the forward that carries one."""
+    for res in two_ranks["results"]:
+        r = _ok(_ok(res["tp_grad"])[f"{impl}_{remat}"])
+        assert r["out_err"] <= FLUX_TOL
+        worst = max(r["grad_err"].items(), key=lambda kv: kv[1])
+        assert worst[1] <= 1e-5, worst
+        assert r["no_grad_bitwise"]
+        # forward all-reduces: 4 a double block, 1 a single (twice with
+        # remat, whose recompute replays them); the backward's: one a
+        # column-parallel product whose input carries a gradient
+        assert r["counts"]["all_reduce_sum"] == (2 if remat else 1) * (4 * 2 + 2)
+        assert r["counts"]["all_reduce_grad"] > 0

@@ -100,6 +100,32 @@ def test_quantizer_codes_match_jax(mode, double_quant, d_in, rng):
                                rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("mode,double_quant", [("weight_only", False), ("w8a8", False),
+                                               ("nf4", False), ("nf4", True)])
+def test_quantizer_in_row_chunks_is_bitwise_whole(mode, double_quant, rng, monkeypatch):
+    """A weight quantised a few rows at a time (QUANT_CHUNK: every code and
+    scale is a row's own), whole or into a row range, and a row-parallel
+    shard's columns (load_cols), hold the buffers of the weight quantised
+    at once, bitwise."""
+    w = torch.tensor(rng.standard_normal((40, 256)) * 0.05, dtype=torch.float32)
+    whole = TQ.QuantLinear(256, 40, mode, double_quant=double_quant, dtype=torch.float32)
+    whole.load_rows(None, w)
+    cols = torch.arange(64, 192)
+    shard = TQ.QuantLinear(128, 40, mode, double_quant=double_quant, dtype=torch.float32)
+    shard.load_cols(cols, w)
+    monkeypatch.setattr(TQ, "QUANT_CHUNK", 3 * 256)     # 3 rows at a time
+    chunked = TQ.QuantLinear(256, 40, mode, double_quant=double_quant, dtype=torch.float32)
+    chunked.load_rows(slice(0, 17), w[:17])
+    chunked.load_rows(slice(17, 40), w[17:])
+    chunked_shard = TQ.QuantLinear(128, 40, mode, double_quant=double_quant,
+                                   dtype=torch.float32)
+    chunked_shard.load_cols(cols, w)
+    for want, got in ((whole, chunked), (shard, chunked_shard)):
+        for name, b in want.named_buffers():
+            if name != "bias":
+                assert torch.equal(getattr(got, name), b), name
+
+
 def _jax_modes(tree, path=()):
     """{path: mode} of every quantised leaf of a JAX tree."""
     if isinstance(tree, dict):

@@ -476,10 +476,11 @@ def test_main_exits_on_data_it_cannot_batch(checkpoint, tmp_path, rng):
 
 
 # each trainer choice beside the ROADMAP item that ports it; items 2, 4 and
-# 6b-i (training over the fsdp axis) are ported; tensor parallelism in
-# training is item 6b-ii
+# 6b (training over the fsdp and tensor axes) are ported; the loader's
+# process mode is item 7
 PORTED_CHOICES = (["--mode", "attn"], ["--mode", "all"], ["--optimizer", "adamw8bit"],
-                  ["--use-8bit-adam"], ["--quantize-base", "nf4"], ["--mesh", "1,2,1"])
+                  ["--use-8bit-adam"], ["--quantize-base", "nf4"], ["--mesh", "1,2,1"],
+                  ["--mesh", "1,1,2"])
 
 
 @pytest.mark.parametrize("extra,item", [
@@ -489,15 +490,18 @@ PORTED_CHOICES = (["--mode", "attn"], ["--mode", "all"], ["--optimizer", "adamw8
     (["--loader-procs", "2"], "item 7")])
 def test_main_refuses_unported_choices(extra, item, tmp_path):
     """An unported choice raises naming its item; a ported one passes the
-    check and main() goes on to read the (absent) data. The full-parameter
-    modes with --quantize-base exit with the JAX trainer's own message."""
+    check and main() goes on to read the (absent) data, or, for a mesh of
+    several ranks, to make its process group (absent in one process). The
+    full-parameter modes with --quantize-base exit with the JAX trainer's
+    own message."""
     argv = _argv("unused", str(tmp_path), tmp_path / "out") + extra
     if extra[0] == "--mode":
         with pytest.raises(SystemExit, match="--quantize-base requires --mode lora"):
             CLI.main(argv + ["--quantize-base", "weight_only"])
     if extra in PORTED_CHOICES:
         CLI.check_ported(CLI.parse_args(argv))
-        with pytest.raises(FileNotFoundError):
+        with pytest.raises(RuntimeError if extra[0] == "--mesh" else FileNotFoundError,
+                           match="torchrun" if extra[0] == "--mesh" else None):
             CLI.main(argv)
         return
     with pytest.raises(NotImplementedError, match=item):

@@ -233,8 +233,16 @@ def generate_batch_rank(rank, world, spec):
     PT.reset_counts()
     with float_images():
         out = pipe.generate_batch(**spec["call"], dtype=torch.float32)
+    from textflux_torch.io.quantize import quantized_bytes
+
+    whole = build_pipeline(spec).flux
+    if spec.get("quantize"):
+        from textflux_torch.io.quantize import quantize_tree
+
+        quantize_tree(whole, mode=spec["quantize"], min_size=spec.get("min_size"))
     return dict(images=np.asarray(out), counts=PT.counts(), tp_rank=pipe.flux.tp_rank,
-                batch_rank=mesh.batch_rank)
+                batch_rank=mesh.batch_rank, storage_bytes=PT.storage_bytes(pipe.flux),
+                whole_bytes=quantized_bytes(whole))
 
 
 def quantized_rank(rank, world, specs):
@@ -308,6 +316,55 @@ def demo_rank(rank, world, spec):
     return {"custom": np.asarray(custom), "normal": np.asarray(normal)}
 
 
+def tp_grad_rank(rank, world, spec):
+    """flux_apply's forward and backward at (1, 1, world) against tp = 1 on
+    the same weights, per attention path and remat: the output's and each
+    parameter's gradient's error (gathered whole, un-permuted, a replicated
+    one's rank parts summed), relative to its largest |value|."""
+    import copy
+
+    from textflux_torch.io.from_jax import load_jax_params
+    from textflux_torch.models import transformer as TT
+    from textflux_torch.ops.rope import rope_tables
+    from textflux_torch.parallel import partitioning as PT
+
+    cfg, x = spec["cfg"], spec["inputs"]
+    mesh = PT.make_mesh((1, 1, world), device="cpu")
+    base = load_jax_params(spec["tree"], cfg, device="cpu")
+    args = [torch.as_tensor(x[k]) for k in ("img", "txt", "pooled", "timestep", "guidance")]
+    cos, sin = (torch.as_tensor(t) for t in rope_tables(x["ids"], cfg.axes_dims_rope))
+
+    def run(impl, remat):
+        ref = copy.deepcopy(base)
+        y = TT.flux_apply(ref, *args, cos, sin, attn_impl="plain", remat=remat)
+        y.square().mean().backward()
+        model = tensor_shard(copy.deepcopy(base), mesh)
+        PT.shard_for_training(model, mesh)
+        with torch.no_grad():
+            served = TT.flux_apply(model, *args, cos, sin, attn_impl=impl, mesh=mesh)
+        PT.reset_counts()
+        out = TT.flux_apply(model, *args, cos, sin, attn_impl=impl, remat=remat, mesh=mesh)
+        out.square().mean().backward()
+        counts = PT.counts()
+        want = dict(ref.named_parameters())
+        errs = {}
+        for name, p in model.named_parameters():
+            g = p.grad
+            if PT.partial_over_tensor(model, name):
+                g = g.clone()
+                dist.all_reduce(g, group=mesh.tensor_group)
+            split = PT.tensor_split(model, name)
+            if split is not None:
+                g = PT.gather_split(g, *split, mesh.tensor_group)
+            w = want[name].grad
+            errs[name] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        return dict(out_err=float((out.detach() - y.detach()).abs().max()), grad_err=errs,
+                    no_grad_bitwise=bool(torch.equal(served, out.detach())), counts=counts)
+
+    return run_cases({f"{impl}_{remat}": (lambda i=impl, r=remat: run(i, r))
+                      for impl in ("plain", "flash") for remat in (False, True)})
+
+
 def four_rank_cases(rank, world, spec):
     return run_cases({"flux": lambda: flux_apply_rank(rank, world, spec["flux"]),
                       "batch": lambda: generate_batch_rank(rank, world, spec["batch"])})
@@ -318,6 +375,8 @@ def two_rank_cases(rank, world, spec):
         "flux": lambda: flux_apply_rank(rank, world, spec["flux"]),
         "quant": lambda: quantized_rank(rank, world, spec["quant"]),
         "pretrained": lambda: from_pretrained_rank(rank, world, spec["pretrained"]),
+        "pretrained_fsdp": lambda: from_pretrained_rank(rank, world, spec["pretrained_fsdp"]),
+        "tp_grad": lambda: tp_grad_rank(rank, world, spec["tp_grad"]),
         "run_eval": lambda: run_eval_rank(rank, world, spec["run_eval"]),
         "demo": lambda: demo_rank(rank, world, spec["demo"]),
     })
@@ -338,10 +397,28 @@ def sharded_grad(p, whole: torch.Tensor):
                               p.placements, run_check=False, shape=p.shape, stride=p.stride())
 
 
+def tensor_shard(model, mesh, quantize=None):
+    """`model` (whole) cut to this rank's tensor shard of `mesh`, in place,
+    as the trainer's sharded load gives it, quantised in `quantize` mode
+    (every linear) as ``shard_module`` quantises a shard."""
+    from textflux_torch.io.quantize import quantize_tree
+    from textflux_torch.models.transformer import tp_permute_flux_params
+    from textflux_torch.parallel import partitioning as PT
+
+    if mesh.tensor > 1:
+        tp_permute_flux_params(model, mesh.tensor)
+        PT.shard_module(model, PT.flux_param_specs(model.cfg), mesh, quantize=quantize,
+                        min_size=0)
+    elif quantize:
+        quantize_tree(model, mode=quantize, min_size=0)
+    return model
+
+
 def _train_model(case, mesh):
     """The port's DiT, VAE, optimizer and step of a step case, sharded
-    over `mesh`: full-parameter modes with float32 masters beside frozen
-    bf16 weights, LoRA over a float32 base."""
+    over `mesh` (tensor, then fsdp): full-parameter modes with float32
+    masters beside frozen bf16 weights, LoRA over a float32 base (or one
+    quantised as ``case["quantize"]`` says)."""
     from textflux_torch.io.from_jax import load_jax_lora, load_jax_params
     from textflux_torch.parallel import partitioning as PT
     from textflux_torch.training import train as TR
@@ -350,11 +427,11 @@ def _train_model(case, mesh):
     cfg = case["flux_cfg"]
     if tc.mode == "lora":
         model = load_jax_params(case["flux"], cfg, device="cpu")
-        TR.lora_insert(model, load_jax_lora(case["lora"], model), tc.lora_alpha / tc.lora_rank)
-        paths = [n.rpartition(".")[0] for n, p in model.named_parameters()
-                 if n.endswith((".lora_a", ".lora_ga"))]
+        lora = load_jax_lora(case["lora"], model)
+        tensor_shard(model, mesh, case.get("quantize"))
+        TR.lora_insert(model, lora, tc.lora_alpha / tc.lora_rank)
         PT.shard_for_training(model, mesh, compute_dtype=torch.float32)
-        lora = TR.attached_lora(model, paths)
+        lora = TR.attached_lora(model, lora)
         named, masks = TR.lora_named_parameters(lora), None
     else:
         from textflux_torch.models.transformer import FluxTransformer
@@ -362,13 +439,14 @@ def _train_model(case, mesh):
         masks = TR.trainable_mask(FluxTransformer(cfg, device="meta"), tc)
         model = load_jax_params(case["flux"], cfg, device="cpu",
                                 dtype=TR.mask_dtypes(masks, lambda name: torch.bfloat16))
+        tensor_shard(model, mesh)
         masks = TR.trainable_mask(model, tc)
         TR.freeze_to_mask(model, masks)
         PT.shard_for_training(model, mesh, compute_dtype=torch.float32)
         named = {n: p for n, p in model.named_parameters() if n in masks}
     vae = load_jax_params(case["vae"], case["vae_cfg"], device="cpu")
-    return model, vae, TR.make_optimizer(tc, named, masks), TR.make_train_step(
-        tc, attn_impl="plain"), named
+    opt = TR.make_optimizer(tc, named, masks, model=model, mesh=mesh)
+    return model, vae, opt, TR.make_train_step(tc, attn_impl="plain", mesh=mesh), named
 
 
 def fsdp_step_case(rank, world, case):
@@ -393,11 +471,12 @@ def fsdp_step_case(rank, world, case):
         got = step(model, vae, opt, local, noise=local_noise, batch_rows=(part.start, b))
         losses.append(float(got["loss"]))
         norms.append(float(got["grad_norm"]))
-    whole = {n: PT.full_tensor(p).float().numpy() for n, p in model.named_parameters()}
+    whole = {n: PT.whole_tensor(model, n, p).float().numpy()
+             for n, p in model.named_parameters()}
     local_leaves = sum(getattr(opt, "local", []))
     return dict(losses=losses, norms=norms, params=whole if rank == 0 else None,
                 local_leaves=local_leaves, leaves=len(getattr(opt, "leaves", [])),
-                trained=sorted(named))
+                trained=sorted(named), counts=PT.counts())
 
 
 def fsdp_optimizer_case(rank, world, case):
@@ -412,17 +491,23 @@ def fsdp_optimizer_case(rank, world, case):
         TR.ClippedProdigy.estim_lr0 = case["estim_lr0"]
     mesh = PT.make_mesh(case["shape"], device="cpu")
     tc = TR.TrainConfig(**case["tc"])
-    model = load_jax_params(case["flux"], case["flux_cfg"], device="cpu")
+    model = tensor_shard(load_jax_params(case["flux"], case["flux_cfg"], device="cpu"), mesh)
     masks = TR.trainable_mask(model, tc)
     TR.freeze_to_mask(model, masks)
     PT.shard_for_training(model, mesh, compute_dtype=torch.float32)
     named = {n: p for n, p in model.named_parameters() if n in masks}
-    opt = TR.make_optimizer(tc, named, masks)
+    opt = TR.make_optimizer(tc, named, masks, model=model, mesh=mesh)
     norms = []
     for grads in case["grads"]:
         opt.zero_grad()
         for name, p in named.items():
-            p.grad = sharded_grad(p, torch.tensor(grads[name]))
+            whole = torch.tensor(grads[name])
+            if mesh.tensor > 1 and PT.partial_over_tensor(model, name):
+                whole = whole / mesh.tensor    # each rank's part; their sum is the whole
+            split = PT.tensor_split(model, name)
+            if split is not None:   # the rank's tensor share
+                whole = whole.index_select(split[0], split[1].index())
+            p.grad = sharded_grad(p, whole) if PT.shard_spec(p) is not None else whole.clone()
         norms.append(float(opt.step()))
     state = opt.state_dict()
 
@@ -439,7 +524,7 @@ def fsdp_optimizer_case(rank, world, case):
                 local=list(getattr(opt, "local", [])),
                 leaf_names=[TR.jax_leaf(opt.names[idx[0]])[0]
                             for idx, _, _ in getattr(opt, "leaves", [])],
-                params={n: PT.full_tensor(p).numpy() for n, p in named.items()})
+                params={n: PT.whole_tensor(model, n, p).numpy() for n, p in named.items()})
 
 
 _RESTORED = {}
@@ -467,17 +552,24 @@ def _capture_restore():
 
 
 def fsdp_main_case(rank, world, runs):
-    """cli.train.main over the default mesh (1, world, 1), one run after
-    another (every rank writes into the same output directories; rank 0
-    alone writes files). A run may resume (the restored state, gathered, is
-    returned) or be preempted by a SIGTERM that only rank 0 receives."""
+    """cli.train.main over the default mesh (1, world, 1) or its --mesh, one
+    run after another (every rank writes into the same output directories;
+    rank 0 alone writes files). A run may start from a copy of another's
+    checkpoints, resume (the restored state, gathered, is returned) or be
+    preempted by a SIGTERM that only rank 0 receives."""
     import signal as sig
     import threading
 
     from textflux_torch.cli import train as CLI
 
+    import shutil
+
     out = {}
     for name, run in runs:
+        if run.get("copy"):   # rank 0 copies a run's checkpoints for this one to resume
+            if rank == 0:
+                shutil.copytree(*run["copy"])
+            dist.barrier()
         _RESTORED.pop("state", None)
         if run.get("capture"):
             _capture_restore()
@@ -558,3 +650,51 @@ def gloo_cuda_collectives(rank, world, n):
     out = torch.empty(n, device="cuda", dtype=torch.float32)
     dist.reduce_scatter_tensor(out, torch.full((n * world,), float(rank + 1), device="cuda"))
     return dict(gathered=big.float().cpu().numpy(), reduced=out.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the three (2, 2, 2) surfaces of the JAX package's multi-chip dry run
+# ---------------------------------------------------------------------------
+
+def dryrun_clip_tokenize(prompt: str) -> np.ndarray:
+    """__graft_entry__.py's _dryrun_serving CLIP tokenizer (vocab 64)."""
+    ids = (np.frombuffer(prompt.encode()[:23].ljust(23), np.uint8) % 63).astype(np.int32)
+    return np.concatenate([ids, [63]])[None]
+
+
+def dryrun_t5_tokenize(prompt: str) -> np.ndarray:
+    ids = (np.frombuffer(prompt.encode()[:16].ljust(16), np.uint8) % 64).astype(np.int32)
+    return ids[None]
+
+
+def multichip_serving_case(rank, world, spec):
+    """generate_batch of an int8 DiT served at mesh (2, 2, 2): the DiT
+    tensor-sharded and storage-sharded over fsdp, a sample a (data, fsdp)
+    rank; float images."""
+    from textflux_torch.io.from_jax import load_jax_params
+    from textflux_torch.parallel import partitioning as PT
+    from textflux_torch.pipeline.fill import FillPipeline
+
+    mesh = PT.make_mesh(spec["shape"], device="cpu")
+    mods = {k: load_jax_params(tree, cfg, device="cpu")
+            for k, (tree, cfg) in spec["modules"].items()}
+    pipe = FillPipeline(**mods, clip_tokenize=dryrun_clip_tokenize,
+                        t5_tokenize=dryrun_t5_tokenize, pipe_cfg=spec["pipe_cfg"],
+                        attn_impl="plain", device="cpu")
+    pipe.shard_for_serving(mesh, quantize="weight_only", quantize_min_size=0)
+    PT.reset_counts()
+    with float_images():
+        out = pipe.generate_batch(**spec["call"], dtype=torch.float32)
+    return dict(images=np.asarray(out), counts=PT.counts(), coords=mesh.coords,
+                storage_bytes=PT.storage_bytes(pipe.flux))
+
+
+def multichip_cases(rank, world, spec):
+    """The JAX package's three dry-run surfaces at (2, 2, 2), one spawn of 8
+    ranks: --mode attn with AdamW and grad_accum 2, LoRA over an int8
+    base, and int8 serving at batch 4."""
+    return run_cases({
+        "train": lambda: fsdp_step_case(rank, world, spec["train"]),
+        "lora": lambda: fsdp_step_case(rank, world, spec["lora"]),
+        "serving": lambda: multichip_serving_case(rank, world, spec["serving"]),
+    })

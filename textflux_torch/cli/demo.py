@@ -16,8 +16,8 @@ package's messages).
   python -m textflux_torch.cli.demo --model CKPT [--beta] [--port 7860]
       [--quantize-mode weight_only|w8a8|nf4|mixed] [--device cuda|cpu]
 
-On a mesh (``torchrun --nproc-per-node dp*tp -m textflux_torch.cli.demo
---mesh dp,1,tp ...``) rank 0 builds the UI; the other ranks follow: each
+On a mesh (``torchrun --nproc-per-node dp*fsdp*tp -m textflux_torch.cli.demo
+--mesh dp,fsdp,tp ...``) rank 0 builds the UI; the other ranks follow: each
 callback's name and inputs reach them by ``broadcast_object_list`` and every
 rank runs the same callback, so the tensor-parallel DiT's collectives line
 up (``lead`` / ``follow``). A follower waits for the next click inside a
@@ -262,8 +262,8 @@ def main(argv=None):
                         "mode implies --quantize")
     p.add_argument("--mesh", default=None,
                    help="dp,fsdp,tp: serve over the ranks torchrun starts, the DiT "
-                        f"tensor-parallel over tp; fsdp must be 1 ({PT.ITEM_6B_II}). "
-                        "Rank 0 serves the UI")
+                        "tensor-parallel over tp and sharded over fsdp. Rank 0 serves "
+                        "the UI")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     # both before the multi-GB pipeline load: the mesh's shape, then gradio

@@ -12,17 +12,17 @@ batched outputs are the per-item path's (the default at batch size 1).
 Runs on CUDA unless ``--device cpu``.
 
 ``--mesh dp,fsdp,tp`` serves over a mesh of the ranks torchrun starts
-(``torchrun --nproc-per-node dp*tp -m textflux_torch.cli.run_eval --mesh
-dp,1,tp ...``): the DiT tensor-parallel over tp, each batch data-parallel
-over dp (``FillPipeline.generate_batch``). Every rank prepares the same
+(``torchrun --nproc-per-node dp*fsdp*tp -m textflux_torch.cli.run_eval
+--mesh dp,fsdp,tp ...``): the DiT tensor-parallel over tp and
+storage-sharded over fsdp, each batch data-parallel over dp x fsdp
+(``FillPipeline.generate_batch``). Every rank prepares the same
 items from the same json; rank 0 alone writes images, crops and
 failures.json. The ranks agree on every skip or failure before the denoise
 starts (an item is served only when every rank prepared, and with
 ``--staged-text`` encoded, it; ``--skip-existing`` follows rank 0's
 outputs): an item one rank dropped would leave the others waiting in a
 collective. A failure inside the denoise is not recorded per item on a
-mesh: it ends the run (torchrun then stops every rank). fsdp > 1 raises
-before anything loads (ROADMAP Queue 1 item 6b-ii).
+mesh: it ends the run (torchrun then stops every rank).
 
 Failures are caught per item (reference worker: scripts/run_eval.py:195-198)
 and written with context to <output-dir>/failures.json so runs are auditable.
@@ -47,7 +47,6 @@ import numpy as np
 from PIL import Image
 
 from textflux_torch.data.native import fill_poly as native_fill_poly
-from textflux_torch.parallel.partitioning import ITEM_6B_II
 from textflux_torch.pipeline.prompts import build_prompts
 from textflux_torch.rendering import (
     concat_multiline,
@@ -300,9 +299,9 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=1,
                    help="batch per (H,W) bucket; 1 = per-item path")
     p.add_argument("--mesh", default=None,
-                   help="dp,fsdp,tp: serve over the ranks torchrun starts (dp*tp of "
-                        "them): the DiT tensor-parallel over tp, batches data-parallel "
-                        f"over dp; fsdp must be 1 ({ITEM_6B_II}). Rank 0 writes")
+                   help="dp,fsdp,tp: serve over the ranks torchrun starts (dp*fsdp*tp "
+                        "of them): the DiT tensor-parallel over tp and sharded over "
+                        "fsdp, batches data-parallel over dp x fsdp. Rank 0 writes")
     p.add_argument("--quantize", action="store_true",
                    help="quantise the DiT as it loads (int8 weight-only by default)")
     p.add_argument("--quantize-mode", choices=["weight_only", "w8a8", "nf4", "mixed"],
@@ -329,7 +328,7 @@ def main(argv=None):
 
     mesh = None
     if args.mesh:
-        shape = PT.serving_mesh_shape(args.mesh)   # fsdp > 1 raises before anything loads
+        shape = PT.serving_mesh_shape(args.mesh)   # checked before anything loads
         mesh = PT.make_mesh(shape, device=args.device)
     writer = mesh is None or mesh.rank == 0
 

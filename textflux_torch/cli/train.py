@@ -12,7 +12,7 @@ The port of ``textflux_tpu/cli/train.py``:
       [--learning-rate 2e-5] [--train-batch-size 1] [--grad-accum 8]
       [--max-train-steps 10000] [--checkpointing-steps 5000]
       [--resume-from-checkpoint latest] [--pretrained-lora file]
-      [--profile-steps N] [--device cuda|cpu] [--mesh dp,fsdp,1]
+      [--profile-steps N] [--device cuda|cpu] [--mesh dp,fsdp,tp]
 
 Per optimizer step: the batch's prompts are encoded (CLIP pooled + T5,
 frozen), then one step of ``training.train.make_train_step`` runs.
@@ -37,23 +37,26 @@ the step into its key, so a resumed run continues the stream. Checkpoints
 ``<output>/checkpoints/``; SIGTERM finishes the step, saves and exits.
 
 Runs on CUDA unless ``--device cpu`` is asked. Under ``torchrun
---nproc-per-node N`` (or with ``--mesh dp,fsdp,1``) it trains over a mesh,
+--nproc-per-node N`` (or with ``--mesh dp,fsdp,tp``) it trains over a mesh,
 every rank on the fsdp axis by default, as the JAX trainer: each rank loads
-its FSDP slice of the DiT (``io.params.load_flux_fsdp``), the optimizer
-state shards with it, every rank reads the same batches and trains on its
-rows of each (the batch over data x fsdp), and rank 0 alone logs, writes
-the checkpoints (in the whole tensors' layout, so they resume at any fsdp
-size) and exports. The JAX flags parse unchanged; the choices not ported
-yet raise, naming their ROADMAP item: a tensor axis (tp > 1) or
-``--quantize-base`` over fsdp > 1 (item 6b-ii), ``--loader-procs > 0``
-(item 7). ``train_lora`` and ``train_full`` are the in-memory entries:
-built models and collated batches in, the trained factors or model out.
+its shard of the DiT (``io.params.load_flux_fsdp``: its tensor shard,
+permuted device-major, then its FSDP slice of that; a ``--quantize-base``
+base's codes as storage shards), the optimizer state shards with it, every
+rank reads the same batches and trains on its rows of each (the batch over
+data x fsdp; the ranks of a tensor group on the same rows), LoRA factors
+stay whole over the tensor axis, and rank 0 alone logs, writes the
+checkpoints (in the whole tensors' natural layout, so they resume on any
+mesh) and exports. The JAX flags parse unchanged; ``--loader-procs > 0``
+(ROADMAP item 7) raises, naming its item. ``train_lora`` and
+``train_full`` are the in-memory entries: built models and collated
+batches in, the trained factors or model out.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -67,7 +70,7 @@ import torch.distributed as dist
 
 from textflux_torch.models.clip import CLIPTextModel, clip_encode
 from textflux_torch.models.t5 import T5Encoder, t5_encode
-from textflux_torch.models.transformer import FluxTransformer
+from textflux_torch.models.transformer import FluxTransformer, tp_permute_flux_params
 from textflux_torch.models.vae import FluxVAE
 from textflux_torch.parallel import partitioning as PT
 from textflux_torch.training import train as TR
@@ -129,11 +132,11 @@ def train_steps(flux: FluxTransformer, vae: FluxVAE, clip: CLIPTextModel, t5: T5
     tensors). The caller stops by leaving the loop; no batch is fetched
     past the last step it takes.
 
-    With `mesh` (`flux` sharded over its fsdp axis), every rank is given
-    the same batches and trains on its rows of each (``batch_part``),
-    drawing the whole batch's noise from the step's generator."""
+    With `mesh` (`flux` sharded over it), every rank is given the same
+    batches and trains on its rows of each (``batch_part``), drawing the
+    whole batch's noise from the step's generator."""
     dev = next(flux.parameters()).device
-    step_fn = TR.make_train_step(tc)
+    step_fn = TR.make_train_step(tc, mesh=mesh)
     cdt = getattr(torch, tc.compute_dtype)
     step = start_step
     for batch in batches:
@@ -155,9 +158,19 @@ def train_steps(flux: FluxTransformer, vae: FluxVAE, clip: CLIPTextModel, t5: T5
         yield step, metrics
 
 
+def tensor_shard(flux: FluxTransformer, mesh: Optional[PT.Mesh]) -> FluxTransformer:
+    """A whole `flux` cut, in place, to this rank's shard over the tensor
+    axis of `mesh` (permuted device-major, then sliced); as it is without
+    one, or when it holds a shard already."""
+    if mesh is not None and mesh.tensor > 1 and flux.tp_rank is None:
+        tp_permute_flux_params(flux, mesh.tensor)
+        PT.shard_module(flux, PT.flux_param_specs(flux.cfg), mesh)
+    return flux
+
+
 def _cut(p: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
-    """A sharded parameter's slice of a whole tensor (the whole tensor for
-    a plain parameter)."""
+    """A sharded LoRA factor's slice of a whole tensor (the whole tensor
+    for a plain one: the factors stay whole over a tensor axis)."""
     spec = PT.shard_spec(p)
     return whole if spec is None else spec.cut(whole)
 
@@ -192,9 +205,10 @@ def load_train_state(lora: TR.Lora, opt: TR.ClippedOptimizer, state: Mapping) ->
 def full_train_state(flux: FluxTransformer, opt: TR.ClippedOptimizer, step: int) -> dict:
     """What a full-parameter checkpoint holds, as the JAX trainer's does:
     every DiT parameter (frozen ones too) in its dtype, the optimizer
-    state, the step; sharded ones whole, on the host (gathered: every rank
-    calls this)."""
-    return {"params": {n: PT.full_tensor(p, host=True) for n, p in flux.named_parameters()},
+    state, the step; sharded ones whole in the natural layout, on the host
+    (gathered: every rank calls this)."""
+    return {"params": {n: PT.whole_tensor(flux, n, p, host=True)
+                       for n, p in flux.named_parameters()},
             "opt_state": opt.state_dict(), "step": step}
 
 
@@ -205,7 +219,8 @@ def load_full_train_state(flux: FluxTransformer, opt: TR.ClippedOptimizer,
     shapes and dtypes must match; a sharded parameter takes its slice);
     returns its step."""
     named = dict(flux.named_parameters())
-    saved = {n: _cut(named[n], v) if n in named else v for n, v in state["params"].items()}
+    saved = {n: PT.cut_whole(flux, n, named[n], v) if n in named else v
+             for n, v in state["params"].items()}
     copy_into({n: PT.local(p.detach()) for n, p in named.items()}, saved, "params")
     opt.load_state_dict(state["opt_state"])
     return int(state["step"])
@@ -248,6 +263,7 @@ def train_lora(
     generator: Optional[torch.Generator] = None,
     on_step: Optional[Callable[[int, dict, TR.Lora], None]] = None,
     state: Optional[dict] = None,
+    mesh: Optional[PT.Mesh] = None,
 ) -> Tuple[TR.Lora, List[dict]]:
     """Train LoRA factors on `flux` (frozen, in place: the factors are
     attached to it) for `steps` optimizer steps.
@@ -265,19 +281,29 @@ def train_lora(
     live tensors) when the call returns, so a second call continues the
     first.
 
+    With `mesh`, `flux` (whole, or this rank's tensor shard) is cut to this
+    rank's tensor shard when the mesh has a tensor axis, the factors (drawn
+    whole, as on one device) are attached, and the module is sharded over
+    the fsdp axis with them (``shard_for_training``: a quantised base's
+    codes as storage shards); each rank trains on its rows of each batch.
+
     Returns (the factors, one {"step", "loss", "grad_norm", "elapsed_s"}
     dict per step)."""
     tc = dataclasses.replace(tc, mode="lora")
-    dev = next(flux.parameters()).device
+    dev = next(itertools.chain(flux.parameters(), flux.buffers())).device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
+    tensor_shard(flux, mesh)
     lora = TR.lora_init(flux, tc.lora_rank, generator=generator)
     TR.lora_insert(flux, lora, tc.lora_alpha / tc.lora_rank)
-    opt = TR.make_optimizer(tc, TR.lora_named_parameters(lora))
+    if mesh is not None:   # FSDP keeps each rank's slice of the attached values
+        PT.shard_for_training(flux, mesh, compute_dtype=getattr(torch, tc.compute_dtype))
+        lora = TR.attached_lora(flux, lora)
+    opt = TR.make_optimizer(tc, TR.lora_named_parameters(lora), model=flux, mesh=mesh)
     start = load_train_state(lora, opt, state) if state else 0
     step, history = _run_steps(
         train_steps(flux, vae, clip, t5, batches, opt, tc=tc, clip_tokenize=clip_tokenize,
-                    t5_tokenize=t5_tokenize, seed=seed, start_step=start),
+                    t5_tokenize=t5_tokenize, seed=seed, start_step=start, mesh=mesh),
         steps, start, log_every, on_step, lora)
     if state is not None:
         state.update(train_state(lora, opt, step))
@@ -313,12 +339,15 @@ def train_full(
     in place; an empty dict starts afresh. Either way it holds the state
     after the last step (the live tensors) when the call returns.
 
-    With `mesh`, `flux` is sharded over its fsdp axis
+    With `mesh`, `flux` (whole) is first cut to this rank's tensor shard
+    when the mesh has a tensor axis (``tp_permute_flux_params``,
+    ``shard_module``), then sharded over its fsdp axis
     (``shard_for_training``) after the cast, with the optimizer state, and
     each rank trains on its rows of each batch (``train_steps``).
 
     Returns (the model, one {"step", "loss", "grad_norm", "elapsed_s"} dict
     per step)."""
+    tensor_shard(flux, mesh)
     masks = TR.trainable_mask(flux, tc)
     compute = getattr(torch, tc.compute_dtype)
     stored = {name: p.dtype for name, p in flux.named_parameters()}
@@ -328,7 +357,7 @@ def train_full(
     if mesh is not None:
         PT.shard_for_training(flux, mesh, compute_dtype=compute)
         named = {n: p for n, p in flux.named_parameters() if n in masks}
-    opt = TR.make_optimizer(tc, named, masks)
+    opt = TR.make_optimizer(tc, named, masks, model=flux, mesh=mesh)
     start = load_full_train_state(flux, opt, state) if state else 0
     step, history = _run_steps(
         train_steps(flux, vae, clip, t5, batches, opt, tc=tc, clip_tokenize=clip_tokenize,
@@ -441,7 +470,7 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--mesh", default=None,
                    help="dp,fsdp,tp over the ranks (default under torchrun: 1,<world>,1, "
-                        f"every rank on fsdp); tp > 1 is not ported yet ({PT.ITEM_6B_II})")
+                        "every rank on fsdp)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--report-to", default="jsonl", choices=["jsonl", "wandb"])
     p.add_argument("--profile-steps", type=int, default=0,
@@ -478,13 +507,7 @@ def check_ported(args) -> None:
     if args.quantize_base != "none" and args.mode != "lora":
         raise SystemExit("--quantize-base requires --mode lora (full-param "
                          "training cannot update a quantized base)")
-    shape = mesh_shape(args)
-    if shape is not None and shape[2] > 1:
-        raise NotImplementedError(f"--mesh {args.mesh}: tensor parallelism in training is not "
-                                  f"ported yet ({PT.ITEM_6B_II}); use dp,fsdp,1")
-    if shape is not None and shape[1] > 1 and args.quantize_base != "none":
-        raise NotImplementedError(f"--quantize-base {args.quantize_base} over fsdp = "
-                                  f"{shape[1]} > 1 is not ported yet ({PT.ITEM_6B_II})")
+    mesh_shape(args)
     if args.loader_procs > 0:
         from textflux_torch.data.loader import PROCESS_MODE_ITEM
 
@@ -549,9 +572,9 @@ def load_models(args, dev: torch.device, tc: TR.TrainConfig, mesh: Optional[PT.M
     so, else in float32 (``frozen_dtype``: a float32 checkpoint's frozen
     weights come back unchanged in the export, as the JAX trainer's do),
     each loaded once in its dtype; the VAE, CLIP and T5 in bf16; and the
-    tokenizers. With `mesh`, the DiT is this rank's FSDP slice, read from
-    the mapped files (``io.params.load_flux_fsdp``, which hands the module
-    on the meta device to `prepare` before sharding it)."""
+    tokenizers. With `mesh`, the DiT is this rank's shard, read from the
+    mapped files (``io.params.load_flux_fsdp``, which hands the module to
+    `prepare` before sharding it over fsdp)."""
     from textflux_torch.io.config_io import (clip_config_from, flux_config_from,
                                              t5_config_from, vae_config_from)
     from textflux_torch.io.params import (checkpoint_dtypes, load_checkpoint_dir,
@@ -568,7 +591,9 @@ def load_models(args, dev: torch.device, tc: TR.TrainConfig, mesh: Optional[PT.M
         dtype = TR.mask_dtypes(masks, lambda name: TR.frozen_dtype(compute, stored[name]))
     if mesh is not None:
         flux = load_flux_fsdp(t_path, flux_cfg, mesh, dtype=dtype, device=dev,
-                              compute_dtype=compute, prepare=prepare)
+                              compute_dtype=compute, prepare=prepare,
+                              quantize=None if args.quantize_base == "none"
+                              else args.quantize_base)
     else:
         flux = load_flux_transformer(
             t_path, flux_cfg, dtype=dtype, device=dev,
@@ -680,11 +705,13 @@ def main(argv=None):
     made = {}
 
     def prepare(model):
-        """On the meta device, before FSDP shards it: attach the LoRA
-        factors' shapes, or freeze what does not train."""
+        """Before FSDP shards it (on the meta device, or the rank's tensor
+        shard or quantised base on its device): attach empty LoRA factors,
+        or freeze what does not train."""
         if args.mode == "lora":
             made["lora"] = make_lora(model)
-            TR.lora_insert(model, {p: {k: torch.empty_like(v, device="meta")
+            where = next(itertools.chain(model.parameters(), model.buffers())).device
+            TR.lora_insert(model, {p: {k: torch.empty_like(v, device=where)
                                        for k, v in f.items()}
                                    for p, f in made["lora"].items()},
                            tc.lora_alpha / tc.lora_rank)
@@ -707,7 +734,7 @@ def main(argv=None):
                     for k in ("a", "b"):
                         PT.local(f[k]).copy_(_cut(f[k], made["lora"][path][k]))
             del made["lora"]
-        opt = TR.make_optimizer(tc, TR.lora_named_parameters(lora))
+        opt = TR.make_optimizer(tc, TR.lora_named_parameters(lora), model=flux, mesh=mesh)
 
         def state_at(step):
             return train_state(lora, opt, step)
@@ -718,7 +745,7 @@ def main(argv=None):
         masks = TR.trainable_mask(flux, tc)
         named = (TR.freeze_to_mask(flux, masks) if mesh is None else
                  {n: p for n, p in flux.named_parameters() if n in masks})
-        opt = TR.make_optimizer(tc, named, masks)
+        opt = TR.make_optimizer(tc, named, masks, model=flux, mesh=mesh)
 
         def state_at(step):
             return full_train_state(flux, opt, step)

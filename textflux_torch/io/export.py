@@ -119,19 +119,20 @@ def _shard(keys, sizes, n: int):
 
 @torch.no_grad()
 def gathered_flux(model, *, keep: bool = True):
-    """A whole FluxTransformer on the host, each parameter in its dtype,
-    from one sharded over the fsdp axis
-    (``parallel.partitioning.shard_for_training``): every parameter is
-    gathered in turn, a collective every fsdp rank takes part in; a rank
-    with ``keep=False`` (all but the one that writes) keeps nothing and
+    """A whole FluxTransformer on the host, each parameter in its dtype and
+    in the natural layout, from one sharded over the fsdp axis
+    (``parallel.partitioning.shard_for_training``) and split over a tensor
+    axis (the device-major permutation undone): every
+    parameter is gathered in turn, a collective every rank takes part in; a
+    rank with ``keep=False`` (all but the one that writes) keeps nothing and
     gets None. The exporters then write what they write of a model that was
     never sharded."""
     from textflux_torch.models.transformer import FluxTransformer
-    from textflux_torch.parallel.partitioning import full_tensor
+    from textflux_torch.parallel.partitioning import whole_tensor
 
     whole = FluxTransformer(model.cfg, device="meta") if keep else None
     for name, p in model.named_parameters():
-        t = full_tensor(p, host=keep)
+        t = whole_tensor(model, name, p, host=keep)
         if keep:
             path, _, leaf = name.rpartition(".")
             owner = whole.get_submodule(path) if path else whole

@@ -465,6 +465,130 @@ def load_flux_transformer(path: str, cfg: FluxConfig, *, dtype: DType = torch.bf
                                quantize=quantize)
 
 
+def _meta_shard(cfg: FluxConfig, dtype: DType, tp: int, rank: int,
+                quantize: Optional[str], min_size: Optional[int] = None):
+    """The module of `cfg` on the meta device, each parameter in its dtype
+    (see ``empty_module``), sliced to rank `rank`'s tensor shard of `tp`
+    (``parallel.partitioning.shard_linears``; at tp = 1 nothing is sliced)
+    and with the linears ``quantize_plan`` picks quantised as
+    ``shard_linears`` quantises them; with the whole module's key map and
+    its parameters' names (where each checkpoint tensor goes)."""
+    from textflux_torch.parallel import partitioning as PT
+
+    model = _meta_module(cfg, dtype)
+    whole = flux_key_map(model)
+    name_of = {id(p): name for name, p in model.named_parameters()}
+    plan = quantize_plan(model, mode=quantize, min_size=min_size) if quantize else None
+    PT.shard_linears(model, PT.flux_param_specs(cfg), tp, rank, plan)
+    if tp > 1:
+        model.tp_layout, model.tp_rank = tp, rank
+    return model, whole, name_of
+
+
+def _put(t: torch.Tensor, rows: Optional[slice], piece: torch.Tensor) -> None:
+    """Copy `piece`, rows `rows` (None: all) of the module's tensor `t`,
+    into `t`: into its local slice where ``shard_for_training`` sharded it
+    (the rows or columns of `piece` that slice holds)."""
+    from textflux_torch.parallel import partitioning as PT
+
+    spec, dst = PT.shard_spec(t), PT.local(t)
+    if spec is None:
+        (dst if rows is None else dst[rows]).copy_(piece)
+    elif spec.dim == 0:     # rows [lo, lo + len) of the whole, this rank's part
+        lo = 0 if rows is None else rows.start
+        a, b = max(lo, spec.start), min(lo + piece.shape[0], spec.stop)
+        if a < b:
+            dst[a - spec.start:b - spec.start].copy_(piece[a - lo:b - lo])
+    else:
+        part = piece.narrow(spec.dim, spec.start, spec.stop - spec.start)
+        (dst if rows is None else dst[rows]).copy_(part)
+
+
+@torch.no_grad()
+def _stream_shard(path: str, model: nn.Module, whole: KeyMap, name_of: Dict[int, str],
+                  transform: Optional[Transform] = None) -> None:
+    """Fill `model` (``_meta_shard``'s, allocated; sharded over fsdp or not)
+    from the checkpoint at `path`, tensor by tensor from the mapped files:
+    each tensor's rows or columns of the rank's tensor shard, permuted
+    device-major on the way in (``models.transformer.tp_permutations``),
+    then of its fsdp slice (``_put``), or quantised into its
+    ``QuantLinear`` as ``shard_linears`` quantises (int8 row-parallel codes
+    from the whole weight, NF4 ones from the slice). A ``QuantLinear``
+    whose tensors are storage shards (``partitioning.shard_storage``) is
+    filled whole while its checkpoint tensors come in, then keeps only the
+    rank's storage slice: one linear at a time, never the whole DiT. With
+    `transform` (e.g. a LoRA fold) each tensor is transformed whole before
+    it is sliced."""
+    from textflux_torch.models.transformer import tp_permutations
+    from textflux_torch.parallel import partitioning as PT
+
+    tp, rank = getattr(model, "tp_layout", 1), getattr(model, "tp_rank", 0)
+    specs = PT.flux_param_specs(model.cfg)
+    perms = tp_permutations(model.cfg, tp) if tp > 1 else {}
+    use = _resolve_keys(whole, checkpoint_keys(path))
+    storage = PT.storage_shards(model)
+    pending: Dict[str, int] = {}     # a storage-sharded linear's tensors still to come
+    staged = set()
+    for key in use.values():
+        mod_path = name_of[id(whole[key][0])].rpartition(".")[0]
+        if id(model.get_submodule(mod_path)) in storage:
+            pending[mod_path] = pending.get(mod_path, 0) + 1
+
+    def shard_index(mod_path: str, axis: int, n: int) -> torch.Tensor:
+        part = PT.shard_range(n, tp, rank)
+        axis_perm = perms.get(mod_path.rpartition(".")[2])
+        if axis_perm is not None and axis_perm[0] == axis:
+            return torch.as_tensor(axis_perm[1][part])
+        return torch.arange(part.start, part.stop)
+
+    for f in safetensors_files(path):
+        with SafetensorsFile(f) as reader:
+            for src_key in reader.keys():
+                if src_key not in use:
+                    continue
+                param, rows = whole[use[src_key]]
+                tensor = reader.get_tensor(src_key)
+                want = tuple(param.shape if rows is None else param[rows].shape)
+                if tuple(tensor.shape) != want:
+                    raise ValueError(f"{src_key}: checkpoint shape {tuple(tensor.shape)} != "
+                                     f"module shape {want}")
+                if transform is not None:
+                    tensor = transform(src_key, tensor)
+                mod_path, _, attr = name_of[id(param)].rpartition(".")
+                kind = specs.get(mod_path, PT.REPLICATED) if tp > 1 else PT.REPLICATED
+                mod = model.get_submodule(mod_path)
+                quant = isinstance(mod, QuantLinear)
+                shard = storage.get(id(mod))
+                if shard is not None and mod_path not in staged:
+                    shard.stage(mod)
+                    staged.add(mod_path)
+                if kind == PT.COLUMN:
+                    idx = shard_index(mod_path, 0, param.shape[0])
+                    lo = 0 if rows is None else rows.start
+                    hi = param.shape[0] if rows is None else rows.stop
+                    sel = ((idx >= lo) & (idx < hi)).nonzero()[:, 0]
+                    dst = slice(int(sel[0]), int(sel[-1]) + 1)   # contiguous: see _devmajor_idx
+                    piece = tensor.index_select(0, (idx[sel] - lo).to(tensor.device))
+                    if quant and attr == "weight":
+                        mod.load_rows(dst, piece)
+                    else:
+                        _put(getattr(mod, attr), dst, piece)
+                elif kind == PT.ROW and attr == "weight":
+                    cols = shard_index(mod_path, 1, param.shape[1])
+                    if quant:
+                        mod.load_cols(cols, tensor)
+                    else:
+                        _put(mod.weight, None, tensor.index_select(1, cols.to(tensor.device)))
+                elif quant and attr == "weight":     # replicated
+                    mod.load_rows(rows, tensor)
+                else:                                # replicated, or a row-parallel bias
+                    _put(getattr(mod, attr), rows, tensor)
+                if shard is not None:
+                    pending[mod_path] -= 1
+                    if not pending[mod_path]:
+                        shard.unstage(mod)
+
+
 @torch.no_grad()
 def load_flux_shard(path: str, cfg: FluxConfig, *, tp: int, rank: int, device="cuda",
                     dtype: DType = torch.bfloat16, transform: Optional[Transform] = None,
@@ -479,113 +603,39 @@ def load_flux_shard(path: str, cfg: FluxConfig, *, tp: int, rank: int, device="c
     before the slice) and quantised (with `quantize`) as
     ``shard_linears`` quantises: int8 row-parallel codes from the whole
     weight, NF4 ones from the slice (``quantize_plan``'s `min_size`)."""
-    from textflux_torch.models.transformer import tp_permutations
-    from textflux_torch.parallel import partitioning as PT
-
     device = resolve_device(device)
-    model = _meta_module(cfg, dtype)
-    whole = flux_key_map(model)              # shapes and rows of the whole module
-    name_of = {id(p): name for name, p in model.named_parameters()}
-    use = _resolve_keys(whole, checkpoint_keys(path))
-    specs = PT.flux_param_specs(cfg)
-    plan = quantize_plan(model, mode=quantize, min_size=min_size) if quantize else None
-    PT.shard_linears(model, specs, tp, rank, plan)
+    model, whole, name_of = _meta_shard(cfg, dtype, tp, rank, quantize, min_size)
     model = model.to_empty(device=device)
-    model.tp_layout, model.tp_rank = tp, rank
-    perms = tp_permutations(cfg, tp)
-
-    def shard_index(mod_path: str, axis: int, n: int) -> torch.Tensor:
-        part = PT.shard_range(n, tp, rank)
-        axis_perm = perms.get(mod_path.rpartition(".")[2])
-        if axis_perm is not None and axis_perm[0] == axis:
-            return torch.as_tensor(axis_perm[1][part])
-        return torch.arange(part.start, part.stop)
-
-    for f in safetensors_files(path):
-        with SafetensorsFile(f) as reader:
-            for src_key in reader.keys():
-                if src_key not in use:
-                    continue
-                key = use[src_key]
-                param, rows = whole[key]
-                tensor = reader.get_tensor(src_key)
-                want = tuple(param.shape if rows is None else param[rows].shape)
-                if tuple(tensor.shape) != want:
-                    raise ValueError(f"{src_key}: checkpoint shape {tuple(tensor.shape)} != "
-                                     f"module shape {want}")
-                if transform is not None:
-                    tensor = transform(src_key, tensor)
-                mod_path, _, attr = name_of[id(param)].rpartition(".")
-                kind = specs.get(mod_path, PT.REPLICATED)
-                mod = model.get_submodule(mod_path)
-                quant = isinstance(mod, QuantLinear)
-                if kind == PT.COLUMN:
-                    idx = shard_index(mod_path, 0, param.shape[0])
-                    lo = 0 if rows is None else rows.start
-                    hi = param.shape[0] if rows is None else rows.stop
-                    sel = ((idx >= lo) & (idx < hi)).nonzero()[:, 0]
-                    dst = slice(int(sel[0]), int(sel[-1]) + 1)   # contiguous: see _devmajor_idx
-                    piece = tensor.index_select(0, (idx[sel] - lo).to(tensor.device))
-                    if quant and attr == "weight":
-                        mod.load_rows(dst, piece)
-                    else:
-                        getattr(mod, attr)[dst].copy_(piece)
-                elif kind == PT.ROW and attr == "weight":
-                    cols = shard_index(mod_path, 1, param.shape[1])
-                    if quant:
-                        mod.load_cols(cols, tensor)
-                    else:
-                        mod.weight.copy_(tensor.index_select(1, cols.to(tensor.device)))
-                elif quant and attr == "weight":     # replicated
-                    mod.load_rows(rows, tensor)
-                else:                                # replicated, or a row-parallel bias
-                    target = getattr(mod, attr)
-                    (target if rows is None else target[rows]).copy_(tensor)
+    _stream_shard(path, model, whole, name_of, transform)
     return model
 
 
 @torch.no_grad()
 def load_flux_fsdp(path: str, cfg: FluxConfig, mesh, *, dtype: DType = torch.bfloat16,
                    device="cuda", compute_dtype: torch.dtype = torch.bfloat16,
-                   prepare: Optional[Callable[[nn.Module], None]] = None):
-    """This rank's FSDP shard of a transformer checkpoint for training over
-    the fsdp axis of `mesh`: the module is built on the meta device (each
-    parameter in its dtype, see ``empty_module``), handed to `prepare` (to
+                   prepare: Optional[Callable[[nn.Module], None]] = None,
+                   quantize: Optional[str] = None):
+    """This rank's share of a transformer checkpoint for training over
+    `mesh`: the module is built on the meta device (each parameter in its
+    dtype, see ``empty_module``), sliced to the rank's tensor shard and
+    quantised with `quantize` (``_meta_shard``), handed to `prepare` (to
     attach what must shard with it, e.g. LoRA factors on the meta device),
-    sharded by ``parallel.partitioning.shard_for_training`` and allocated,
-    and each checkpoint tensor's rows or columns of this rank's slices are
-    copied from the mapped file: the whole DiT never sits on a rank. What
+    sharded by ``parallel.partitioning.shard_for_training`` (FSDP2 for the
+    parameters, storage shards for a quantised base's codes and scales) and
+    allocated, and each checkpoint tensor's part for this rank is copied
+    from the mapped file (``_stream_shard``): a rank holds its fsdp x tp
+    share of the DiT, plus one quantised linear while it is filled. What
     `prepare` attached is left uninitialised for the caller to fill."""
     from textflux_torch.parallel import partitioning as PT
 
     check_flux_config(path, cfg)
     device = resolve_device(device)
-    model = _meta_module(cfg, dtype)
+    model, whole, name_of = _meta_shard(cfg, dtype, mesh.tensor, mesh.tensor_rank, quantize)
     if prepare is not None:
         prepare(model)
     PT.shard_for_training(model, mesh, compute_dtype=compute_dtype)
     model.to_empty(device=device)
-    keys = flux_key_map(model)
-    use = _resolve_keys(keys, checkpoint_keys(path))
-    for f in safetensors_files(path):
-        with SafetensorsFile(f) as reader:
-            for src_key in reader.keys():
-                if src_key not in use:
-                    continue
-                param, rows = keys[use[src_key]]
-                tensor = reader.get_tensor(src_key)
-                want = (param.shape[0] if rows is None else rows.stop - rows.start,
-                        *param.shape[1:])
-                if tuple(tensor.shape) != want:
-                    raise ValueError(f"{src_key}: checkpoint shape {tuple(tensor.shape)} != "
-                                     f"module shape {want}")
-                spec, dst = PT.shard_spec(param), PT.local(param)
-                lo = 0 if rows is None else rows.start
-                if spec.dim == 0:   # rows [lo, lo + len) of the whole, this rank's part
-                    a, b = max(lo, spec.start), min(lo + tensor.shape[0], spec.stop)
-                    if a < b:
-                        dst[a - spec.start:b - spec.start].copy_(tensor[a - lo:b - lo])
-                else:
-                    part = tensor.narrow(spec.dim, spec.start, spec.stop - spec.start)
-                    (dst if rows is None else dst[rows]).copy_(part)
+    for shard in set(PT.storage_shards(model).values()):
+        shard.to_empty(device)
+    _stream_shard(path, model, whole, name_of)
     return model

@@ -79,6 +79,14 @@ MIXED_INT8_NAMES = ("img_in", "txt_in", "time_in", "vector_in", "guidance_in",
 # layer of its stack, as the JAX package's stacked leaves do.
 MIN_SIZE = 1 << 16
 
+# elements of a weight quantised at once (a run of whole output rows: every
+# code and scale is a row's own, so the codes are those of the whole weight).
+# Bounds a load's device temporaries, ~17 bytes an element (the float32
+# copies and bucketize's int64 indices): one of FLUX's linear1 weights whole
+# took 1.14 GB above what the load kept (NVIDIA H100 80GB HBM3, 700 W;
+# chip_smoke.py phase 15)
+QUANT_CHUNK = 1 << 24
+
 # int8 x int8 products through torch._int_mm take more than 16 rows on CUDA;
 # fewer are padded with zero rows up to this
 INT_MM_MIN_ROWS = 17
@@ -194,16 +202,26 @@ class QuantLinear(nn.Module):
         """The (out, in) shape of the weight rows `rows` (None: all)."""
         return (len(range(self.out_features)[rows or slice(None)]), self.in_features)
 
+    def _row_chunks(self, rows: Optional[slice], w: torch.Tensor):
+        """(rows of this module, w's rows moved to its device in
+        ``weight_dtype``) for runs of whole rows of `w` (QUANT_CHUNK
+        elements at most), w being the weight's output rows `rows`."""
+        dev = next(iter(self.buffers())).device
+        first = range(self.out_features)[rows or slice(None)].start
+        step = max(1, QUANT_CHUNK // max(1, w.shape[1]))
+        for a in range(0, w.shape[0], step):
+            part = w[a:a + step]
+            yield (slice(first + a, first + a + part.shape[0]),
+                   part.to(device=dev).to(self.weight_dtype))
+
     @torch.no_grad()
     def load_rows(self, rows: Optional[slice], w: torch.Tensor) -> None:
         """Quantise `w`, the weight's output rows `rows` (None: all of them),
         into place, on this module's device: rounded to ``weight_dtype``
-        first, then quantised in float32."""
-        dev = next(iter(self.buffers())).device
-        w = w.to(device=dev).to(self.weight_dtype)
-        for name, value in quantize_weight(w, self.mode, self.double_quant).items():
-            dst = getattr(self, name)
-            (dst if rows is None else dst[rows]).copy_(value)
+        first, then quantised in float32, QUANT_CHUNK elements at a time."""
+        for dst_rows, part in self._row_chunks(rows, w):
+            for name, value in quantize_weight(part, self.mode, self.double_quant).items():
+                getattr(self, name)[dst_rows].copy_(value)
 
     @torch.no_grad()
     def load_cols(self, cols: torch.Tensor, w: torch.Tensor) -> None:
@@ -217,11 +235,10 @@ class QuantLinear(nn.Module):
         if self.mode == "nf4":
             self.load_rows(None, w.index_select(1, cols.to(w.device)))
             return
-        dev = self.scale.device
-        w = w.to(device=dev).to(self.weight_dtype)
-        for name, value in quantize_weight(w, self.mode).items():
-            getattr(self, name).copy_(value if name == "scale"
-                                      else value.index_select(1, cols.to(dev)))
+        for dst_rows, part in self._row_chunks(None, w):
+            for name, value in quantize_weight(part, self.mode).items():
+                getattr(self, name)[dst_rows].copy_(
+                    value if name == "scale" else value.index_select(1, cols.to(part.device)))
 
     def nf4_halves(self, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
         """The weight's two input halves ((out, in/2) each) in `dtype`."""

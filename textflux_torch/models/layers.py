@@ -64,6 +64,14 @@ def dense(lin: nn.Module, x: torch.Tensor, *, bias: bool = True,
     The factors are fp32 parameters cast to x's dtype for the products, and
     the frozen base is never merged with them.
 
+    On a tensor-parallel shard (``lin.tp_share``, set by
+    ``parallel.partitioning.shard_linears``) the factors stay whole (the JAX
+    package replicates them) and the rank takes its share: over a
+    column-parallel base the columns of B (of each group's B) that its
+    output holds, in the device-major order; over a row-parallel base the
+    rows of A for its input columns, so (x_r A_r) B joins the base's
+    partial product before the one sum over the ranks.
+
     ``bias=False`` leaves the bias out (a row-parallel shard adds it after
     the sum over ranks); `amax_reduce` goes to a w8a8 ``QuantLinear``
     (``QuantLinear.matmul``)."""
@@ -72,13 +80,25 @@ def dense(lin: nn.Module, x: torch.Tensor, *, bias: bool = True,
     else:
         b = lin.bias.to(x.dtype) if bias and lin.bias is not None else None
         y = F.linear(x, lin.weight.to(x.dtype), b)
+    share = getattr(lin, "tp_share", None)
     a = getattr(lin, "lora_a", None)
     if a is not None:
-        y = y + (x @ (a * lin.lora_scale).to(x.dtype)) @ lin.lora_b.to(x.dtype)
+        a, b = a * lin.lora_scale, lin.lora_b
+        if share is not None and share.kind == "row":
+            a = a.index_select(0, share.index_on(a.device))
+        elif share is not None:
+            b = b.index_select(1, share.index_on(b.device))
+        y = y + (x @ a.to(x.dtype)) @ b.to(x.dtype)
     ga = getattr(lin, "lora_ga", None)
     if ga is not None:
+        gb = lin.lora_gb
+        if share is not None:
+            if share.kind == "row":
+                raise ValueError("grouped LoRA factors over a row-parallel base: the groups "
+                                 "split the output columns")
+            gb = gb[..., share.segment_part()]
         t = torch.einsum("...i,mir->...mr", x, (ga * lin.lora_scale).to(x.dtype))
-        delta = torch.einsum("...mr,mrd->...md", t, lin.lora_gb.to(x.dtype)).flatten(-2)
+        delta = torch.einsum("...mr,mrd->...md", t, gb.to(x.dtype)).flatten(-2)
         n = delta.shape[-1]
         y = delta + y if n == y.shape[-1] else torch.cat([y[..., :n] + delta, y[..., n:]], -1)
     return y

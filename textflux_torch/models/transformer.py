@@ -8,8 +8,8 @@ projections per stream, a fused qkv+mlp-in projection (``linear1``) and
 attn-out+mlp-out projection (``linear2``) in the single blocks,
 norms/AdaLN/softmax in float32, matmuls in the activation dtype.
 
-Tensor parallelism (``mesh`` with a tensor axis tp > 1, serving only): the
-module holds one rank's shard (``parallel.partitioning.shard_module``, or
+Tensor parallelism (``mesh`` with a tensor axis tp > 1, serving and
+training): the module holds one rank's shard (``parallel.partitioning.shard_module``, or
 the sharded checkpoint load) of weights permuted device-major
 (``tp_permute_flux_params``): the fused projections' local output is the
 rank's [q_r | k_r | v_r (| mlp_r)], which splits without communication;
@@ -19,7 +19,14 @@ the Megatron schedule's: an all-reduce after each row-parallel projection
 (img_proj, txt_proj, the fc2s, linear2: 4 per double block and 1 per single
 block, 114 a step at full depth), and an all-gather of each column-parallel
 output that must be whole (the modulation vectors, once per image with
-``flux_mods``, and the input embedders' outputs, twice a step).
+``flux_mods``, and the input embedders' outputs, twice a step). Where
+gradients flow they are autograd functions (``parallel.partitioning``'s
+``reduce_from_tensor`` and ``gather_from_tensor``), and each column-parallel
+product's input passes ``copy_to_tensor``, whose backward all-reduces its
+gradient; ``remat``'s recompute replays the forward's collectives in the
+backward, in the same order on every rank. A module storage-sharded over
+fsdp (``parallel.partitioning.shard_storage``) gathers each block as it is
+called.
 
 Attention paths (``attn_impl``):
   "plain": interleaved RoPE and ``ops.attention.plain_attention`` on the
@@ -61,6 +68,7 @@ from textflux_torch.ops.attention import dot_product_attention
 from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
 from textflux_torch.ops.rope import apply_rope_bshd, half_permutation
 from textflux_torch.parallel import partitioning as PT
+from textflux_torch.parallel.partitioning import LORA_KEYS
 
 ATTN_IMPLS = ("plain", "flash", "fused")
 
@@ -229,22 +237,30 @@ def _tp(mesh) -> int:
     return 1 if mesh is None else mesh.tensor
 
 
+def _col(lin: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A column-parallel linear on an input every rank holds whole: the
+    rank's output columns (with tp > 1 the input's gradient is summed over
+    the tensor axis in the backward)."""
+    return dense(lin, x if _tp(mesh) == 1 else PT.copy_to_tensor(x, mesh))
+
+
 def _whole(lin: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
     """A column-parallel linear's output made whole (all-gathered over the
     tensor axis when tp > 1)."""
-    y = dense(lin, x)
-    return y if _tp(mesh) == 1 else PT.all_gather_last(y, mesh)
+    y = _col(lin, x, mesh)
+    return y if _tp(mesh) == 1 else PT.gather_from_tensor(y, mesh)
 
 
 def _row(lin: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
     """A row-parallel linear. With tp > 1, on the rank's input columns: its
-    partial product without the bias, summed over the tensor axis, then the
-    bias once; a w8a8 linear quantises its activations with the token's
-    scale over the whole feature row (the max over the ranks)."""
+    partial product without the bias (a LoRA branch's part included),
+    summed over the tensor axis, then the bias once; a w8a8 linear
+    quantises its activations with the token's scale over the whole feature
+    row (the max over the ranks)."""
     if _tp(mesh) == 1:
         return dense(lin, x)
-    y = PT.all_reduce_sum(dense(lin, x, bias=False,
-                                amax_reduce=lambda a: PT.all_reduce_max(a, mesh)), mesh)
+    y = PT.reduce_from_tensor(dense(lin, x, bias=False,
+                                    amax_reduce=lambda a: PT.all_reduce_max(a, mesh)), mesh)
     return y if lin.bias is None else y + lin.bias.to(y.dtype)
 
 
@@ -264,8 +280,8 @@ def double_block(blk: DoubleBlock, cfg: FluxConfig, txt, img, mods, rope_cos, ro
 
     img_n = _modulate(img, i_shift1, i_scale1)
     txt_n = _modulate(txt, t_shift1, t_scale1)
-    iq, ik, iv = dense(blk.img_qkv, img_n).chunk(3, dim=-1)
-    tq, tk, tv = dense(blk.txt_qkv, txt_n).chunk(3, dim=-1)
+    iq, ik, iv = _col(blk.img_qkv, img_n, mesh).chunk(3, dim=-1)
+    tq, tk, tv = _col(blk.txt_qkv, txt_n, mesh).chunk(3, dim=-1)
     h, hd = cfg.num_heads // _tp(mesh), cfg.head_dim
 
     if attn_impl == "fused":
@@ -295,12 +311,12 @@ def double_block(blk: DoubleBlock, cfg: FluxConfig, txt, img, mods, rope_cos, ro
     img = img + i_gate1[:, None] * _row(blk.img_proj, img_attn, mesh)
     img_mlp_in = _modulate(img, i_shift2, i_scale2)
     img = img + i_gate2[:, None] * _row(blk.img_mlp.fc2,
-                                        gelu_tanh(dense(blk.img_mlp.fc1, img_mlp_in)), mesh)
+                                        gelu_tanh(_col(blk.img_mlp.fc1, img_mlp_in, mesh)), mesh)
 
     txt = txt + t_gate1[:, None] * _row(blk.txt_proj, txt_attn, mesh)
     txt_mlp_in = _modulate(txt, t_shift2, t_scale2)
     txt = txt + t_gate2[:, None] * _row(blk.txt_mlp.fc2,
-                                        gelu_tanh(dense(blk.txt_mlp.fc1, txt_mlp_in)), mesh)
+                                        gelu_tanh(_col(blk.txt_mlp.fc1, txt_mlp_in, mesh)), mesh)
     return txt, img
 
 
@@ -317,7 +333,7 @@ def single_block(blk: SingleBlock, cfg: FluxConfig, x, mod, rope_cos, rope_sin,
     shift, scale, gate = mod.chunk(3, dim=-1)
     x_n = _modulate(x, shift, scale)
 
-    fused = dense(blk.linear1, x_n)
+    fused = _col(blk.linear1, x_n, mesh)
     q, k, v, mlp = fused.split([d, d, d, fused.shape[-1] - 3 * d], dim=-1)
     # q/k/v stay strided views of `fused`; the kernel takes the row stride
     q, k, v = _heads(q, h), _heads(k, h), _heads(v, h)
@@ -340,6 +356,11 @@ def single_block(blk: SingleBlock, cfg: FluxConfig, x, mod, rope_cos, rope_sin,
 def flux_vec(model: FluxTransformer, timestep, guidance, pooled, dtype=torch.bfloat16):
     """The AdaLN conditioning vector (B, D) from timestep + guidance + pooled
     CLIP embedding."""
+    with PT.gathered(model):
+        return _flux_vec(model, timestep, guidance, pooled, dtype)
+
+
+def _flux_vec(model: FluxTransformer, timestep, guidance, pooled, dtype):
     cfg = model.cfg
     vec = dense(model.time_in.fc2, silu(dense(
         model.time_in.fc1,
@@ -367,11 +388,17 @@ def flux_mods(model: FluxTransformer, vec: torch.Tensor, mesh=None):
     every rank of a tensor axis (each column-parallel output all-gathered).
     """
     sv = silu(vec)
+
+    def whole(blk, *names):
+        with PT.gathered(blk):
+            return tuple(_whole(blk.get_submodule(n), sv, mesh) for n in names)
+
+    with PT.gathered(model):
+        final = dense(model.final_mod, sv)
     return {
-        "double": [(_whole(b.img_mod, sv, mesh), _whole(b.txt_mod, sv, mesh))
-                   for b in model.double_blocks],
-        "single": [_whole(b.mod, sv, mesh) for b in model.single_blocks],
-        "final": dense(model.final_mod, sv),
+        "double": [whole(b, "img_mod", "txt_mod") for b in model.double_blocks],
+        "single": [whole(b, "mod")[0] for b in model.single_blocks],
+        "final": final,
     }
 
 
@@ -415,11 +442,10 @@ def flux_apply(
 
     mesh: with a tensor axis tp > 1, `model` is this rank's shard (see the
     module docstring) and every rank of the tensor sub-group calls this on
-    the same inputs; the output is whole on each. No backward: the
-    collectives are not autograd-aware (tensor parallelism in training is
-    ROADMAP Queue 1 item 6b-ii). Training over the fsdp axis passes no
-    mesh: FSDP (``parallel.partitioning.shard_for_training``) gathers each
-    module's weights as it is called."""
+    the same inputs; the output is whole on each, and so is the gradient of
+    every input. Over the fsdp axis, FSDP
+    (``parallel.partitioning.shard_for_training``) or the storage shards
+    (``shard_storage``) gather each module's weights as it is called."""
     check_tp(model, mesh)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
@@ -436,17 +462,21 @@ def _fused_tensors(lin: nn.Module):
     return list(lin.named_parameters(recurse=False)) + list(lin.named_buffers(recurse=False))
 
 
-def _permute_out(lin: nn.Module, idx: torch.Tensor, what: str) -> None:
+def _permute_out(lin: nn.Module, idx: torch.Tensor, what: str, lora: bool = True) -> None:
     """Gather the output rows of every output-axis tensor of a fused
     projection by `idx`, in place: the weight and bias of an ``nn.Linear``,
     every buffer of a ``QuantLinear`` (``io.quantize.OUT_AXIS_KEYS``: the NF4
     codes pack along the input axis and their absmax groups it, so the
-    output rows move whole), and a parallel LoRA's B along its last axis (A
-    acts on the input and stays). Grouped LoRA factors, or a tensor of
-    unknown layout, raise."""
+    output rows move whole), and, with `lora`, a parallel LoRA's B along its
+    last axis (A acts on the input and stays; grouped factors raise).
+    Without `lora` the factors stay in their natural layout (the tensor
+    permutation: a shard's forward takes its share of them through its
+    ``TensorShare``). A tensor of unknown layout raises."""
     for name, t in _fused_tensors(lin):
         if name in OUT_AXIS_KEYS:
             t.copy_(t.index_select(0, idx.to(t.device)))
+        elif name in LORA_KEYS and not lora:
+            continue
         elif name == "lora_b":
             t.copy_(t.index_select(-1, idx.to(t.device)))
         elif name in ("lora_ga", "lora_gb"):
@@ -508,20 +538,6 @@ def half_permute_flux_params(model: FluxTransformer) -> FluxTransformer:
     return model
 
 
-def _devmajor_idx(segs, tp: int) -> np.ndarray:
-    """Index permutation mapping a fused axis [seg0 | seg1 | ...] to
-    device-major layout [seg0_0 | seg1_0 | ... | seg0_1 | seg1_1 | ...]:
-    contiguous share d of the permuted axis holds every segment's d-th
-    chunk."""
-    offs = np.concatenate([[0], np.cumsum(segs)[:-1]])
-    parts = []
-    for dev in range(tp):
-        for off, seg in zip(offs, segs):
-            c = seg // tp
-            parts.append(off + dev * c + np.arange(c))
-    return np.concatenate(parts)
-
-
 def tp_permutations(cfg: FluxConfig, tp: int) -> dict:
     """{linear name within a block: (axis, index)} of the device-major
     permutation of each fused projection (axis 0: output rows, 1: input
@@ -531,10 +547,8 @@ def tp_permutations(cfg: FluxConfig, tp: int) -> dict:
     d, m, h = cfg.hidden_dim, cfg.mlp_dim, cfg.num_heads
     if any(x % tp for x in (d, m, h)):
         raise ValueError(f"hidden={d}, mlp={m}, heads={h} must all be divisible by tp={tp}")
-    qkv = _devmajor_idx((d, d, d), tp)
-    return {"img_qkv": (0, qkv), "txt_qkv": (0, qkv),
-            "linear1": (0, _devmajor_idx((d, d, d, m), tp)),
-            "linear2": (1, _devmajor_idx((d, m), tp))}
+    return {name: (axis, PT.devmajor_index(segs, tp))
+            for name, (axis, segs) in PT.fused_segments(cfg).items()}
 
 
 @torch.no_grad()
@@ -547,8 +561,9 @@ def tp_permute_flux_params(model: FluxTransformer, tp: int) -> FluxTransformer:
     collectives are the row-parallel projections' all-reduces. Composes with
     (and in the JAX package is applied after) half_permute_flux_params.
 
-    Re-permuting raises (it would scramble the layout with no error at
-    apply time: reload to change tp). NF4: permuting output rows is safe
+    Attached LoRA factors stay in their natural layout (``TensorShare``
+    takes a shard's part of them). Re-permuting raises (it would scramble
+    the layout with no error at apply time: reload to change tp). NF4: permuting output rows is safe
     (the codes pack along the input axis), but linear2's input rows are
     nibble-packed and absmax-blocked, so a module with an NF4 linear2
     raises: quantise after this permutation (``shard_module`` and the
@@ -573,14 +588,12 @@ def tp_permute_flux_params(model: FluxTransformer, tp: int) -> FluxTransformer:
                 continue
             idx = torch.as_tensor(idx)
             if axis == 0:
-                _permute_out(lin, idx, "tensor parallelism")
+                _permute_out(lin, idx, "tensor parallelism", lora=False)
                 continue
             for tname, t in _fused_tensors(lin):
                 if tname in ("weight", "w_q", "w_q8a8"):
                     t.copy_(t.index_select(1, idx.to(t.device)))
-                elif tname == "lora_a":
-                    t.copy_(t.index_select(0, idx.to(t.device)))
-                elif tname not in ("bias", "scale", "lora_b"):
+                elif tname not in ("bias", "scale") + LORA_KEYS:
                     raise KeyError(f"unknown tensor {tname!r} of linear2 in "
                                    "tp_permute_flux_params")
     model.tp_layout = tp

@@ -6,9 +6,10 @@ diffusers-layout checkpoint (with a LoRA folded in at load, and quantised
 serving: ``quantize`` / ``quantize_t5``, the DiT and T5 quantised as they
 stream in), the staged residency of ``defer_transformer``, and multi-GPU
 serving over a ``parallel.partitioning`` mesh (``shard_for_serving``,
-``from_pretrained(mesh=)``): the DiT tensor-parallel over the tensor axis,
-batches data-parallel over (data, fsdp), VAE, CLIP and T5 whole on every
-rank. Stages:
+``from_pretrained(mesh=)``): the DiT tensor-parallel over the tensor axis
+and storage-sharded over the fsdp axis (each block's weights gathered as
+the step reaches it), batches data-parallel over (data, fsdp), VAE, CLIP
+and T5 whole on every rank. Stages:
 
   1. text encode   — CLIP pooled + T5 sequence embeddings
   2. conditioning  — VAE-encode the masked image (tiled above a 160x160 latent
@@ -84,8 +85,9 @@ class FillPipeline:
         """`flux` may be None when `flux_cfg` is given: a DiT deferred to
         ``load_transformer`` (staged residency). `mesh`: the
         ``parallel.partitioning.Mesh`` this rank serves on (`flux` then holds
-        the rank's shard when the mesh has a tensor axis; ``device`` is the
-        mesh's), or None."""
+        the rank's shard when the mesh has a tensor axis, and is
+        storage-sharded here over an fsdp axis; ``device`` is the mesh's),
+        or None."""
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None else mesh.device)
         self.flux, self.vae, self.clip, self.t5 = (
@@ -417,8 +419,8 @@ class FillPipeline:
         padded to a multiple of the shards by repeating its last sample
         (image, mask, words, seed, noise, embeddings), each data rank
         generates its contiguous slice (the tensor ranks of a data group the
-        same slice, together), and the images are all-gathered over the data
-        axis, so that every rank returns the whole batch, padding dropped."""
+        same slice, together), and the images are all-gathered over (data,
+        fsdp), so that every rank returns the whole batch, padding dropped."""
         cfgp = self.pipe_cfg
         steps = num_inference_steps or cfgp.num_inference_steps
         guidance_scale = cfgp.guidance_scale if guidance_scale is None else guidance_scale
@@ -517,16 +519,19 @@ class FillPipeline:
         port of the JAX package's ``shard_for_serving``: with a tensor axis
         tp > 1 the DiT (whole on this rank) is permuted device-major
         (``tp_permute_flux_params``) and sliced to this rank's shard
-        (``shard_module``), in place; batches shard over (data, fsdp); VAE,
-        CLIP and T5 stay whole on every rank. ``quantize`` (False, True =
-        "weight_only", or a mode of ``io.quantize``) quantises the DiT after
-        the permutation (the order NF4 needs, its packed input rows cannot
-        be permuted). A pipeline already permuted for another tp raises:
-        reload the checkpoint."""
+        (``shard_module``), in place; with an fsdp axis each rank then keeps
+        1/fsdp of it (``shard_storage``: each block gathered whole as the
+        step reaches it, no gradients); batches shard over (data, fsdp);
+        VAE, CLIP and T5 stay whole on every rank. ``quantize`` (False, True
+        = "weight_only", or a mode of ``io.quantize``) quantises the DiT
+        after the permutation (the order NF4 needs, its packed input rows
+        cannot be permuted). A pipeline already permuted for another tp, or
+        already sharded over fsdp, raises: reload the checkpoint."""
         from textflux_torch.io.quantize import check_mode, quantize_tree
         from textflux_torch.parallel import partitioning as PT
 
-        PT.check_serving_mesh(mesh)
+        if hasattr(self.flux, "_storage"):
+            raise ValueError("the DiT is already sharded over fsdp: reload the checkpoint")
         if mesh.device.type != self.device.type or (
                 None not in (mesh.device.index, self.device.index)
                 and mesh.device.index != self.device.index):
@@ -552,6 +557,15 @@ class FillPipeline:
         elif mode:
             quantize_tree(flux, mode=mode, min_size=quantize_min_size)
         self.mesh = mesh
+        self._shard_fsdp()
+
+    def _shard_fsdp(self) -> None:
+        """Keep 1/fsdp of the DiT on this rank (``shard_storage``) when the
+        mesh has an fsdp axis."""
+        from textflux_torch.parallel import partitioning as PT
+
+        if self.mesh is not None and self.mesh.shape["fsdp"] > 1 and self.flux is not None:
+            PT.shard_storage(self.flux, self.mesh.fsdp_group, params=True)
 
     # ------------------------------------------------------------------
     # loading
@@ -598,12 +612,13 @@ class FillPipeline:
         loads only its shard of the DiT, permuted device-major and (with
         ``quantize``) quantised on the way in (``io.params.load_flux_shard``;
         a LoRA folds into each whole tensor before the slice); deferred too.
-        VAE, CLIP and T5 load whole on every rank.
+        With an fsdp axis the rank then keeps 1/fsdp of that
+        (``shard_storage``). VAE, CLIP and T5 load whole on every rank.
 
         ``load_stats`` records each component's load seconds, checkpoint
         bytes and ``device_bytes``, what its module holds on the device
         (the quantised bytes of a quantised component; a rank's shard of
-        a tensor-parallel DiT)."""
+        a tensor-parallel DiT; its storage shard over fsdp)."""
         from textflux_torch.io.config_io import (clip_config_from, flux_config_from,
                                                  t5_config_from, vae_config_from)
         from textflux_torch.io.lora import load_folded_flux_transformer, resolve_lora_path
@@ -617,9 +632,6 @@ class FillPipeline:
         t5_mode = "weight_only" if (bool(quantize) if quantize_t5 is None else quantize_t5) \
             else None
         if mesh is not None:
-            from textflux_torch.parallel.partitioning import check_serving_mesh
-
-            check_serving_mesh(mesh)
             device = mesh.device
         dev = resolve_device(device)
         t_path = transformer_path or os.path.join(base_path, "transformer")
@@ -661,7 +673,18 @@ class FillPipeline:
         pipe.load_stats = stats
         if defer_transformer:
             pipe._deferred_flux = load_flux
+        else:
+            pipe._shard_fsdp_stats()
         return pipe
+
+    def _shard_fsdp_stats(self) -> None:
+        """``_shard_fsdp``, the DiT's ``device_bytes`` then its storage
+        shard's."""
+        from textflux_torch.parallel import partitioning as PT
+
+        self._shard_fsdp()
+        if hasattr(self.flux, "_storage"):
+            self.load_stats["transformer"]["device_bytes"] = PT.storage_bytes(self.flux)
 
     def release_text_encoders(self) -> None:
         """Drop the text encoders (the staged-residency phase boundary: all
@@ -672,8 +695,8 @@ class FillPipeline:
 
     def load_transformer(self) -> None:
         """Load the DiT deferred by from_pretrained(defer_transformer=True)
-        (this rank's shard on a mesh with a tensor axis), half-permuting it
-        for the fused attention path."""
+        (this rank's shard on a mesh with a tensor or fsdp axis),
+        half-permuting it for the fused attention path."""
         if self.flux is not None:
             return
         if not hasattr(self, "_deferred_flux"):
@@ -682,3 +705,4 @@ class FillPipeline:
         if self.attn_impl == "fused":
             transformer.half_permute_flux_params(flux)
         self.flux = flux
+        self._shard_fsdp_stats()

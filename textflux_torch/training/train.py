@@ -29,6 +29,13 @@ squares and Prodigy's two sums over the fsdp ranks, and give and take their
 state in the whole tensors' layout (``state_dict``), so a checkpoint does
 not depend on the mesh. The step draws each microbatch's noise for the
 whole batch and keeps this rank's rows (``flow_matching_loss(batch_rows=)``).
+
+Over a tensor axis (``make_optimizer(model=, mesh=)``) a rank holds its tensor
+shard of the split weights, in the device-major order: the masks are cut
+like the weights, a replicated parameter whose gradient is a rank's part
+(``parallel.partitioning.partial_over_tensor``) has it summed over the
+tensor ranks, the norm's and Prodigy's sums add the split parts over the
+tensor ranks too, and the state is given and taken in the natural layout.
 """
 
 from __future__ import annotations
@@ -124,7 +131,8 @@ def attn_only_mask(model: FluxTransformer) -> Masks:
     which unfreezes every layer): the double blocks' qkv and out
     projections and q/k norm scales train whole; each single block's fused
     linear1 trains its leading 3*hidden output rows (q | k | v; the MLP
-    rows are masked), with its q/k scales. Masks are made on the
+    rows are masked; a tensor shard's mask is cut and permuted like its
+    weight), with its q/k scales. Masks are made on the
     parameters' device (the CPU for a model on the meta device, whose masks
     serve to name the trainable parameters)."""
     d, m = model.cfg.hidden_dim, model.cfg.mlp_dim
@@ -137,6 +145,9 @@ def attn_only_mask(model: FluxTransformer) -> Masks:
         elif group == "single" and target == "linear1":
             rows = torch.zeros(3 * d + m, device="cpu" if p.is_meta else p.device)
             rows[:3 * d] = 1.0
+            share = getattr(model.get_submodule(name.rpartition(".")[0]), "tp_share", None)
+            if share is not None:   # a tensor shard's rows, permuted as the weight
+                rows = rows[share.index().to(rows.device)]
             masks[name] = rows[:, None] if p.dim() == 2 else rows
         elif group == "single" and target in ATTN_SINGLE:
             masks[name] = None
@@ -234,8 +245,13 @@ def lora_targets(model: FluxTransformer) -> Dict[str, nn.Module]:
 
 def lora_target_dims(lin: nn.Module) -> Tuple[int, int]:
     """(d_in, d_out) of a target linear in any base layout: an ``nn.Linear``
-    or a ``QuantLinear`` (its unpacked dims, whatever its codes' shape)."""
-    return lin.in_features, lin.out_features
+    or a ``QuantLinear`` (its unpacked dims, whatever its codes' shape), the
+    whole linear's for a tensor shard (the factors stay whole)."""
+    share = getattr(lin, "tp_share", None)
+    if share is None:
+        return lin.in_features, lin.out_features
+    n = sum(share.segs)
+    return (lin.in_features, n) if share.kind == PT.COLUMN else (n, lin.out_features)
 
 
 def lora_init(model: FluxTransformer, rank: int, *,
@@ -421,13 +437,23 @@ class ClippedOptimizer:
     local slice (``params[i]``, a leaf sharing its storage; ``sources[i]``
     is the parameter, whose ``.grad`` FSDP fills): the norm's squares are
     summed over the fsdp ranks, and ``state_dict`` / ``load_state_dict``
-    speak of the whole tensors."""
+    speak of the whole tensors. Over the tensor axis of `mesh` (`model`,
+    the module the parameters belong to, holding this rank's tensor shard)
+    a split parameter is the rank's
+    tensor shard: its squares are summed over the tensor ranks too, the
+    gradient of a replicated parameter that is a rank's part is summed over
+    them first, and the state speaks of the natural layout."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], tc: TrainConfig,
-                 masks: Optional[Masks] = None):
+                 masks: Optional[Masks] = None, model: Optional[nn.Module] = None,
+                 mesh: Optional[PT.Mesh] = None):
         self.names = list(params)
         self.sources = list(params.values())
         self.specs = [PT.shard_spec(p) for p in self.sources]
+        tp = mesh is not None and mesh.tensor > 1
+        self.splits = [PT.tensor_split(model, n) if tp else None for n in self.names]
+        self.partial = [tp and PT.partial_over_tensor(model, n) for n in self.names]
+        self.tensor_group = mesh.tensor_group if tp else None
         self.params = [p if s is None else nn.Parameter(PT.local(p.detach()), requires_grad=False)
                        for p, s in zip(self.sources, self.specs)]
         self.masks = [None if masks is None else _local_mask(masks[name], p, s)
@@ -446,26 +472,62 @@ class ClippedOptimizer:
 
     def _total(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The sum of per-parameter partial sums (0-d) over the whole
-        tensors: the sharded parameters' parts summed over the fsdp ranks
-        (data replicas hold the same slices, so they count once)."""
-        if self.group is None:
+        tensors: the fsdp-sharded parameters' parts summed over the fsdp
+        ranks, the tensor-split ones' over the tensor ranks (data replicas,
+        and the tensor ranks of a replicated parameter, hold the same
+        values, so they count once)."""
+        if self.group is None and self.tensor_group is None:
             return torch.stack(list(parts)).sum()
-        sharded = [x for x, s in zip(parts, self.specs) if s is not None]
-        total = torch.stack(sharded).sum()
-        dist.all_reduce(total, group=self.group)
-        whole = [x for x, s in zip(parts, self.specs) if s is None]
-        return total + torch.stack(whole).sum() if whole else total
+        buckets: Dict[Tuple[bool, bool], list] = {}
+        for x, spec, split in zip(parts, self.specs, self.splits):
+            buckets.setdefault((spec is not None, split is not None), []).append(x)
+        total = None
+        for (sharded, split), xs in sorted(buckets.items()):
+            x = torch.stack(xs).sum()
+            if sharded:
+                dist.all_reduce(x, group=self.group)
+            if split:
+                dist.all_reduce(x, group=self.tensor_group)
+            total = x if total is None else total + x
+        return total
+
+    @property
+    def distributed(self) -> bool:
+        """Whether some parameter is a slice of a tensor over ranks."""
+        return self.group is not None or self.tensor_group is not None
 
     def _full(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """A tensor shaped like parameter i's local slice, made whole (on
-        the host) over the fsdp ranks."""
-        spec = self.specs[i]
-        return t if spec is None else spec.full(t).cpu()
+        the host) over the fsdp ranks and the tensor ranks, in the natural
+        layout."""
+        spec, split = self.specs[i], self.splits[i]
+        if spec is None and split is None:
+            return t
+        x = t if spec is None else spec.full(t)
+        if split is not None:
+            x = PT.gather_split(x, *split, self.tensor_group)
+        return x.cpu()
 
     def _cut(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """Parameter i's slice of a tensor shaped like the whole parameter."""
-        spec = self.specs[i]
+        spec, split = self.specs[i], self.splits[i]
+        if split is not None:
+            axis, share = split
+            t = t.index_select(axis, share.index().to(t.device))
         return t if spec is None else spec.cut(t)
+
+    def _sum_partial(self) -> None:
+        """The gradients of the replicated parameters that are a tensor
+        rank's part, summed over the tensor ranks (one all-reduce)."""
+        grads = [p.grad for p, part in zip(self.params, self.partial) if part]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        dist.all_reduce(flat, group=self.tensor_group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -477,9 +539,10 @@ class ClippedOptimizer:
                 p.grad = None if src.grad is None else PT.local(src.grad)
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self._sum_partial()
         grads = [p.grad for p in self.params]
         apply_mask(grads, self.masks)
-        if self.group is None:
+        if self.group is None and self.tensor_group is None:
             norm = global_norm(grads)
         else:
             norms = torch._foreach_norm([g.float() for g in grads])
@@ -510,8 +573,8 @@ class ClippedAdamW(ClippedOptimizer):
 
     MOMENTS = ("exp_avg", "exp_avg_sq")
 
-    def __init__(self, params, tc: TrainConfig, masks=None):
-        super().__init__(params, tc, masks)
+    def __init__(self, params, tc: TrainConfig, masks=None, model=None, mesh=None):
+        super().__init__(params, tc, masks, model, mesh)
         whole = [p for p, m in zip(self.params, self.masks) if m is None]
         masked = [p for p, m in zip(self.params, self.masks) if m is not None]
         groups = [{"params": ps, "weight_decay": wd}
@@ -537,14 +600,14 @@ class ClippedAdamW(ClippedOptimizer):
 
     def state_dict(self) -> dict:
         sd = self.opt.state_dict()
-        if self.group is not None:
+        if self.distributed:
             sd = dict(sd, state=self._moments(sd["state"], self._full))
         return {"count": self.count, "adamw": sd}
 
     def load_state_dict(self, state: Mapping) -> None:
         self.count = int(state["count"])
         sd = state["adamw"]
-        if self.group is not None:
+        if self.distributed:
             sd = dict(sd, state=self._moments(sd["state"], self._cut))
         self.opt.load_state_dict(sd)
 
@@ -567,16 +630,18 @@ class ClippedAdamW8bit(ClippedOptimizer):
     FLUX width every matrix and bias is whole blocks, only the 128-wide
     q/k scales stack).
 
-    Sharded (``shard_for_training``): a rank's slice of a layer is one
-    contiguous run of the leaf's elements (``ShardSpec.run``). Where every
-    rank's run is whole blocks, the rank keeps and updates only its blocks,
-    which then equal the JAX leaf's same blocks; any other leaf's gradients
-    are gathered whole, every rank updates the whole leaf as above (its
-    moments whole on each) and keeps its slice of the update. Either way
-    ``state_dict`` gives each leaf's whole (n_blocks, 256) codes."""
+    Sharded (``shard_for_training``, or split over a tensor axis): a rank's
+    elements of a layer are runs of the leaf's elements in the JAX order
+    (``_block_ids``: a tensor share of a fused projection is one run per
+    segment and input row). Where every rank's runs are whole blocks, the
+    rank keeps and updates only its blocks, which then equal the JAX leaf's
+    same blocks; any other leaf's gradients are gathered whole (natural
+    layout), every rank updates the whole leaf as above (its moments whole
+    on each) and keeps its part of the update. Either way ``state_dict``
+    gives each leaf's whole (n_blocks, 256) codes, in the natural layout."""
 
-    def __init__(self, params, tc: TrainConfig, masks=None):
-        super().__init__(params, tc, masks)
+    def __init__(self, params, tc: TrainConfig, masks=None, model=None, mesh=None):
+        super().__init__(params, tc, masks, model, mesh)
         self.betas = (tc.adam_b1, tc.adam_b2)
         self.eps = tc.adam_eps
         leaves: Dict[str, list] = {}
@@ -586,17 +651,22 @@ class ClippedAdamW8bit(ClippedOptimizer):
         # (parameter indices in layer order, transposed, updated layer by
         # layer), and whether only the local blocks are kept
         self.leaves, self.local = [], []
+        self.block_ids: Dict[int, np.ndarray] = {}
         for members in leaves.values():
             idx = [i for _, i, _ in sorted(members)]
             transpose = members[0][2]
-            local = all(self._whole_block_runs(i, transpose) for i in idx)
-            per_layer = local or all(self.sources[i].numel() % optim8bit.BLOCK == 0 for i in idx)
+            local = all(self._local_capable(i, transpose) for i in idx)
+            per_layer = local or all(math.prod(self._natural_shape(i)) % optim8bit.BLOCK == 0
+                                     for i in idx)
             self.leaves.append((idx, transpose, per_layer))
             self.local.append(local)
+            if local:
+                self.block_ids.update({i: self._block_ids(i, transpose, *self._my_ranks(i))
+                                       for i in idx})
         self.state = {k: [] for k in ("mu_q", "mu_scale", "nu_q", "nu_scale")}
         for (idx, _, _), local in zip(self.leaves, self.local):
-            size = (self.params if local else self.sources)
-            nb = optim8bit.n_blocks(sum(size[i].numel() for i in idx))
+            nb = optim8bit.n_blocks(sum(self.params[i].numel() if local
+                                        else math.prod(self._natural_shape(i)) for i in idx))
             dev = self.params[idx[0]].device
             for m in ("mu", "nu"):
                 self.state[f"{m}_q"].append(torch.zeros((nb, optim8bit.BLOCK), dtype=torch.int8,
@@ -604,16 +674,44 @@ class ClippedAdamW8bit(ClippedOptimizer):
                 self.state[f"{m}_scale"].append(torch.zeros(nb, dtype=torch.float32,
                                                             device=dev))
 
-    def _runs(self, i: int, transpose: bool) -> List[Tuple[int, int]]:
-        """Every fsdp rank's run of parameter i's elements in the JAX order."""
-        spec = self.specs[i]
-        return [dataclasses.replace(spec, start=a, stop=b).run(transpose) for a, b in
-                PT.chunk_bounds(spec.shape[spec.dim], dist.get_world_size(spec.group))]
+    def _natural_shape(self, i: int) -> Tuple[int, ...]:
+        """Parameter i's whole shape in its natural layout."""
+        spec, split = self.specs[i], self.splits[i]
+        shape = list(self.params[i].shape if spec is None else spec.shape)
+        if split is not None:
+            shape[split[0]] = sum(split[1].segs)
+        return tuple(shape)
 
-    def _whole_block_runs(self, i: int, transpose: bool) -> bool:
-        return self.specs[i] is not None and all(
-            a % optim8bit.BLOCK == 0 and b % optim8bit.BLOCK == 0
-            for a, b in self._runs(i, transpose))
+    def _rank_counts(self, i: int) -> Tuple[int, int]:
+        spec, split = self.specs[i], self.splits[i]
+        return (1 if spec is None else dist.get_world_size(spec.group),
+                1 if split is None else split[1].tp)
+
+    def _my_ranks(self, i: int) -> Tuple[int, int]:
+        spec, split = self.specs[i], self.splits[i]
+        return (0 if spec is None else dist.get_rank(spec.group),
+                0 if split is None else split[1].rank)
+
+    def _block_ids(self, i: int, transpose: bool, f: int, t: int) -> Optional[np.ndarray]:
+        """The blocks of parameter i's elements in the JAX order (one layer)
+        that fsdp rank `f` and tensor rank `t` hold, in the order of their
+        local slice; None where its runs are not whole blocks."""
+        spec, split = self.specs[i], self.splits[i]
+        sizes = list(self._natural_shape(i))
+        axes = [np.arange(n) for n in sizes]
+        if split is not None:
+            axes[split[0]] = split[1].index(t).numpy()
+        if spec is not None:
+            a, b = PT.chunk_bounds(spec.shape[spec.dim], dist.get_world_size(spec.group))[f]
+            axes[spec.dim] = axes[spec.dim][a:b]
+        if transpose:
+            axes, sizes = axes[::-1], sizes[::-1]
+        return _whole_blocks(axes, sizes)
+
+    def _local_capable(self, i: int, transpose: bool) -> bool:
+        nf, nt = self._rank_counts(i)
+        return (self.specs[i] is not None or self.splits[i] is not None) and all(
+            self._block_ids(i, transpose, f, t) is not None for f in range(nf) for t in range(nt))
 
     @staticmethod
     def _flat(tensors: Sequence[torch.Tensor], transpose: bool) -> torch.Tensor:
@@ -633,8 +731,7 @@ class ClippedAdamW8bit(ClippedOptimizer):
             # parameters (gathered where sharded)
             grad = ((lambda i: self.params[i].grad) if local else
                     (lambda i: self._whole_grad(i)))
-            shape = ((lambda i: self.params[i].shape) if local else
-                     (lambda i: self.sources[i].shape))
+            shape = ((lambda i: tuple(self.params[i].shape)) if local else self._natural_shape)
             start = 0
             for chunk in ([[i] for i in idx] if per_layer else [idx]):
                 g = self._flat([grad(i) for i in chunk], transpose)
@@ -667,48 +764,77 @@ class ClippedAdamW8bit(ClippedOptimizer):
                     p.add_(u.to(p.dtype), alpha=-lr)
 
     def _whole_grad(self, i: int) -> torch.Tensor:
-        spec = self.specs[i]
-        return self.params[i].grad if spec is None else spec.full(self.params[i].grad)
+        """Parameter i's gradient, whole and in the natural layout (a
+        collective where it is sharded)."""
+        spec, split = self.specs[i], self.splits[i]
+        g = self.params[i].grad
+        g = g if spec is None else spec.full(g)
+        return g if split is None else PT.gather_split(g, *split, self.tensor_group)
 
     def _layer_blocks(self, j: int):
-        """(parameter index, its local blocks' slice of leaf j's state, the
-        fsdp ranks' block runs of it) for each layer of a leaf kept local."""
-        idx, transpose, _ = self.leaves[j]
+        """(parameter index, its local blocks' slice of leaf j's state, its
+        layer's block count) for each layer of a leaf kept local."""
+        idx, _, _ = self.leaves[j]
         start, out = 0, []
         for i in idx:
-            runs = [(a // optim8bit.BLOCK, b // optim8bit.BLOCK)
-                    for a, b in self._runs(i, transpose)]
             n = self.params[i].numel() // optim8bit.BLOCK
-            out.append((i, slice(start, start + n), runs))
+            out.append((i, slice(start, start + n),
+                        math.prod(self._natural_shape(i)) // optim8bit.BLOCK))
             start += n
         return out
 
+    def _gather_blocks(self, i: int, x: torch.Tensor, total: int) -> torch.Tensor:
+        """A layer's whole blocks (`total` of them) from every rank's local
+        ones `x`: gathered over the fsdp ranks, then the tensor ranks, and
+        put at their block indices (a collective)."""
+        spec, split = self.specs[i], self.splits[i]
+        transpose = self.leaves[next(j for j, leaf in enumerate(self.leaves)
+                                     if i in leaf[0])][1]
+        nf, nt = self._rank_counts(i)
+        f_mine, t_mine = self._my_ranks(i)
+        ids = {(f, t): self._block_ids(i, transpose, f, t) for f in range(nf) for t in range(nt)}
+
+        def bounds(counts):
+            edges = np.concatenate([[0], np.cumsum(counts)])
+            return [(int(a), int(b)) for a, b in zip(edges[:-1], edges[1:])]
+
+        if spec is not None:
+            x = PT.all_gather_parts(x, bounds([len(ids[f, t_mine]) for f in range(nf)]),
+                                    spec.group)
+        if split is not None:
+            x = PT.all_gather_parts(
+                x, bounds([sum(len(ids[f, t]) for f in range(nf)) for t in range(nt)]),
+                self.tensor_group)
+        order = np.concatenate([ids[f, t] for t in range(nt) for f in range(nf)])
+        whole = x.new_zeros((total,) + tuple(x.shape[1:]))
+        whole[torch.as_tensor(order, device=x.device)] = x
+        return whole.cpu()
+
     def state_dict(self) -> dict:
-        if self.group is None:
+        if not self.distributed:
             return {"count": self.count, "adamw8bit": self.state}
         out = {k: [] for k in self.state}
         for j, local in enumerate(self.local):
             for key, arrays in self.state.items():
                 x = arrays[j]
                 if local:
-                    x = torch.cat([PT.all_gather_parts(x[sl], runs, self.group).cpu()
-                                   for _, sl, runs in self._layer_blocks(j)])
+                    x = torch.cat([self._gather_blocks(i, x[sl], total)
+                                   for i, sl, total in self._layer_blocks(j)])
                 out[key].append(x)
         return {"count": self.count, "adamw8bit": out}
 
     def _local_state(self, saved: Mapping) -> dict:
         """A whole-layout state cut to this rank's blocks."""
-        rank = dist.get_rank(self.group)
         out = {k: list(v) for k, v in saved.items()}
         for j, local in enumerate(self.local):
             if not local:
                 continue
             for key in out:
                 x, start, parts = saved[key][j], 0, []
-                for i, _, runs in self._layer_blocks(j):
-                    a, b = runs[rank]
-                    parts.append(x[start + a:start + b])
-                    start += runs[-1][1]
+                for i, _, total in self._layer_blocks(j):
+                    ids = torch.as_tensor(self.block_ids[i], device=x.device)
+                    parts.append(x[start:start + total][ids])
+                    start += total
                 if start != x.shape[0]:
                     raise ValueError(f"8-bit AdamW state {key}[{j}] has {x.shape[0]} blocks, "
                                      f"its leaf {start}")
@@ -720,7 +846,7 @@ class ClippedAdamW8bit(ClippedOptimizer):
         set of parameters, or moments kept per parameter rather than per
         JAX leaf) raises."""
         saved = state["adamw8bit"]
-        if self.group is not None and set(saved) == set(self.state) and all(
+        if self.distributed and set(saved) == set(self.state) and all(
                 len(saved[k]) == len(self.state[k]) for k in saved):
             saved = self._local_state(saved)
         if set(saved) != set(self.state) or any(
@@ -737,6 +863,42 @@ class ClippedAdamW8bit(ClippedOptimizer):
             for key, value in saved.items():
                 for x, y in zip(self.state[key], value, strict=True):
                     x.copy_(y)
+
+
+def _runs(index: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(starts, lengths) of the stretches of consecutive values of a rising
+    index."""
+    if len(index) == 0:
+        return index, index
+    breaks = np.nonzero(np.diff(index) != 1)[0] + 1
+    first = np.concatenate([[0], breaks])
+    return index[first], np.diff(np.concatenate([first, [len(index)]]))
+
+
+def _whole_blocks(axes: Sequence[np.ndarray], sizes: Sequence[int]) -> Optional[np.ndarray]:
+    """The 8-bit blocks, in order, of a tensor of `sizes` (row-major) whose
+    elements at the outer product of the rising `axes` indices a rank
+    holds; None where those elements are not whole blocks."""
+    block = optim8bit.BLOCK
+    cut = [k for k, (ax, n) in enumerate(zip(axes, sizes)) if len(ax) != n]
+    if not cut or cut == [0]:
+        first, length = _runs(axes[0])
+        inner = math.prod(sizes[1:])
+        starts, lengths = first * inner, length * inner
+    elif len(sizes) == 2:
+        first, length = _runs(axes[1])
+        starts = (axes[0][:, None] * sizes[1] + first[None, :]).reshape(-1)
+        lengths = np.tile(length, len(axes[0]))
+    else:
+        return None
+    if (starts % block).any() or (lengths % block).any():
+        return None
+    if len(starts) == 0:
+        return np.zeros(0, np.int64)
+    if (lengths == lengths[0]).all():
+        return ((starts // block)[:, None] + np.arange(lengths[0] // block)[None]).reshape(-1)
+    return np.concatenate([np.arange(a // block, (a + n) // block)
+                           for a, n in zip(starts, lengths)])
 
 
 class ClippedProdigy(ClippedOptimizer):
@@ -759,8 +921,8 @@ class ClippedProdigy(ClippedOptimizer):
     estim_lr_coef = 1.0
     PER_PARAMETER = ("exp_avg", "exp_avg_sq", "grad_sum", "params0")
 
-    def __init__(self, params, tc: TrainConfig, masks=None):
-        super().__init__(params, tc, masks)
+    def __init__(self, params, tc: TrainConfig, masks=None, model=None, mesh=None):
+        super().__init__(params, tc, masks, model, mesh)
         self.betas = (tc.adam_b1, tc.adam_b2)
         self.beta3 = tc.adam_b2 ** 0.5 if tc.prodigy_beta3 is None else tc.prodigy_beta3
         self.eps = tc.adam_eps
@@ -818,7 +980,7 @@ class ClippedProdigy(ClippedOptimizer):
 
     def state_dict(self) -> dict:
         st = self.state
-        if self.group is not None:
+        if self.distributed:
             st = {k: [self._full(i, x) for i, x in enumerate(v)] if k in self.PER_PARAMETER
                   else v for k, v in st.items()}
         return {"count": self.count, "prodigy": st}
@@ -838,7 +1000,9 @@ OPTIMIZERS = {"adamw": ClippedAdamW, "adamw8bit": ClippedAdamW8bit, "prodigy": C
 
 
 def make_optimizer(tc: TrainConfig, params: Mapping[str, torch.Tensor],
-                   masks: Optional[Masks] = None) -> ClippedOptimizer:
+                   masks: Optional[Masks] = None,
+                   *, model: Optional[nn.Module] = None,
+                   mesh: Optional[PT.Mesh] = None) -> ClippedOptimizer:
     """AdamW, 8-bit AdamW or Prodigy (the reference's LoRA optimizer) with
     global-norm clipping, as the JAX ``make_optimizer(tc, mask)`` chains
     them, over `params` by name (names ``jax_leaf`` places in the JAX
@@ -846,12 +1010,13 @@ def make_optimizer(tc: TrainConfig, params: Mapping[str, torch.Tensor],
     `masks` (``trainable_mask``'s) the optimizer takes the parameters that
     have a mask entry (the JAX optimizer allocates state for the leaves
     with any trainable entry) and applies each mask to its gradient and
-    update."""
+    update. `model` and `mesh`: the module the parameters belong to, when
+    it is this rank's shard over the mesh's tensor axis."""
     if tc.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {tc.optimizer!r}")
     if masks is not None:
         params = {name: params[name] for name in masks}
-    return OPTIMIZERS[tc.optimizer](params, tc, masks)
+    return OPTIMIZERS[tc.optimizer](params, tc, masks, model, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -871,6 +1036,7 @@ def flow_matching_loss(
     generator: Optional[torch.Generator] = None,
     noise: Optional[Mapping[str, torch.Tensor]] = None,
     batch_rows: Optional[Tuple[int, int]] = None,
+    mesh: Optional[PT.Mesh] = None,
 ) -> torch.Tensor:
     """One microbatch loss (fp32 scalar). batch: pixel_values (B,H,W,3) in
     [-1,1], mask (B,H,W) in {0,1}, txt (B,L,joint), pooled (B,pooled).
@@ -885,7 +1051,9 @@ def flow_matching_loss(
     batch of `total` spread over ranks; each draw from `generator` is made
     for the whole batch, in the same order, and this rank keeps its rows,
     so the draws do not depend on how the batch is split (`noise`, when
-    given, holds this rank's rows already).
+    given, holds this rank's rows already). `mesh`: the DiT is this rank's
+    shard over its tensor axis (``flux_apply(mesh=)``); the ranks of a
+    tensor group hold the same rows.
 
     The VAE encodes and the inputs run without gradient in the compute
     dtype, as the JAX loss casts them; norms and softmax stay fp32 inside
@@ -958,13 +1126,14 @@ def flow_matching_loss(
         target = packing.pack_latents(eps - x)
 
     pred = flux_apply(model, tokens, txt, pooled, sigmas, guidance, cos, sin,
-                      attn_impl=attn_impl, remat=tc.remat)
+                      attn_impl=attn_impl, remat=tc.remat, mesh=mesh)
     w = samplers.loss_weighting(tc.weighting_scheme, sigmas)[:, None, None]
     err = (pred.float() - target.float()) ** 2
     return torch.mean(w * err)
 
 
-def make_train_step(tc: TrainConfig, *, attn_impl: str = "auto"):
+def make_train_step(tc: TrainConfig, *, attn_impl: str = "auto",
+                    mesh: Optional[PT.Mesh] = None):
     """The train step (the JAX ``make_train_step``): gradients flow into
     the parameters that require one and `opt` (``make_optimizer`` over
     them) masks, clips and updates them. In the full-parameter modes those
@@ -985,7 +1154,8 @@ def make_train_step(tc: TrainConfig, *, attn_impl: str = "auto"):
     rows of each microbatch (`batch_rows`, see ``flow_matching_loss``):
     FSDP averages the gradients of the ranks' mean losses, which over equal
     slices is the whole batch's mean gradient, and the loss reported is the
-    mean over the ranks."""
+    mean over the ranks. With a tensor axis in `mesh` the DiT is the rank's
+    tensor shard (``flow_matching_loss(mesh=)``)."""
 
     def step(model, vae, opt: ClippedOptimizer, batch, *, generator=None, noise=None,
              batch_rows=None):
@@ -999,7 +1169,7 @@ def make_train_step(tc: TrainConfig, *, attn_impl: str = "auto"):
             loss = flow_matching_loss(model, vae, tc, mb, attn_impl=attn_impl,
                                       generator=generator,
                                       noise=None if noise is None else noise[i],
-                                      batch_rows=batch_rows)
+                                      batch_rows=batch_rows, mesh=mesh)
             (loss / accum).backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
         grad_norm = opt.step()
