@@ -43,9 +43,17 @@ Phases, in order; any failure exits non-zero:
      textflux_torch.cli.train.main on that checkpoint (written here when
      phase 7 did not run; removed after the last phase): an AnyWord json
      over the two example images (the dataset's glyph strip, polygon fill
-     and mask augmentation), Prodigy at lr 1, rank 128, 1024 px. Run A
+     and mask augmentation), Prodigy at lr 1, rank 128, 1024 px. First
+     the loader's process mode alone (no model): two spawned workers over
+     8 samples at 1024 px, a cold epoch, a warm one with SIGTERM sent to
+     both workers (the epoch must stay whole), one with a worker SIGKILLed
+     (the consumer must raise within 3 x worker_poll_s), no worker and no
+     /dev/shm file left (the size of /dev/shm printed first). Run A
      trains 4 steps, checkpointing at step 3, profiling step 1; run B
-     resumes a copy of A's step-3 checkpoint to step 4; A's export is
+     resumes a copy of A's step-3 checkpoint to step 4; run C trains 3
+     steps with --loader-procs 2 (no checkpoint; the export to a sink that
+     writes nothing), and its workers and their /dev/shm files must be
+     gone when main() returns; A's export is
      served through FillPipeline.from_pretrained(lora_path=...) for 2
      steps. Per step: CUDA-event time, the host's wait in the loader, the
      bucket and the flash launches; load seconds by component, the
@@ -163,6 +171,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -1408,6 +1417,13 @@ TRAIN_MAIN_STEPS = 4
 # disk-write budget (45 GiB per run of this script, deleted files included)
 # leaves beside phase 7's 35.4 GB checkpoint and the two 1.43 GB exports
 TRAIN_MAIN_CKPT_STEP = 3
+# run C: the same LoRA training with the samples prepped in this many
+# spawned worker processes (cli.train --loader-procs)
+TRAIN_MAIN_PROCS = 2
+# the loader-only probe: samples an epoch (the two example items repeated)
+# and the loader's liveness interval
+LOADER_PROBE_ITEMS = 8
+LOADER_PROBE_POLL_S = 2.0
 # the example images with the bounding quad (x0, y0, x1, y1) of each one's
 # mask and the word written there
 TRAIN_MAIN_ITEMS = (("ori_0001.png", "OPEN", (102, 128, 409, 256)),
@@ -1435,10 +1451,15 @@ class _TrainMainRecorder:
     - CheckpointManager._write: the background write's seconds and, once
       the checkpoint of `link_step` is written, a hard-linked copy of it
       under `<link_to>/checkpoints/` (no second copy of its bytes on
-      disk)."""
+      disk);
+    - the loader's worker processes, in process mode: their pids, the
+      prefix of their files in shared memory, the largest sample file;
+    - with `sink`, io.export.save_safetensors: the LoRA export's keys and
+      bytes, nothing written."""
 
-    def __init__(self, link_step=None, link_to=None, resume_file=None):
+    def __init__(self, link_step=None, link_to=None, resume_file=None, sink=False):
         self.link_step, self.link_to, self.resume_file = link_step, link_to, resume_file
+        self.sink, self.export, self.pool = sink, None, None
         self.waits, self.buckets, self.starts, self.ends, self.counts = [], [], [], [], []
         self.load, self.model, self.checksum0 = {}, None, None
         self.lora, self.opt, self.b_sums, self.resume = None, None, {}, None
@@ -1479,6 +1500,12 @@ class _TrainMainRecorder:
                             return
                         self.waits.append(time.perf_counter() - t0)
                         self.buckets.append(list(batch["bucket"]))
+                        pool = loader._pool
+                        if pool is not None:
+                            self.pool = dict(pids=[p.pid for p in pool.procs],
+                                             prefix=pool.prefix,
+                                             sample_bytes=pool.sample_bytes,
+                                             shm_budget_bytes=pool.budget)
                         ev = torch.cuda.Event(enable_timing=True)
                         ev.record()
                         self.starts.append(ev)
@@ -1564,6 +1591,15 @@ class _TrainMainRecorder:
         self._patch(CLI, "load_train_state", load_state)
         self._patch(CheckpointManager, "save", save)
         self._patch(CheckpointManager, "_write", write)
+        if self.sink:
+            from textflux_torch.io import export as E
+
+            def sink(sd, path, dtype=None):
+                self.export = dict(keys=sorted(sd), bytes_it_would_write=sum(
+                    v.numel() * v.element_size() for v in sd.values()), bytes_written=0)
+                return 0
+
+            self._patch(E, "save_safetensors", lambda orig: sink)
         return self
 
     def __exit__(self, *exc):
@@ -1579,15 +1615,16 @@ class _TrainMainRecorder:
         return out
 
 
-def train_main_json(work: str) -> str:
-    """The AnyWord json of TRAIN_MAIN_ITEMS under `work` (images: the
-    example directory)."""
-    data_json = os.path.join(work, "anyword.json")
+def train_main_json(work: str, name: str = "anyword.json", copies: int = 1) -> str:
+    """The AnyWord json of TRAIN_MAIN_ITEMS (`copies` times over) at
+    `work`/`name` (images: the example directory)."""
+    data_json = os.path.join(work, name)
     with open(data_json, "w") as f:
         json.dump({"data_list": [
-            {"img_name": name, "annotations": [
+            {"img_name": img, "annotations": [
                 {"text": text, "polygon": [[x0, y0], [x1, y0], [x1, y1], [x0, y1]]}]}
-            for name, text, (x0, y0, x1, y1) in TRAIN_MAIN_ITEMS]}, f)
+            for _ in range(copies)
+            for img, text, (x0, y0, x1, y1) in TRAIN_MAIN_ITEMS]}, f)
     return data_json
 
 
@@ -1622,19 +1659,115 @@ def _train_log(out_dir: str) -> list:
         return [json.loads(line) for line in f]
 
 
+def _alive_pids(pids) -> list:
+    """The pids of `pids` that still name a process (psutil where it is
+    installed, else /proc)."""
+    try:
+        import psutil
+    except ImportError:
+        return [p for p in pids if os.path.exists(f"/proc/{p}")]
+    return [p for p in pids if psutil.pid_exists(p)]
+
+
+def _shm_usage() -> dict:
+    from textflux_torch.data.loader import SHM_DIR
+
+    du = shutil.disk_usage(SHM_DIR)
+    return dict(path=SHM_DIR, total_bytes=du.total, free_bytes=du.free)
+
+
+def _loader_probe(work: str, smi: str) -> tuple:
+    """The loader's process mode alone, no model: two workers over an
+    AnyWord json of LOADER_PROBE_ITEMS samples at TRAIN_RESOLUTION, the
+    dataset built as cli.train.main builds it. A cold epoch (spawn, the
+    workers' imports and dataset, every batch), a warm one during which
+    both workers get SIGTERM (the epoch must stay whole), then one in which
+    worker 1 is SIGKILLed after the first batch: the consumer must raise
+    within 3 x worker_poll_s. Afterwards no worker and no file in shared
+    memory may be left. Returns (the record, the problems)."""
+    from textflux_torch.cli import train as CLI
+    from textflux_torch.data import BucketedLoader
+    from textflux_torch.data.loader import SHM_DIR
+
+    data_json = train_main_json(work, "probe.json", LOADER_PROBE_ITEMS // len(TRAIN_MAIN_ITEMS))
+    args = CLI.parse_args(["--model", "unused", "--data-json", data_json,
+                           "--data-images", os.path.join(EXAMPLE, "ori"), "--output-dir", work,
+                           "--resolution", str(TRAIN_RESOLUTION), "--seed", "0"])
+    factory = functools.partial(CLI.build_dataset, args)
+    before = set(os.listdir(SHM_DIR))
+    loader = BucketedLoader(factory(), num_procs=2, dataset_factory=factory, seed=0,
+                            worker_poll_s=LOADER_PROBE_POLL_S)
+    rec, problems, pids = dict(card=smi, shm=_shm_usage(), poll_s=LOADER_PROBE_POLL_S), [], []
+    t_probe = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        it = iter(loader)
+        next(it)
+        rec["cold_first_batch_s"] = time.perf_counter() - t0
+        rec["cold_epoch_batches"] = 1 + sum(1 for _ in it)
+        rec["cold_epoch_s"] = time.perf_counter() - t0
+        pool = loader._pool
+        pids = [p.pid for p in pool.procs]
+        rec.update(pids=pids, sample_bytes=pool.sample_bytes, shm_budget_bytes=pool.budget,
+                   samples_in_flight=pool._window(loader.prefetch * loader.samples_per_batch * 2))
+        t0 = time.perf_counter()
+        it = iter(loader)
+        next(it)
+        rec["warm_first_batch_s"] = time.perf_counter() - t0
+        for pid in pids:
+            os.kill(pid, signal.SIGTERM)
+        rec["sigterm_epoch_batches"] = 1 + sum(1 for _ in it)
+        rec["alive_after_sigterm"] = [p.is_alive() for p in pool.procs]
+        it = iter(loader)
+        next(it)
+        os.kill(pids[1], signal.SIGKILL)
+        t0 = time.perf_counter()
+        rec["killed_error"] = None
+        try:
+            for _ in it:
+                pass
+        except RuntimeError as e:
+            rec["killed_error"] = str(e)
+        rec["killed_raised_after_s"] = time.perf_counter() - t0
+    finally:
+        loader.close()
+    rec["seconds"] = time.perf_counter() - t_probe
+    rec["pids_left"] = _alive_pids(pids)
+    rec["shm_files_left"] = sorted(set(os.listdir(SHM_DIR)) - before)
+    log("train_main loader_probe " + json.dumps(rec))
+    if rec["cold_epoch_batches"] != LOADER_PROBE_ITEMS:
+        problems.append(f"loader probe: {rec['cold_epoch_batches']} batches in an epoch, "
+                        f"expected {LOADER_PROBE_ITEMS}")
+    if rec["sigterm_epoch_batches"] != LOADER_PROBE_ITEMS or not all(rec["alive_after_sigterm"]):
+        problems.append(f"loader probe: SIGTERM to the workers cut the epoch "
+                        f"({rec['sigterm_epoch_batches']} batches) or ended a worker")
+    if (rec["killed_error"] is None or "worker process" not in rec["killed_error"]
+            or rec["killed_raised_after_s"] >= 3 * LOADER_PROBE_POLL_S):
+        problems.append(f"loader probe: a SIGKILLed worker gave {rec['killed_error']!r} after "
+                        f"{rec['killed_raised_after_s']:.2f} s (bound {3 * LOADER_PROBE_POLL_S} s)")
+    if not pids or rec["pids_left"] or rec["shm_files_left"]:
+        problems.append(f"loader probe left workers {rec['pids_left']} or shared-memory files "
+                        f"{rec['shm_files_left']}")
+    return rec, problems
+
+
 def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
     """LoRA training from a data directory through cli.train.main() at full
     width: an AnyWord json over the two example images, the checkpoint of
     phase 7 (written here when that phase did not run), Prodigy at lr 1.
-    Run A trains 4 steps, checkpointing at step 3 (one kept); run B
-    resumes a hard-linked copy of A's step-3 checkpoint to step 4; A's
+    First the loader's process mode alone (``_loader_probe``). Run A trains
+    4 steps, checkpointing at step 3 (one kept); run B resumes a
+    hard-linked copy of A's step-3 checkpoint to step 4; run C trains 3
+    steps with the samples prepped in TRAIN_MAIN_PROCS worker processes
+    (--loader-procs; no profile, no checkpoint, the export to a sink); A's
     exported LoRA is then served for 2 steps. Launches per step, finite
     losses, the rotation, B's log, the export's keys and rank, the base
-    checksum, the profile trace and the round trip's fused launches are
-    checked."""
+    checksum, the profile trace, C's workers and shared-memory files gone
+    after main() and the round trip's fused launches are checked."""
     from textflux_torch.cli import train as CLI
     from textflux_torch.cli.run_inference import run
     from textflux_torch.config import flux_fill_config
+    from textflux_torch.data.loader import SHM_DIR
     from textflux_torch.io.safetensors import SafetensorsFile
     from textflux_torch.ops import flash_attention as FA
     from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
@@ -1654,7 +1787,7 @@ def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     data_json = train_main_json(work)
-    out_a, out_b = os.path.join(work, "a"), os.path.join(work, "b")
+    out_a, out_b, out_c = (os.path.join(work, x) for x in ("a", "b", "c"))
     disk_free, mem_free = _free_bytes(work)
     factor_bytes = 4 * sum(int(np.prod(v)) for k, v in manifest["lora"].items()
                            if k.endswith(("lora_A.weight", "lora_B.weight")))
@@ -1673,7 +1806,9 @@ def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
               "--checkpointing-steps", str(TRAIN_MAIN_CKPT_STEP),
               "--checkpoints-total-limit", "1",
               "--log-every", "1", "--seed", "0"]
-    problems, out = [], {}
+    out = {}
+    log("train_main: shared memory " + json.dumps(_shm_usage()))
+    out["loader_probe"], problems = _loader_probe(work, smi)
     a_state = os.path.join(out_a, "checkpoints", str(TRAIN_MAIN_CKPT_STEP), STATE_FILE)
     with byte_tokenizers("train_main"):
         resumed = list(range(TRAIN_MAIN_CKPT_STEP + 1, TRAIN_MAIN_STEPS + 1))
@@ -1682,11 +1817,16 @@ def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
                  dict(link_step=TRAIN_MAIN_CKPT_STEP, link_to=out_b),
                  list(range(1, TRAIN_MAIN_STEPS + 1))),
                 ("B", ["--output-dir", out_b, "--resume-from-checkpoint",
-                       str(TRAIN_MAIN_CKPT_STEP)], dict(resume_file=a_state), resumed)):
+                       str(TRAIN_MAIN_CKPT_STEP)], dict(resume_file=a_state), resumed),
+                ("C", ["--output-dir", out_c, "--loader-procs", str(TRAIN_MAIN_PROCS),
+                       "--max-train-steps", str(TRAIN_MAIN_CKPT_STEP),
+                       "--checkpointing-steps", str(TRAIN_MAIN_STEPS + 1)], dict(sink=True),
+                 list(range(1, TRAIN_MAIN_CKPT_STEP + 1)))):
             for k in FLASH_KERNELS:
                 getattr(FA, k).launches = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            shm_before = set(os.listdir(SHM_DIR))
             t0 = time.perf_counter()
             with _TrainMainRecorder(**hooks) as rec:
                 CLI.main(common + extra)
@@ -1718,6 +1858,16 @@ def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
             if name == "A":
                 prof = os.path.join(out_a, "profile")
                 r["profile_files"] = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+            if name == "C":
+                r.update(pool=rec.pool, pids_left=_alive_pids((rec.pool or {}).get("pids", [])),
+                         shm_files_left=sorted(set(os.listdir(SHM_DIR)) - shm_before),
+                         export_keys=len((rec.export or {}).get("keys", [])),
+                         export_bytes_it_would_write=(rec.export or {}).get(
+                             "bytes_it_would_write"))
+                want_lora = {k for k in manifest["lora"]
+                             if k.endswith(("lora_A.weight", "lora_B.weight"))}
+                got_lora = {k for k in (rec.export or {}).get("keys", [])
+                            if k.endswith(("lora_A.weight", "lora_B.weight"))}
             log(f"train_main {name} " + json.dumps(r))
             out[name] = r
             del rec
@@ -1737,9 +1887,26 @@ def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
             if name == "B" and not (r["resume"] and r["resume"]["equal"]):
                 problems.append(f"run B's state after the resume is not A's step-"
                                 f"{TRAIN_MAIN_CKPT_STEP} checkpoint: {r['resume']}")
-            if r["checkpoints"] != [TRAIN_MAIN_CKPT_STEP]:
+            want_ckpts = [] if name == "C" else [TRAIN_MAIN_CKPT_STEP]
+            if r["checkpoints"] != want_ckpts:
                 problems.append(f"run {name} left checkpoints {r['checkpoints']}, expected "
-                                f"[{TRAIN_MAIN_CKPT_STEP}] alone")
+                                f"{want_ckpts}")
+            if name == "C":
+                if not r["pool"] or len(r["pool"]["pids"]) != TRAIN_MAIN_PROCS:
+                    problems.append(f"run C did not read through {TRAIN_MAIN_PROCS} worker "
+                                    f"processes: {r['pool']}")
+                if r["pids_left"] or r["shm_files_left"]:
+                    problems.append(f"run C left workers {r['pids_left']} or shared-memory "
+                                    f"files {r['shm_files_left']} after main() returned")
+                if got_lora != want_lora:
+                    problems.append(f"run C's export has {len(got_lora)} LoRA keys, the "
+                                    f"manifest {len(want_lora)}")
+        log("train_main data_wait_ms " + json.dumps(dict(
+            card=smi, threads_A=out["A"]["data_wait_ms"], processes_C=out["C"]["data_wait_ms"],
+            buckets_C=out["C"]["bucket_hw"], step_ms_A=out["A"]["step_ms"],
+            step_ms_C=out["C"]["step_ms"],
+            probe_cold_first_batch_s=out["loader_probe"]["cold_first_batch_s"],
+            probe_warm_first_batch_s=out["loader_probe"]["warm_first_batch_s"])))
         if not any(f.endswith(".json") for f in out["A"]["profile_files"]):
             problems.append("run A wrote no profile trace")
 
@@ -4804,14 +4971,14 @@ def _tp_train_runs(tpt_rec) -> dict:
 def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None,
                    tf_rec=None, fsdp_rec=None, tpt_rec=None) -> list:
     """One JSON entry per training kernel: times at the `train` case,
-    launches from the train phase, the train_main phase's runs A and B, the
+    launches from the train phase, the train_main phase's runs A, B and C, the
     qlora phase's runs, the train_full phase's and the fsdp_train phase's
     ranks (all steps, by run, and per step)."""
     train = flash_rows.get("train")
     runs = {}
     if train_rec:
         runs["train"] = train_rec
-    for key in ("A", "B") if tm_rec else ():
+    for key in ("A", "B", "C") if tm_rec else ():
         runs[f"train_main_{key}"] = tm_rec[key]
     for key, r in (qlora_rec or {}).items():
         runs[f"qlora_{key}"] = r

@@ -1,9 +1,15 @@
 """The port's data layer held against the JAX package's on the CPU: the
 native mask ops, the AnyText json utilities, the three datasets and the
-thread-mode bucketed loader. Same seeds and files on both sides; every
-comparison is exact (bitwise for arrays)."""
+bucketed loader in thread and process mode. Same seeds and files on both
+sides; every comparison is exact (bitwise for arrays). The process-mode
+tests bound every wait (the loader's own, and `close()` kills what is
+left in a `finally`)."""
 
+import functools
+import glob
 import json
+import os
+import signal
 import threading
 import time
 
@@ -20,6 +26,9 @@ from textflux_tpu.data import native as jax_native
 
 from textflux_torch.data import (AnyWordSingleLineDataset, BucketedLoader,
                                  CombinedFolderDataset, UnionDataset, anytext, native)
+from textflux_torch.data.loader import SHM_DIR
+
+from torch_loader_helpers import IndexedDataset, dying_after_write, index_of
 
 
 @pytest.fixture()
@@ -216,5 +225,150 @@ class _NoBucket:
 def test_loader_forwards_batcher_errors_and_refuses_processes():
     with pytest.raises(KeyError, match="bucket"):
         list(BucketedLoader(_NoBucket(), num_workers=1))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="num_procs > 0 requires dataset_factory"):
         BucketedLoader(_NoBucket(), num_procs=2)
+
+
+# ---------------------------------------------------------------------------
+# process mode
+# ---------------------------------------------------------------------------
+
+def _shm_files():
+    """The files this process's loaders have in shared memory."""
+    return glob.glob(os.path.join(SHM_DIR, f"textflux-{os.getpid()}-*"))
+
+
+def _assert_same_batches(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g["bucket"] == w["bucket"] and g["prompts"] == w["prompts"]
+        assert g["clip_prompts"] == w["clip_prompts"]
+        for k in ("pixel_values", "mask"):
+            assert g[k].dtype == w[k].dtype
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+@pytest.mark.parametrize("which", ["anyword", "union"])
+def test_process_loader_matches_jax_over_epochs(which, anyword_fixture, folder_fixture):
+    """One worker process: the JAX loader's batches at num_procs = 1 (one
+    worker reseeded with id 0, read in FIFO order), bitwise, over two
+    epochs and after set_epoch(3), from the same factory arguments."""
+    json_path, img_root = anyword_fixture
+    if which == "anyword":
+        args = ([(json_path, img_root)],)
+        kw = dict(resolutions=[128, 160], seed=1, bucket_quant=128)
+        ours_cls, ref_cls, lkw = AnyWordSingleLineDataset, JaxAnyWord, dict(batch_size=1,
+                                                                          grad_accum=2)
+    else:
+        args, kw = (folder_fixture,), dict(img_size=[96, 128], seed=2)
+        ours_cls, ref_cls, lkw = UnionDataset, JaxUnion, dict(batch_size=2, grad_accum=1)
+    make_ours = functools.partial(ours_cls, *args, **kw)
+    make_ref = functools.partial(ref_cls, *args, **kw)
+    ours = BucketedLoader(make_ours(), num_procs=1, dataset_factory=make_ours, seed=7, **lkw)
+    ref = JaxLoader(make_ref(), num_procs=1, dataset_factory=make_ref, seed=7,
+                    worker_poll_s=5.0, **lkw)
+    try:
+        _assert_same_batches(_batches(ours, 2), _batches(ref, 2))
+        ours.set_epoch(3)
+        ref.set_epoch(3)
+        _assert_same_batches(list(ours), list(ref))
+    finally:
+        ours.close()
+        ref.close()
+    assert not _shm_files()
+
+
+def _indices(batches):
+    return [index_of(p) for b in batches for p in b["prompts"]]
+
+
+def test_process_loader_order_does_not_depend_on_timing():
+    """Two workers whose samples take a random time each: two loaders with
+    one seed give the same batches, each epoch as many as thread mode with
+    every index once; the pool outlives epochs, an abandoned epoch and a
+    SIGTERM to each worker; close() leaves no process and no file in
+    shared memory."""
+    make = functools.partial(IndexedDataset, 12, 0, 0.02)
+    n_thread = len(list(BucketedLoader(make(), batch_size=2, num_workers=2, seed=5)))
+    loaders = [BucketedLoader(make(), batch_size=2, num_procs=2, dataset_factory=make, seed=5)
+               for _ in range(2)]
+    procs = []
+    try:
+        runs = [_batches(loader, 2) for loader in loaders]
+        _assert_same_batches(runs[0], runs[1])
+        for epoch in (runs[0][:n_thread], runs[0][n_thread:]):
+            assert len(epoch) == n_thread
+            assert sorted(_indices(epoch)) == list(range(12))
+        loader = loaders[0]
+        procs = list(loader._pool.procs)
+        it = iter(loader)
+        next(it)
+        it.close()                 # abandoned mid-epoch: the pool stays
+        assert loader._pool.procs == procs
+        assert sorted(_indices(loader)) == list(range(12))
+        it = iter(loader)
+        first = next(it)
+        for p in procs:            # a preemption notice: the workers ignore it
+            os.kill(p.pid, signal.SIGTERM)
+        assert sorted(_indices([first, *it])) == list(range(12))
+        assert loader._pool.procs == procs and all(p.is_alive() for p in procs)
+    finally:
+        for loader in loaders:
+            loader.close()
+    assert procs and not any(p.is_alive() for p in procs)
+    assert loaders[0]._pool is None and not _shm_files()
+
+
+def test_process_loader_skips_failed_samples_as_threads_do():
+    """A sample whose prep raises is left out, as in thread mode (its
+    bucket's partial batch is dropped): the same batches, one worker each."""
+    make = functools.partial(IndexedDataset, 12, fail=(3, 6))
+    want = list(BucketedLoader(make(), batch_size=2, num_workers=1, seed=1))
+    loader = BucketedLoader(make(), batch_size=2, num_procs=1, dataset_factory=make, seed=1)
+    try:
+        got = list(loader)
+    finally:
+        loader.close()
+    assert [b["prompts"] for b in got] == [b["prompts"] for b in want]
+    # five good samples a bucket: two batches each, one sample dropped
+    assert len(_indices(got)) == 8 and not {3, 6} & set(_indices(got))
+
+
+def test_process_loader_dead_worker_raises():
+    """A worker SIGKILLed mid-epoch: the consumer raises naming it within
+    3 x worker_poll_s, and nothing is left in shared memory."""
+    make = functools.partial(IndexedDataset, 24, 0, 0.05)
+    loader = BucketedLoader(make(), batch_size=2, num_procs=2, dataset_factory=make, seed=0,
+                            worker_poll_s=1.0)
+    try:
+        it = iter(loader)
+        next(it)
+        os.kill(loader._pool.procs[1].pid, signal.SIGKILL)
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match=r"worker process\(es\) died \(worker 1, .*"
+                                               r"exit code -9"):
+            for _ in it:
+                pass
+        assert time.monotonic() - t0 < 3 * loader.worker_poll_s
+    finally:
+        loader.close()
+    assert not _shm_files()
+
+
+def test_process_loader_worker_killed_while_replying():
+    """A worker killed after it wrote a sample to shared memory and before
+    the message naming it (its eighth write: the second epoch, once the
+    pool is up) cannot stall the reader: the consumer raises within
+    3 x worker_poll_s, and the orphaned file is unlinked."""
+    make = functools.partial(dying_after_write, 8, n=12)
+    loader = BucketedLoader(IndexedDataset(12), batch_size=2, shuffle=False, num_procs=2,
+                            dataset_factory=make, worker_poll_s=1.0)
+    try:
+        assert sorted(_indices(loader)) == list(range(12))
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="worker process"):
+            list(loader)
+        assert time.monotonic() - t0 < 3 * loader.worker_poll_s
+    finally:
+        loader.close()
+    assert not _shm_files()

@@ -3,11 +3,14 @@ LoRA warm start against the JAX package's import, the checkpoint manager,
 the per-step noise stream over a resume (train_lora and main()), and
 cli.train.main() end to end on a tiny diffusers-layout checkpoint: export
 and serving round trip (AdamW, Prodigy and 8-bit AdamW), SIGTERM
-preemption, its SystemExits and the choices that are not ported yet (the
-full-parameter modes: tests/test_torch_full_train.py)."""
+preemption, the loader's worker processes, its SystemExits and the choices
+that were ported after it (the full-parameter modes:
+tests/test_torch_full_train.py)."""
 
 import dataclasses
+import glob
 import json
+import multiprocessing
 import os
 import signal
 import threading
@@ -26,6 +29,7 @@ from textflux_tpu.training import train as JT
 
 import textflux_torch.config as TC
 from textflux_torch.cli import train as CLI
+from textflux_torch.data.loader import SHM_DIR
 from textflux_torch.io.lora import import_lora_factors
 from textflux_torch.io.params import load_safetensors_dir
 from textflux_torch.io.safetensors import save_file
@@ -475,12 +479,12 @@ def test_main_exits_on_data_it_cannot_batch(checkpoint, tmp_path, rng):
                        "--train-batch-size", "2", "--bucket-quant", "32"))
 
 
-# each trainer choice beside the ROADMAP item that ports it; items 2, 4 and
-# 6b (training over the fsdp and tensor axes) are ported; the loader's
-# process mode is item 7
+# each trainer choice beside the ROADMAP item that ports it; items 2, 4, 6b
+# (training over the fsdp and tensor axes) and 7 (the loader's process
+# mode) are ported
 PORTED_CHOICES = (["--mode", "attn"], ["--mode", "all"], ["--optimizer", "adamw8bit"],
                   ["--use-8bit-adam"], ["--quantize-base", "nf4"], ["--mesh", "1,2,1"],
-                  ["--mesh", "1,1,2"])
+                  ["--mesh", "1,1,2"], ["--loader-procs", "2"])
 
 
 @pytest.mark.parametrize("extra,item", [
@@ -489,23 +493,37 @@ PORTED_CHOICES = (["--mode", "attn"], ["--mode", "all"], ["--optimizer", "adamw8
     (["--quantize-base", "nf4"], "item 4"), (["--mesh", "1,1,2"], "item 6b"),
     (["--loader-procs", "2"], "item 7")])
 def test_main_refuses_unported_choices(extra, item, tmp_path):
-    """An unported choice raises naming its item; a ported one passes the
-    check and main() goes on to read the (absent) data, or, for a mesh of
-    several ranks, to make its process group (absent in one process). The
-    full-parameter modes with --quantize-base exit with the JAX trainer's
-    own message."""
+    """Every choice once refused is ported now (`item` names the ROADMAP
+    item that ported it): it passes the check and main() goes on to read
+    the (absent) data, or, for a mesh of several ranks, to make its process
+    group (absent in one process). The full-parameter modes with
+    --quantize-base exit with the JAX trainer's own message."""
     argv = _argv("unused", str(tmp_path), tmp_path / "out") + extra
     if extra[0] == "--mode":
         with pytest.raises(SystemExit, match="--quantize-base requires --mode lora"):
             CLI.main(argv + ["--quantize-base", "weight_only"])
-    if extra in PORTED_CHOICES:
-        CLI.check_ported(CLI.parse_args(argv))
-        with pytest.raises(RuntimeError if extra[0] == "--mesh" else FileNotFoundError,
-                           match="torchrun" if extra[0] == "--mesh" else None):
-            CLI.main(argv)
-        return
-    with pytest.raises(NotImplementedError, match=item):
+    assert extra in PORTED_CHOICES
+    CLI.check_ported(CLI.parse_args(argv))
+    with pytest.raises(RuntimeError if extra[0] == "--mesh" else FileNotFoundError,
+                       match="torchrun" if extra[0] == "--mesh" else None):
         CLI.main(argv)
+
+
+def test_main_trains_with_loader_processes(checkpoint, tmp_path, rng):
+    """--loader-procs 1: two LoRA steps (two epochs of a one-sample dataset
+    at one resolution, so the order and the samples are fixed) with the
+    losses of the thread-mode run; no worker process and no file in shared
+    memory is left when main() returns."""
+    data = _folder(tmp_path / "data", [(64, 64)], rng)
+    losses = {}
+    for procs in ("0", "1"):
+        out = tmp_path / f"procs{procs}"
+        CLI.main(_argv(checkpoint, data, out, "--max-train-steps", "2", "--loader-procs", procs))
+        losses[procs] = [e["loss"] for e in _log(out)]
+    assert len(losses["1"]) == 2 and np.isfinite(losses["1"]).all()
+    assert losses["1"] == losses["0"]
+    assert not multiprocessing.active_children()
+    assert not glob.glob(os.path.join(SHM_DIR, f"textflux-{os.getpid()}-*"))
 
 
 def test_main_defaults_to_cuda(tmp_path, monkeypatch):

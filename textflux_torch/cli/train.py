@@ -46,16 +46,20 @@ rank reads the same batches and trains on its rows of each (the batch over
 data x fsdp; the ranks of a tensor group on the same rows), LoRA factors
 stay whole over the tensor axis, and rank 0 alone logs, writes the
 checkpoints (in the whole tensors' natural layout, so they resume on any
-mesh) and exports. The JAX flags parse unchanged; ``--loader-procs > 0``
-(ROADMAP item 7) raises, naming its item. ``train_lora`` and
-``train_full`` are the in-memory entries: built models and collated
-batches in, the trained factors or model out.
+mesh) and exports. The JAX flags parse unchanged. ``--loader-procs N``
+preps the samples in N spawned worker processes (each rebuilds the dataset
+from the arguments; ``data.loader``'s process mode, whose order does not
+depend on timing, so over a mesh every rank's own pool gives the same
+batches), else in threads; the workers end on every way out of ``main()``.
+``train_lora`` and ``train_full`` are the in-memory entries: built models
+and collated batches in, the trained factors or model out.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -437,8 +441,9 @@ def parse_args(argv=None):
                         "(default: 32 at B=1 = exact reference sizing, 128 "
                         "at B>1 so shape-uniform batches fill)")
     p.add_argument("--loader-procs", type=int, default=0,
-                   help="sample-prep worker processes (not ported yet, ROADMAP "
-                        "Queue 1 item 7); 0 = thread prefetch")
+                   help="sample-prep worker PROCESSES (a persistent spawn pool, "
+                        "arrays through /dev/shm, in an order that does not depend "
+                        "on timing); 0 = thread prefetch")
     p.add_argument("--grad-accum", type=int, default=8)
     p.add_argument("--guidance-scale", type=float, default=1.0)
     p.add_argument("--weighting-scheme", default="none")
@@ -502,16 +507,12 @@ def mesh_shape(args) -> Optional[Tuple[int, int, int]]:
 
 
 def check_ported(args) -> None:
-    """Exit on a choice the JAX trainer refuses, with its message; raise on
-    one the port does not have yet, naming its ROADMAP item."""
+    """Exit on a choice the JAX trainer refuses, with its message (and on a
+    malformed --mesh)."""
     if args.quantize_base != "none" and args.mode != "lora":
         raise SystemExit("--quantize-base requires --mode lora (full-param "
                          "training cannot update a quantized base)")
     mesh_shape(args)
-    if args.loader_procs > 0:
-        from textflux_torch.data.loader import PROCESS_MODE_ITEM
-
-        raise NotImplementedError(PROCESS_MODE_ITEM)
 
 
 def build_dataset(args):
@@ -773,9 +774,14 @@ def main(argv=None):
             f"per-bucket batches must FILL — mixed-resolution data "
             f"needs enough samples per bucket, see --bucket-quant)")
     # over a mesh every rank must read the same batches: one worker thread,
-    # whose order is the shuffle's alone
+    # whose order is the shuffle's alone, or the worker processes, whose
+    # order does not depend on timing either (each rank has its own pool)
     loader = BucketedLoader(dataset, batch_size=args.train_batch_size,
                             grad_accum=args.grad_accum, seed=args.seed,
+                            num_procs=args.loader_procs,
+                            # spawn-picklable: a module-level function and the Namespace
+                            dataset_factory=(functools.partial(build_dataset, args)
+                                             if args.loader_procs else None),
                             **({} if mesh is None else {"num_workers": 1}))
     if step:
         # position the data order too: the completed-epoch count (the exact
@@ -845,6 +851,7 @@ def main(argv=None):
                     "--grad-accum samples; coarsen --bucket-quant, reduce "
                     "the batch settings, or add data per bucket")
     finally:
+        loader.close()   # the worker processes end on every way out of the loop
         if profiler is not None:
             profiler.__exit__(None, None, None)
         if prev_sigterm is not None:
