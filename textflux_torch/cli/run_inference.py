@@ -42,6 +42,7 @@ from textflux_torch.rendering import (
     load_font,
     render_glyph_multi,
 )
+from textflux_torch.utils.tracking import span
 
 
 def render_conditioning(original: Image.Image, mask: Image.Image, words, font=None):
@@ -68,36 +69,40 @@ def run(pipe, image_path, mask_path, words_path, *, steps=30, guidance_scale=30.
     dev = resolve_device(device)
     if pipe.device.type != dev.type:
         raise ValueError(f"the pipeline runs on {pipe.device}, but device={device!r} was asked")
-    original = Image.open(image_path).convert("RGB")
-    mask = Image.open(mask_path).convert("RGB")
-    words = read_words(words_path)
-    font = load_font(font_path, 40 if len(words) > 1 else 60)
+    with span("edit.request"):
+        original = Image.open(image_path).convert("RGB")
+        mask = Image.open(mask_path).convert("RGB")
+        words = read_words(words_path)
+        font = load_font(font_path, 40 if len(words) > 1 else 60)
 
-    combined, combined_mask, crop_fn, rendered = render_conditioning(original, mask, words, font)
+        with span("edit.render"):
+            combined, combined_mask, crop_fn, rendered = render_conditioning(
+                original, mask, words, font)
+            # snap to //32 like the reference
+            w, h = combined.size
+            new_w, new_h = snap_to_multiple(w, h)
+            combined = combined.resize((new_w, new_h))
+            combined_mask = combined_mask.resize((new_w, new_h))
 
-    # snap to //32 like the reference
-    w, h = combined.size
-    new_w, new_h = snap_to_multiple(w, h)
-    combined = combined.resize((new_w, new_h))
-    combined_mask = combined_mask.resize((new_w, new_h))
-
-    prompt, prompt_2 = build_prompts(words)
-    text_embeds = None
-    if pipe.flux is None and hasattr(pipe, "_deferred_flux"):
-        # staged residency: encode now, free the encoders, then load the
-        # DiT, so the T5 encoder and the DiT never share the device
-        text_embeds = pipe.encode_prompts(prompt, prompt_2)
-        pipe.release_text_encoders()
-        pipe.load_transformer()
-    result = pipe(
-        image=combined, mask_image=combined_mask,
-        prompt=prompt, prompt_2=prompt_2,
-        height=new_h, width=new_w,
-        num_inference_steps=steps, guidance_scale=guidance_scale,
-        seed=seed, sampler=sampler, overshoot_c=overshoot_c,
-        text_embeds=text_embeds,
-    )[0]
-    return result, crop_fn(result), rendered, original, mask
+        prompt, prompt_2 = build_prompts(words)
+        text_embeds = None
+        if pipe.flux is None and hasattr(pipe, "_deferred_flux"):
+            # staged residency: encode now, free the encoders, then load the
+            # DiT, so the T5 encoder and the DiT never share the device
+            text_embeds = pipe.encode_prompts(prompt, prompt_2)
+            pipe.release_text_encoders()
+            pipe.load_transformer()
+        result = pipe(
+            image=combined, mask_image=combined_mask,
+            prompt=prompt, prompt_2=prompt_2,
+            height=new_h, width=new_w,
+            num_inference_steps=steps, guidance_scale=guidance_scale,
+            seed=seed, sampler=sampler, overshoot_c=overshoot_c,
+            text_embeds=text_embeds,
+        )[0]
+        with span("edit.crop"):
+            cropped = crop_fn(result)
+        return result, cropped, rendered, original, mask
 
 
 def save_results(out_dir, result, cropped, mask, original, rendered, words_path):

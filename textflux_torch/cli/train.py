@@ -79,6 +79,7 @@ from textflux_torch.models.vae import FluxVAE
 from textflux_torch.parallel import partitioning as PT
 from textflux_torch.training import train as TR
 from textflux_torch.training.checkpoint import copy_into
+from textflux_torch.utils.tracking import span
 
 
 @torch.no_grad()
@@ -143,21 +144,29 @@ def train_steps(flux: FluxTransformer, vae: FluxVAE, clip: CLIPTextModel, t5: T5
     step_fn = TR.make_train_step(tc, mesh=mesh)
     cdt = getattr(torch, tc.compute_dtype)
     step = start_step
-    for batch in batches:
-        rows = None
-        if mesh is not None:
-            b = batch["pixel_values"].shape[1]
-            part = batch_part(mesh, b)
-            batch, rows = local_rows(batch, part), (part.start, b)
-        pooled, txt = encode_batch_text(clip, t5, batch, clip_tokenize=clip_tokenize,
-                                        t5_tokenize=t5_tokenize, dtype=cdt)
-        device_batch = {
-            "pixel_values": torch.as_tensor(batch["pixel_values"], device=dev).to(cdt),
-            "mask": torch.as_tensor(batch["mask"], device=dev).to(cdt),
-            "txt": txt, "pooled": pooled,
-        }
-        metrics = step_fn(flux, vae, opt, device_batch,
-                          generator=step_generator(seed, step, dev), batch_rows=rows)
+    batches = iter(batches)
+    while True:
+        # the step's spans close before the yield: the caller's time is not the step's
+        with span("train.step", step=step):
+            with span("train.data_wait"):
+                batch = next(batches, None)
+            if batch is None:
+                return
+            rows = None
+            if mesh is not None:
+                b = batch["pixel_values"].shape[1]
+                part = batch_part(mesh, b)
+                batch, rows = local_rows(batch, part), (part.start, b)
+            with span("train.text_encode"):
+                pooled, txt = encode_batch_text(clip, t5, batch, clip_tokenize=clip_tokenize,
+                                                t5_tokenize=t5_tokenize, dtype=cdt)
+            device_batch = {
+                "pixel_values": torch.as_tensor(batch["pixel_values"], device=dev).to(cdt),
+                "mask": torch.as_tensor(batch["mask"], device=dev).to(cdt),
+                "txt": txt, "pooled": pooled,
+            }
+            metrics = step_fn(flux, vae, opt, device_batch,
+                              generator=step_generator(seed, step, dev), batch_rows=rows)
         step += 1
         yield step, metrics
 

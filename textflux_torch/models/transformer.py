@@ -69,6 +69,7 @@ from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
 from textflux_torch.ops.rope import apply_rope_bshd, half_permutation
 from textflux_torch.parallel import partitioning as PT
 from textflux_torch.parallel.partitioning import LORA_KEYS
+from textflux_torch.utils.tracking import span
 
 ATTN_IMPLS = ("plain", "flash", "fused")
 
@@ -106,10 +107,11 @@ class DoubleBlock(nn.Module):
         """(txt, img) after the block. `mods` is the block's (img, txt)
         modulation vectors, or None to compute them here from `sv` =
         silu(vec)."""
-        if mods is None:
-            mods = (_whole(self.img_mod, sv, mesh), _whole(self.txt_mod, sv, mesh))
-        return double_block(self, self.cfg, txt, img, mods, rope_cos, rope_sin, attn_impl,
-                            kv_len, mesh)
+        with span("flux.double_block"):
+            if mods is None:
+                mods = (_whole(self.img_mod, sv, mesh), _whole(self.txt_mod, sv, mesh))
+            return double_block(self, self.cfg, txt, img, mods, rope_cos, rope_sin, attn_impl,
+                                kv_len, mesh)
 
 
 class SingleBlock(nn.Module):
@@ -131,10 +133,11 @@ class SingleBlock(nn.Module):
                 kv_len: Optional[int] = None, mesh=None):
         """x after the block; `mod` is its modulation vector, or None to
         compute it here from `sv` = silu(vec)."""
-        if mod is None:
-            mod = _whole(self.mod, sv, mesh)
-        return single_block(self, self.cfg, x, mod, rope_cos, rope_sin, attn_impl, kv_len,
-                            mesh)
+        with span("flux.single_block"):
+            if mod is None:
+                mod = _whole(self.mod, sv, mesh)
+            return single_block(self, self.cfg, x, mod, rope_cos, rope_sin, attn_impl, kv_len,
+                                mesh)
 
 
 class FluxTransformer(nn.Module):

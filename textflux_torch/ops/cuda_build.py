@@ -20,6 +20,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from textflux_torch.utils.tracking import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,7 +66,15 @@ def build() -> tuple[Path, float, str]:
     library was already built ("" if that file is gone). Each source
     compiles in its own nvcc process, all at once; the objects, the log and
     the library go to temporary names first, so a concurrent or interrupted
-    build never leaves a half-written library."""
+    build never leaves a half-written library. Runs as the span
+    ``cuda.build`` (attributes ``compiled``, ``seconds``)."""
+    with span("cuda.build") as s:
+        out, seconds, text = _build()
+        s.set(compiled=seconds > 0.0, seconds=seconds)
+    return out, seconds, text
+
+
+def _build() -> tuple[Path, float, str]:
     out = library_path()
     log_path = out.with_suffix(".log")
     if out.exists():

@@ -48,6 +48,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from textflux_torch.utils.tracking import span
+
 LOG2_E = 1.4426950408889634
 SUPPORTED_HEAD_DIMS = (64, 128)
 
@@ -235,13 +237,14 @@ def flash_attention_qk_norm_rope(
     CPU tensors run the plain version; CUDA tensors launch the kernel, whose
     launches are counted in ``flash_attention_qk_norm_rope.launches``.
     """
-    kv_len = q.shape[1] if kv_len is None else int(kv_len)
-    if not 1 <= kv_len <= q.shape[1]:
-        raise ValueError(f"kv_len must be in [1, {q.shape[1]}], got {kv_len}")
-    tables = fold_tables(cos, sin, q_scale, k_scale)
-    if q.device.type == "cpu":
-        return _reference_folded(q, k, v, *tables, kv_len=kv_len, eps=eps)
-    return launch_folded(q, k, v, *tables, kv_len=kv_len, eps=eps)
+    with span("attn.fused"):
+        kv_len = q.shape[1] if kv_len is None else int(kv_len)
+        if not 1 <= kv_len <= q.shape[1]:
+            raise ValueError(f"kv_len must be in [1, {q.shape[1]}], got {kv_len}")
+        tables = fold_tables(cos, sin, q_scale, k_scale)
+        if q.device.type == "cpu":
+            return _reference_folded(q, k, v, *tables, kv_len=kv_len, eps=eps)
+        return launch_folded(q, k, v, *tables, kv_len=kv_len, eps=eps)
 
 
 flash_attention_qk_norm_rope.launches = 0

@@ -47,6 +47,7 @@ from textflux_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
 from textflux_torch.ops.rope import rope_tables, rope_tables_half
 from textflux_torch.pipeline import image_processor as improc
 from textflux_torch.pipeline.prompts import GENERIC_TEMPLATE, build_prompts, words_prompt
+from textflux_torch.utils.tracking import span
 
 SAMPLERS = ("euler", "overshoot", "overshoot_spatial")
 NOISE_KEYS = ("latents", "vae", "steps")
@@ -125,48 +126,55 @@ class FillPipeline:
         """Mask out the edit region, VAE-encode, pack; the mask folds
         s x s -> s*s*4 channels. Above VAE_TILE_THRESHOLD the encode is
         tiled, and `vae_noise` (when given) holds one draw per tile."""
-        masked = image * (1.0 - mask[..., None])
         f = self.vae_cfg.spatial_factor
-        if (image.shape[1] // f) * (image.shape[2] // f) > VAE_TILE_THRESHOLD:
-            z = vae_encode_tiled(self.vae, masked, noise=vae_noise, generator=generator,
-                                 tile=VAE_TILE)
-        else:
-            z = vae_encode(self.vae, masked, noise=vae_noise, generator=generator)
-        img_tokens = packing.pack_latents(z)
-        mask_tokens = packing.pack_mask(mask.to(z.dtype), self.vae_cfg.spatial_factor)
-        return torch.cat([img_tokens, mask_tokens], dim=-1)
+        tiled = (image.shape[1] // f) * (image.shape[2] // f) > VAE_TILE_THRESHOLD
+        with span("vae.encode", tiled=tiled):
+            masked = image * (1.0 - mask[..., None])
+            if tiled:
+                z = vae_encode_tiled(self.vae, masked, noise=vae_noise, generator=generator,
+                                     tile=VAE_TILE)
+            else:
+                z = vae_encode(self.vae, masked, noise=vae_noise, generator=generator)
+            img_tokens = packing.pack_latents(z)
+            mask_tokens = packing.pack_mask(mask.to(z.dtype), self.vae_cfg.spatial_factor)
+            return torch.cat([img_tokens, mask_tokens], dim=-1)
 
     def _decode(self, latents, lat_h: int, lat_w: int):
-        z = packing.unpack_latents(latents, lat_h, lat_w)
-        if lat_h * lat_w > VAE_TILE_THRESHOLD:
-            return vae_decode_tiled(self.vae, z, tile=VAE_TILE)
-        return vae_decode(self.vae, z)
+        tiled = lat_h * lat_w > VAE_TILE_THRESHOLD
+        with span("vae.decode", tiled=tiled):
+            z = packing.unpack_latents(latents, lat_h, lat_w)
+            if tiled:
+                return vae_decode_tiled(self.vae, z, tile=VAE_TILE)
+            return vae_decode(self.vae, z)
 
     def _denoise_step(self, lat, cond, txt, pooled, guidance, cos, sin, mods, sigma,
-                      sigma_next, *, sampler, overshoot_c, kv_len, noise, generator):
-        """One step: the DiT's velocity, then the sampler update. `generator`
-        is one generator, or one per sample (each draws that sample's rows
-        of the step noise, as a single-sample call would)."""
-        b = lat.shape[0]
-        if sampler != "euler" and noise is None and isinstance(generator, (list, tuple)):
-            noise = torch.cat([torch.randn((1,) + tuple(lat.shape[1:]), generator=g,
-                                           device=lat.device, dtype=torch.float32)
-                               for g in generator])
-        v = flux_apply(self.flux, torch.cat([lat, cond], dim=-1), txt, pooled,
-                       torch.full((b,), float(sigma), dtype=lat.dtype, device=lat.device),
-                       guidance, cos, sin, attn_impl=self.attn_impl, kv_len=kv_len,
-                       mods=mods, mesh=self.mesh)
-        if sampler == "overshoot":
-            return samplers.overshoot_step(lat, v, sigma, sigma_next, noise,
-                                           generator=generator, c=overshoot_c)
-        if sampler == "overshoot_spatial":
-            # per-token overshoot weighted by mask occupancy (the packed mask
-            # is the tail of the cond features)
-            c_map = overshoot_c * torch.mean(
-                cond[..., self.vae_cfg.latent_channels * 4:].float(), dim=-1)
-            return samplers.overshoot_step_spatial(lat, v, sigma, sigma_next, c_map, noise,
-                                                   generator=generator)
-        return samplers.euler_step(lat, v, sigma, sigma_next)
+                      sigma_next, *, sampler, overshoot_c, kv_len, noise, generator, step=0):
+        """One step (number `step` of the loop): the DiT's velocity, then
+        the sampler update. `generator` is one generator, or one per sample
+        (each draws that sample's rows of the step noise, as a single-sample
+        call would)."""
+        with span("fill.denoise_step", step=step):
+            b = lat.shape[0]
+            if sampler != "euler" and noise is None and isinstance(generator, (list, tuple)):
+                noise = torch.cat([torch.randn((1,) + tuple(lat.shape[1:]), generator=g,
+                                               device=lat.device, dtype=torch.float32)
+                                   for g in generator])
+            v = flux_apply(self.flux, torch.cat([lat, cond], dim=-1), txt, pooled,
+                           torch.full((b,), float(sigma), dtype=lat.dtype, device=lat.device),
+                           guidance, cos, sin, attn_impl=self.attn_impl, kv_len=kv_len,
+                           mods=mods, mesh=self.mesh)
+            with span("sampler.update"):
+                if sampler == "overshoot":
+                    return samplers.overshoot_step(lat, v, sigma, sigma_next, noise,
+                                                   generator=generator, c=overshoot_c)
+                if sampler == "overshoot_spatial":
+                    # per-token overshoot weighted by mask occupancy (the packed
+                    # mask is the tail of the cond features)
+                    c_map = overshoot_c * torch.mean(
+                        cond[..., self.vae_cfg.latent_channels * 4:].float(), dim=-1)
+                    return samplers.overshoot_step_spatial(lat, v, sigma, sigma_next, c_map,
+                                                           noise, generator=generator)
+                return samplers.euler_step(lat, v, sigma, sigma_next)
 
     def _run_denoise(self, latents, cond, txt, pooled, *, t_img: int, lat_h: int,
                      lat_w: int, steps: int, guidance_scale: float, sampler: str,
@@ -176,44 +184,45 @@ class FillPipeline:
         loop and unpadding."""
         if self.flux is None:
             raise ValueError("the DiT is not loaded: call load_transformer() first")
-        cfgp = self.pipe_cfg
-        dev = latents.device
-        t_txt = txt.shape[1]
-        ids = np.concatenate([packing.text_ids(t_txt),
-                              packing.latent_image_ids(lat_h, lat_w)], axis=0)
+        with span("fill.schedule"):
+            cfgp = self.pipe_cfg
+            dev = latents.device
+            t_txt = txt.shape[1]
+            ids = np.concatenate([packing.text_ids(t_txt),
+                                  packing.latent_image_ids(lat_h, lat_w)], axis=0)
 
-        # optional sequence bucketing: pad image tokens to a multiple, with
-        # the padded keys masked
-        kv_len = None
-        t_pad = t_img
-        if seq_pad_multiple:
-            t_pad = -(-t_img // seq_pad_multiple) * seq_pad_multiple
-            if t_pad != t_img:
-                pad = t_pad - t_img
-                latents = torch.nn.functional.pad(latents, (0, 0, 0, pad))
-                cond = torch.nn.functional.pad(cond, (0, 0, 0, pad))
-                ids = np.concatenate([ids, np.tile(ids[-1:], (pad, 1))], axis=0)
-                kv_len = t_txt + t_img
-        self.last_joint_seq = len(ids)
+            # optional sequence bucketing: pad image tokens to a multiple, with
+            # the padded keys masked
+            kv_len = None
+            t_pad = t_img
+            if seq_pad_multiple:
+                t_pad = -(-t_img // seq_pad_multiple) * seq_pad_multiple
+                if t_pad != t_img:
+                    pad = t_pad - t_img
+                    latents = torch.nn.functional.pad(latents, (0, 0, 0, pad))
+                    cond = torch.nn.functional.pad(cond, (0, 0, 0, pad))
+                    ids = np.concatenate([ids, np.tile(ids[-1:], (pad, 1))], axis=0)
+                    kv_len = t_txt + t_img
+            self.last_joint_seq = len(ids)
 
-        cos, sin = (torch.as_tensor(t, device=dev) for t in self._rope_tables(ids))
-        sigmas = samplers.make_schedule(
-            steps, t_img,
-            base_seq_len=cfgp.base_image_seq_len, max_seq_len=cfgp.max_image_seq_len,
-            base_shift=cfgp.base_shift, max_shift=cfgp.max_shift,
-        )
-        b = latents.shape[0]
-        guidance = (torch.full((b,), guidance_scale, dtype=torch.float32, device=dev)
-                    if self.flux_cfg.guidance_embeds else None)
+            cos, sin = (torch.as_tensor(t, device=dev) for t in self._rope_tables(ids))
+            sigmas = samplers.make_schedule(
+                steps, t_img,
+                base_seq_len=cfgp.base_image_seq_len, max_seq_len=cfgp.max_image_seq_len,
+                base_shift=cfgp.base_shift, max_shift=cfgp.max_shift,
+            )
+            b = latents.shape[0]
+            guidance = (torch.full((b,), guidance_scale, dtype=torch.float32, device=dev)
+                        if self.flux_cfg.guidance_embeds else None)
 
-        # every step's AdaLN modulation vectors in one batched matmul over
-        # (steps*B) rows: the modulation weights are read once per image
-        sig = torch.as_tensor(sigmas[:-1], device=dev).to(latents.dtype)
-        vec_all = transformer.flux_vec(
-            self.flux, sig.repeat_interleave(b),
-            None if guidance is None else guidance.repeat(steps),
-            pooled.repeat(steps, 1), latents.dtype)
-        mods_all = transformer.flux_mods(self.flux, vec_all, mesh=self.mesh)
+            # every step's AdaLN modulation vectors in one batched matmul over
+            # (steps*B) rows: the modulation weights are read once per image
+            sig = torch.as_tensor(sigmas[:-1], device=dev).to(latents.dtype)
+            vec_all = transformer.flux_vec(
+                self.flux, sig.repeat_interleave(b),
+                None if guidance is None else guidance.repeat(steps),
+                pooled.repeat(steps, 1), latents.dtype)
+            mods_all = transformer.flux_mods(self.flux, vec_all, mesh=self.mesh)
 
         def step_mods(i):
             rows = slice(i * b, (i + 1) * b)
@@ -228,7 +237,7 @@ class FillPipeline:
             latents = self._denoise_step(
                 latents, cond, txt, pooled, guidance, cos, sin, step_mods(i),
                 sigmas[i], sigmas[i + 1], sampler=sampler, overshoot_c=overshoot_c,
-                kv_len=kv_len, noise=noise, generator=generator)
+                kv_len=kv_len, noise=noise, generator=generator, step=i)
         return latents[:, :t_img] if t_pad != t_img else latents
 
     def _initial_draws(self, img, mask, noise, generator, t_img: int, dtype):
@@ -264,8 +273,10 @@ class FillPipeline:
     def _encode_ids(self, clip_ids, t5_ids, dtype):
         clip_ids = torch.as_tensor(np.asarray(clip_ids), device=self.device)
         t5_ids = torch.as_tensor(np.asarray(t5_ids), device=self.device)
-        _, pooled = clip_encode(self.clip, clip_ids, dtype=dtype)
-        txt = t5_encode(self.t5, t5_ids, dtype=dtype)
+        with span("text.clip"):
+            _, pooled = clip_encode(self.clip, clip_ids, dtype=dtype)
+        with span("text.t5"):
+            txt = t5_encode(self.t5, t5_ids, dtype=dtype)
         return pooled, txt
 
     @torch.inference_mode()
@@ -310,63 +321,69 @@ class FillPipeline:
         """
         cfgp = self.pipe_cfg
         steps = num_inference_steps or cfgp.num_inference_steps
-        guidance_scale = cfgp.guidance_scale if guidance_scale is None else guidance_scale
-        sampler = sampler or cfgp.sampler
-        if sampler not in SAMPLERS:
-            raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
-        overshoot_c = cfgp.overshoot_c if overshoot_c is None else overshoot_c
-        noise = _check_noise(noise)
-        dev = self.device
+        with span("fill.call", steps=steps) as call:
+            guidance_scale = cfgp.guidance_scale if guidance_scale is None else guidance_scale
+            sampler = sampler or cfgp.sampler
+            if sampler not in SAMPLERS:
+                raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
+            overshoot_c = cfgp.overshoot_c if overshoot_c is None else overshoot_c
+            noise = _check_noise(noise)
+            dev = self.device
 
-        pil = improc.to_pil(image)
-        w0, h0 = pil.size
-        # latent grid must be even for 2x2 packing => 16-pixel granularity
-        width = ((width or w0) // 16) * 16
-        height = ((height or h0) // 16) * 16
+            pil = improc.to_pil(image)
+            w0, h0 = pil.size
+            # latent grid must be even for 2x2 packing => 16-pixel granularity
+            width = ((width or w0) // 16) * 16
+            height = ((height or h0) // 16) * 16
+            call.set(height=height, width=width)
 
-        img = torch.as_tensor(improc.preprocess_image(image, height, width), device=dev).to(dtype)
-        mask = torch.as_tensor(improc.preprocess_mask(mask_image, height, width),
-                               device=dev).to(dtype)
+            img = torch.as_tensor(improc.preprocess_image(image, height, width),
+                                  device=dev).to(dtype)
+            mask = torch.as_tensor(improc.preprocess_mask(mask_image, height, width),
+                                   device=dev).to(dtype)
 
-        if text_embeds is None:
-            if prompt is None or prompt_2 is None:
-                if words is None:
-                    if prompt is not None or prompt_2 is not None:
-                        # one prompt given, no words to derive the other from
-                        raise ValueError(
-                            "provide both prompt and prompt_2, or words to "
-                            "derive the missing one from")
-                    raise ValueError("provide words, prompts, or text_embeds")
-                # derive only the MISSING prompt(s): an explicit override
-                # must never be silently replaced by the words template
-                auto_p, auto_p2 = build_prompts(words)
-                prompt = prompt if prompt is not None else auto_p
-                prompt_2 = prompt_2 if prompt_2 is not None else auto_p2
-            pooled, txt = self.encode_prompts(prompt, prompt_2, dtype)
-        else:
-            pooled, txt = (torch.as_tensor(t, device=dev).to(dtype) for t in text_embeds)
+            if text_embeds is None:
+                if prompt is None or prompt_2 is None:
+                    if words is None:
+                        if prompt is not None or prompt_2 is not None:
+                            # one prompt given, no words to derive the other from
+                            raise ValueError(
+                                "provide both prompt and prompt_2, or words to "
+                                "derive the missing one from")
+                        raise ValueError("provide words, prompts, or text_embeds")
+                    # derive only the MISSING prompt(s): an explicit override
+                    # must never be silently replaced by the words template
+                    auto_p, auto_p2 = build_prompts(words)
+                    prompt = prompt if prompt is not None else auto_p
+                    prompt_2 = prompt_2 if prompt_2 is not None else auto_p2
+                pooled, txt = self.encode_prompts(prompt, prompt_2, dtype)
+            else:
+                pooled, txt = (torch.as_tensor(t, device=dev).to(dtype) for t in text_embeds)
 
-        b = img.shape[0]
-        lat_h = height // self.vae_cfg.spatial_factor
-        lat_w = width // self.vae_cfg.spatial_factor
-        t_img = (lat_h // 2) * (lat_w // 2)
+            b = img.shape[0]
+            lat_h = height // self.vae_cfg.spatial_factor
+            lat_w = width // self.vae_cfg.spatial_factor
+            t_img = (lat_h // 2) * (lat_w // 2)
 
-        generator = torch.Generator(device=dev).manual_seed(seed)
-        cond, latents = self._initial_draws(img, mask, noise, generator, t_img, dtype)
+            generator = torch.Generator(device=dev).manual_seed(seed)
+            cond, latents = self._initial_draws(img, mask, noise, generator, t_img, dtype)
 
-        latents = self._run_denoise(
-            latents, cond, txt, pooled,
-            t_img=t_img, lat_h=lat_h, lat_w=lat_w, steps=steps,
-            guidance_scale=guidance_scale, sampler=sampler,
-            overshoot_c=overshoot_c, seq_pad_multiple=seq_pad_multiple,
-            step_noise=noise.get("steps"), generator=generator)
+            latents = self._run_denoise(
+                latents, cond, txt, pooled,
+                t_img=t_img, lat_h=lat_h, lat_w=lat_w, steps=steps,
+                guidance_scale=guidance_scale, sampler=sampler,
+                overshoot_c=overshoot_c, seq_pad_multiple=seq_pad_multiple,
+                step_noise=noise.get("steps"), generator=generator)
+            call.set(joint=self.last_joint_seq)
 
-        if output_type == "latent":
-            return latents
-        images_np = self._decode(latents, lat_h, lat_w).float().cpu().numpy()
-        if output_type == "np":
-            return images_np
-        return improc.postprocess_image(images_np)
+            if output_type == "latent":
+                return latents
+            decoded = self._decode(latents, lat_h, lat_w)
+            with span("fill.postprocess"):
+                images_np = decoded.float().cpu().numpy()
+                if output_type == "np":
+                    return images_np
+                return improc.postprocess_image(images_np)
 
     # ------------------------------------------------------------------
     # batched generation
@@ -423,46 +440,52 @@ class FillPipeline:
         fsdp), so that every rank returns the whole batch, padding dropped."""
         cfgp = self.pipe_cfg
         steps = num_inference_steps or cfgp.num_inference_steps
-        guidance_scale = cfgp.guidance_scale if guidance_scale is None else guidance_scale
-        sampler = sampler or cfgp.sampler
-        if sampler not in SAMPLERS:
-            raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
-        overshoot_c = cfgp.overshoot_c if overshoot_c is None else overshoot_c
-        width, height = (width // 16) * 16, (height // 16) * 16
+        with span("fill.call", steps=steps, batch=len(images)) as call:
+            guidance_scale = cfgp.guidance_scale if guidance_scale is None else guidance_scale
+            sampler = sampler or cfgp.sampler
+            if sampler not in SAMPLERS:
+                raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
+            overshoot_c = cfgp.overshoot_c if overshoot_c is None else overshoot_c
+            width, height = (width // 16) * 16, (height // 16) * 16
+            call.set(height=height, width=width)
 
-        b = len(images)
-        seeds = [int(x) for x in (seeds if seeds is not None else [seed] * b)]
-        noise = [_check_noise(x) for x in (noise if noise is not None else [None] * b)]
-        if not len(seeds) == len(masks) == len(words_list) == len(noise) == b:
-            raise ValueError(f"{b} images, {len(masks)} masks, {len(words_list)} word "
-                             f"lists, {len(seeds)} seeds, {len(noise)} noise entries")
-        kw = dict(height=height, width=width, steps=steps, guidance_scale=guidance_scale,
-                  sampler=sampler, overshoot_c=overshoot_c, dtype=dtype,
-                  seq_pad_multiple=seq_pad_multiple)
-        mesh = self.mesh
-        if mesh is None or mesh.batch_shards == 1:
-            out = self._generate(images, masks, words_list, seeds, noise, text_embeds, **kw)
-            return improc.postprocess_image(out.cpu().numpy())
+            b = len(images)
+            seeds = [int(x) for x in (seeds if seeds is not None else [seed] * b)]
+            noise = [_check_noise(x) for x in (noise if noise is not None else [None] * b)]
+            if not len(seeds) == len(masks) == len(words_list) == len(noise) == b:
+                raise ValueError(f"{b} images, {len(masks)} masks, {len(words_list)} word "
+                                 f"lists, {len(seeds)} seeds, {len(noise)} noise entries")
+            kw = dict(height=height, width=width, steps=steps, guidance_scale=guidance_scale,
+                      sampler=sampler, overshoot_c=overshoot_c, dtype=dtype,
+                      seq_pad_multiple=seq_pad_multiple)
+            mesh = self.mesh
+            if mesh is None or mesh.batch_shards == 1:
+                out = self._generate(images, masks, words_list, seeds, noise, text_embeds, **kw)
+                call.set(joint=self.last_joint_seq)
+                with span("fill.postprocess"):
+                    return improc.postprocess_image(out.cpu().numpy())
 
-        from textflux_torch.parallel import partitioning as PT
+            from textflux_torch.parallel import partitioning as PT
 
-        shards = mesh.batch_shards
-        n = b + (-b) % shards
+            shards = mesh.batch_shards
+            n = b + (-b) % shards
 
-        def padded(xs):
-            xs = list(xs)
-            return xs + xs[-1:] * (n - b)
+            def padded(xs):
+                xs = list(xs)
+                return xs + xs[-1:] * (n - b)
 
-        images, masks, words_list, seeds, noise = map(
-            padded, (images, masks, words_list, seeds, noise))
-        if text_embeds is not None:
-            text_embeds = tuple(torch.cat([t] + [t[-1:]] * (n - b))
-                                for t in (torch.as_tensor(x) for x in text_embeds))
-        part = slice(mesh.batch_rank * n // shards, (mesh.batch_rank + 1) * n // shards)
-        out = self._generate(
-            images[part], masks[part], words_list[part], seeds[part], noise[part],
-            None if text_embeds is None else tuple(t[part] for t in text_embeds), **kw)
-        return improc.postprocess_image(PT.all_gather_batch(out, mesh)[:b].cpu().numpy())
+            images, masks, words_list, seeds, noise = map(
+                padded, (images, masks, words_list, seeds, noise))
+            if text_embeds is not None:
+                text_embeds = tuple(torch.cat([t] + [t[-1:]] * (n - b))
+                                    for t in (torch.as_tensor(x) for x in text_embeds))
+            part = slice(mesh.batch_rank * n // shards, (mesh.batch_rank + 1) * n // shards)
+            out = self._generate(
+                images[part], masks[part], words_list[part], seeds[part], noise[part],
+                None if text_embeds is None else tuple(t[part] for t in text_embeds), **kw)
+            call.set(joint=self.last_joint_seq)
+            with span("fill.postprocess"):
+                return improc.postprocess_image(PT.all_gather_batch(out, mesh)[:b].cpu().numpy())
 
     def _generate(self, images, masks, words_list, seeds, noise, text_embeds, *, height: int,
                   width: int, steps: int, guidance_scale: float, sampler: str, overshoot_c,

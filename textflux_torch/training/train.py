@@ -57,6 +57,7 @@ from textflux_torch.ops import packing, samplers
 from textflux_torch.ops.rope import rope_tables
 from textflux_torch.parallel import partitioning as PT
 from textflux_torch.training import optim8bit
+from textflux_torch.utils.tracking import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1166,13 +1167,16 @@ def make_train_step(tc: TrainConfig, *, attn_impl: str = "auto",
         loss_sum = None
         for i in range(accum):
             mb = {k: v[i] for k, v in batch.items()}
-            loss = flow_matching_loss(model, vae, tc, mb, attn_impl=attn_impl,
-                                      generator=generator,
-                                      noise=None if noise is None else noise[i],
-                                      batch_rows=batch_rows, mesh=mesh)
-            (loss / accum).backward()
+            with span("train.forward", micro_batch=i):
+                loss = flow_matching_loss(model, vae, tc, mb, attn_impl=attn_impl,
+                                          generator=generator,
+                                          noise=None if noise is None else noise[i],
+                                          batch_rows=batch_rows, mesh=mesh)
+            with span("train.backward", micro_batch=i):
+                (loss / accum).backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        grad_norm = opt.step()
+        with span("train.update"):
+            grad_norm = opt.step()
         loss = loss_sum / accum
         if batch_rows is not None:
             dist.all_reduce(loss)
