@@ -679,6 +679,32 @@ def profile_step(run, *, what: str = "denoise step", inference: bool = True,
              for e in rows])))
 
 
+class DeviceLaunches:
+    """The port's kernels (KERNEL_NAMES) the device ran inside a ``with``
+    block, counted from torch.profiler's CUDA activity: ``counts`` by
+    kernel, and ``fused``, the fused attention's launches (one
+    norm_rope_kernel each). A serving forward replayed from a CUDA graph
+    runs its kernels without their Python wrappers, whose ``.launches``
+    count the host's launches alone."""
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self._prof.__exit__(*exc)
+        names = [e.name() for e in self._prof.profiler.kineto_results.events()
+                 if e.device_type().name == "CUDA"]
+        self.counts = {k: sum(k in n for n in names) for k in KERNEL_NAMES}
+        self.fused = self.counts["norm_rope_kernel"]
+        return False
+
+
 def phase_main(profile: bool = False) -> dict:
     from textflux_torch.cli.run_inference import run
     from textflux_torch.config import (PipelineConfig, clip_l_config, flux_fill_config,
@@ -733,26 +759,41 @@ def phase_main(profile: bool = False) -> dict:
         step_events.clear()
         torch.cuda.synchronize()
         flash_attention_qk_norm_rope.launches = 0
+        graphs = pipe.flux.graphs
+        captures, replays = graphs.captures, graphs.replays
         t0 = time.perf_counter()
-        result, cropped, rendered, original, mask = run(
-            pipe, *paths, steps=steps, seed=0, sampler=sampler)
-        torch.cuda.synchronize()
+        with DeviceLaunches() as ran:
+            result, cropped, rendered, original, mask = run(
+                pipe, *paths, steps=steps, seed=0, sampler=sampler)
         seconds = time.perf_counter() - t0
-        launches = flash_attention_qk_norm_rope.launches
+        # what the device ran, the graphs' replays included; the wrapper's
+        # counter sees the host's launches (eager and captured steps) alone
+        launches = ran.fused
+        attn = ran.counts["flash_fwd_sm90_kernel"]
         step_ms = [s.elapsed_time(e) for s, e in step_events]
         stats = dict(result=_image_stats(result), crop=_image_stats(cropped))
         rec = dict(sampler=sampler, steps=steps, s_per_img=seconds,
                    mean_step_ms=float(np.mean(step_ms)), step_ms=step_ms,
-                   joint_seq=pipe.last_joint_seq, launches=launches,
-                   expected_launches=per_block * steps, images=stats)
+                   joint_seq=pipe.last_joint_seq, launches=launches, attention_kernels=attn,
+                   host_launches=flash_attention_qk_norm_rope.launches,
+                   expected_launches=per_block * steps,
+                   graph_captures=graphs.captures - captures,
+                   graph_replays=graphs.replays - replays,
+                   memory_reserved=torch.cuda.memory_reserved(), images=stats)
         log("main path " + json.dumps(rec))
         runs[sampler] = rec
         for k_, st in stats.items():
             if not st["finite"] or st["std"] <= 0.0:
                 raise AssertionError(f"{sampler}: {k_} image is not finite/non-constant: {st}")
-        if launches != per_block * steps:
-            raise AssertionError(f"{sampler}: kernel launched {launches} times, "
-                                 f"expected {per_block} x {steps}")
+        if launches != per_block * steps or attn != per_block * steps:
+            raise AssertionError(f"{sampler}: the device ran norm_rope_kernel {launches} and "
+                                 f"flash_fwd_sm90_kernel {attn} times, expected "
+                                 f"{per_block} x {steps}")
+    second = runs["overshoot"]
+    if (second["graph_captures"], second["graph_replays"]) != (0, second["steps"]):
+        raise AssertionError(f"the second image of a canvas should replay the first one's "
+                             f"graph every step: {second['graph_captures']} captures, "
+                             f"{second['graph_replays']} replays")
     peak = torch.cuda.max_memory_allocated()
     log(f"max_memory_allocated: {peak / 2**30:.2f} GiB")
     if profile:
@@ -1090,10 +1131,10 @@ def _run_main(argv, recorder, steps, expected_per_step):
     torch.cuda.synchronize()
     flash_attention_qk_norm_rope.launches = 0
     t0 = time.perf_counter()
-    cli_main(argv)
-    torch.cuda.synchronize()
+    with DeviceLaunches() as ran:
+        cli_main(argv)
     rec = dict(recorder.rec, seconds=time.perf_counter() - t0, steps=steps,
-               launches=flash_attention_qk_norm_rope.launches,
+               launches=ran.fused, host_launches=flash_attention_qk_norm_rope.launches,
                expected_launches=expected_per_step * steps,
                ru_maxrss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
     rec["load_gb_per_s"] = {k: v["bytes"] / v["seconds"] / 1e9 for k, v in rec["load"].items()}
@@ -1230,7 +1271,6 @@ def phase_checkpoint() -> dict:
     from textflux_torch.io.params import load_checkpoint_dir
     from textflux_torch.models.vae import (vae_decode, vae_decode_tiled, vae_encode,
                                            vae_encode_tiled)
-    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
     from textflux_torch.ops.rope import half_permutation
     from textflux_torch.pipeline.fill import FillPipeline
     from textflux_torch.pipeline.prompts import read_words
@@ -1337,18 +1377,17 @@ def phase_checkpoint() -> dict:
                     for w in words]
         hw = dict(height=432, width=512)   # 27 x 32 = 864 image tokens, padded to 896
         t0 = time.perf_counter()
-        flash_attention_qk_norm_rope.launches = 0
-        batch = pipe.generate_batch([c[0] for c in canvases], [c[1] for c in canvases], words,
-                                    num_inference_steps=2, seeds=[0, 1], seq_pad_multiple=64,
-                                    **hw)
-        torch.cuda.synchronize()
-        batch_launches = flash_attention_qk_norm_rope.launches
+        with DeviceLaunches() as ran:
+            batch = pipe.generate_batch([c[0] for c in canvases], [c[1] for c in canvases],
+                                        words, num_inference_steps=2, seeds=[0, 1],
+                                        seq_pad_multiple=64, **hw)
+        batch_launches = ran.fused
         batch_s = time.perf_counter() - t0
         joint = pipe.last_joint_seq
-        flash_attention_qk_norm_rope.launches = 0
-        single = pipe(image=canvases[0][0], mask_image=canvases[0][1], words=words[0],
-                      num_inference_steps=2, seed=0, seq_pad_multiple=64, **hw)[0]
-        single_launches = flash_attention_qk_norm_rope.launches
+        with DeviceLaunches() as ran:
+            single = pipe(image=canvases[0][0], mask_image=canvases[0][1], words=words[0],
+                          num_inference_steps=2, seed=0, seq_pad_multiple=64, **hw)[0]
+        single_launches = ran.fused
         b0, b1, s0 = (np.asarray(x, np.int32) for x in (batch[0], batch[1], single))
         rec = dict(batch=2, steps=2, joint_seq=joint, kv_len=512 + 864, seconds=batch_s,
                    launches=batch_launches, single_launches=single_launches,
@@ -1770,7 +1809,6 @@ def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
     from textflux_torch.data.loader import SHM_DIR
     from textflux_torch.io.safetensors import SafetensorsFile
     from textflux_torch.ops import flash_attention as FA
-    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
     from textflux_torch.pipeline.fill import FillPipeline
     from textflux_torch.training import train as TR
     from textflux_torch.training.checkpoint import STATE_FILE, CheckpointManager
@@ -1929,14 +1967,13 @@ def phase_train_main(smi: str, have_checkpoint: bool) -> dict:
             problems.append(f"exported LoRA: {rec}")
 
         # the round trip: A's export served through from_pretrained
-        flash_attention_qk_norm_rope.launches = 0
         t0 = time.perf_counter()
-        pipe = FillPipeline.from_pretrained(CKPT_DIR, lora_path=out_a, device="cuda")
-        img = run(pipe, *EXAMPLE_PATHS, steps=2, seed=0, sampler="euler")[0]
-        torch.cuda.synchronize()
+        with DeviceLaunches() as ran:
+            pipe = FillPipeline.from_pretrained(CKPT_DIR, lora_path=out_a, device="cuda")
+            img = run(pipe, *EXAMPLE_PATHS, steps=2, seed=0, sampler="euler")[0]
         rec.update(round_trip_seconds=time.perf_counter() - t0,
                    round_trip_load=pipe.load_stats,
-                   round_trip_launches=flash_attention_qk_norm_rope.launches,
+                   round_trip_launches=ran.fused,
                    round_trip_expected_launches=2 * blocks, image=_image_stats(img), card=smi)
         # the served DiT holds A's export: two unpermuted targets against the
         # base + scale * B @ A; B is small after 4 steps at Prodigy's first D,
@@ -2339,8 +2376,8 @@ def _run_eval_main(argv, recorder, expected_launches) -> dict:
     torch.cuda.synchronize()
     flash_attention_qk_norm_rope.launches = 0
     t0 = time.perf_counter()
-    run_eval_main(argv)
-    torch.cuda.synchronize()
+    with DeviceLaunches() as ran:
+        run_eval_main(argv)
     seconds = time.perf_counter() - t0
     out_dir = argv[argv.index("--output-dir") + 1]
     with open(os.path.join(out_dir, "failures.json")) as f:
@@ -2351,7 +2388,7 @@ def _run_eval_main(argv, recorder, expected_launches) -> dict:
                 s_per_item=(seconds - load_s) / max(report["done"], 1),
                 step_ms=step_ms, mean_step_ms=float(np.mean(step_ms)) if step_ms else None,
                 joint_seq_last=recorder.pipe.last_joint_seq if recorder.pipe else None,
-                launches=flash_attention_qk_norm_rope.launches,
+                launches=ran.fused, host_launches=flash_attention_qk_norm_rope.launches,
                 expected_launches=expected_launches,
                 serve_peak_bytes=torch.cuda.max_memory_allocated(),
                 report={k: report[k] for k in ("total", "done", "failed", "skipped_existing")},
@@ -2399,7 +2436,6 @@ def _eval_demo(pipe, per_step: int) -> dict:
     sampler), with the example's mask as the sketch; check_gradio raises
     the JAX package's message (gradio is not installed on the card)."""
     from textflux_torch.cli import demo as D
-    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
 
     original = _open_rgb(os.path.join(EXAMPLE, "ori", "ori_0001.png"))
     sketch = {"image": original, "mask": _open_rgb(os.path.join(EXAMPLE, "mask",
@@ -2410,13 +2446,12 @@ def _eval_demo(pipe, per_step: int) -> dict:
                             ("custom_beta_2_lines", D.demo_custom_beta, "OPEN\nCAFE 24H"),
                             ("custom", D.demo_custom, "OPEN")):
         events.clear()
-        flash_attention_qk_norm_rope.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cropped, full, cond = fn(pipe, original, sketch, words, steps=EVAL_STEPS, seed=0)
-        torch.cuda.synchronize()
+        with DeviceLaunches() as ran:
+            cropped, full, cond = fn(pipe, original, sketch, words, steps=EVAL_STEPS, seed=0)
         rec = dict(seconds=time.perf_counter() - t0, step_ms=[s.elapsed_time(e) for s, e in events],
-                   launches=flash_attention_qk_norm_rope.launches,
+                   launches=ran.fused,
                    expected_launches=per_step * EVAL_STEPS, joint_seq=pipe.last_joint_seq,
                    images={k: _image_stats(v) for k, v in
                            (("cropped", cropped), ("full", full), ("conditioning", cond))})
@@ -2443,7 +2478,6 @@ def _eval_t2i(vae, clip, t5, per_step: int, smi: str) -> dict:
     phase's VAE and text encoders: 512x512, euler, T2I_STEPS steps."""
     from textflux_torch.config import flux_fill_config
     from textflux_torch.models.transformer import FluxTransformer
-    from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
     from textflux_torch.pipeline.t2i import Text2ImagePipeline
 
     cfg = dataclasses.replace(flux_fill_config(), in_channels=64, out_channels=64)
@@ -2456,19 +2490,17 @@ def _eval_t2i(vae, clip, t5, per_step: int, smi: str) -> dict:
                               clip_tokenize=clip_byte_tokenize, t5_tokenize=t5_byte_tokenize)
     events = _timed_steps(pipe._fill)
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_qk_norm_rope.launches = 0
     t0 = time.perf_counter()
-    image = pipe(prompt="a shop sign that says 'OPEN'", height=T2I_SIZE, width=T2I_SIZE,
-                 num_inference_steps=T2I_STEPS, seed=0, sampler="euler")[0]
-    torch.cuda.synchronize()
+    with DeviceLaunches() as ran:
+        image = pipe(prompt="a shop sign that says 'OPEN'", height=T2I_SIZE, width=T2I_SIZE,
+                     num_inference_steps=T2I_STEPS, seed=0, sampler="euler")[0]
     step_ms = [s.elapsed_time(e) for s, e in events]
     rec = dict(card=smi, in_channels=cfg.in_channels, blocks=[cfg.num_double_layers,
                                                               cfg.num_single_layers],
                init_s=init_s, seconds=time.perf_counter() - t0, steps=T2I_STEPS,
                joint_seq=pipe._fill.last_joint_seq, step_ms=step_ms,
                mean_step_ms=float(np.mean(step_ms)), attn_impl=pipe._fill.attn_impl,
-               launches=flash_attention_qk_norm_rope.launches,
-               expected_launches=per_step * T2I_STEPS,
+               launches=ran.fused, expected_launches=per_step * T2I_STEPS,
                peak_bytes=torch.cuda.max_memory_allocated(), image=_image_stats(image))
     del pipe, flux
     return rec

@@ -93,6 +93,18 @@ def test_overshoot_draws_from_generator(rng):
         TS.overshoot_step(x, x, 0.8, 0.6)
 
 
+@pytest.mark.parametrize("value", [np.float64(0.8263158798217773), 0.3, 1, np.float32(0.7),
+                                   torch.tensor(1 / 3, dtype=torch.float64)],
+                         ids=["np64", "float", "int", "np32", "tensor"])
+def test_sampler_scalars_are_the_host_values_in_float32(value):
+    """A step's sigmas are filled in on the device rather than copied from
+    the host (a copy would wait for the step's queued work): the same
+    float32 0-d tensor as the host's conversion."""
+    out = TS._f32(value, torch.device("cpu"))
+    ref = torch.as_tensor(value, dtype=torch.float32)
+    assert out.dtype == torch.float32 and out.shape == () and torch.equal(out, ref)
+
+
 def test_layers_match(rng):
     x = rng.standard_normal((2, 5, 16)).astype(np.float32) * 3
     scale = rng.standard_normal(16).astype(np.float32)

@@ -44,6 +44,7 @@ checkpoint streams in (``QuantLinear.load_rows``).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -92,8 +93,14 @@ QUANT_CHUNK = 1 << 24
 INT_MM_MIN_ROWS = 17
 
 
-def _codebook(device) -> torch.Tensor:
-    return torch.tensor(NF4_CODEBOOK, dtype=torch.float32, device=device)
+@functools.lru_cache(maxsize=None)
+def _codebook(device: torch.device) -> torch.Tensor:
+    """NF4_CODEBOOK on `device`, made once per device: a copy from the host
+    on every matmul would wait for the stream, and a CUDA graph of the
+    forward could not hold it. An ordinary tensor even under inference
+    mode, so that training may read it too; never written."""
+    with torch.inference_mode(False):
+        return torch.tensor(NF4_CODEBOOK, dtype=torch.float32, device=device)
 
 
 def check_mode(mode: str, *, mixed: bool = True) -> str:

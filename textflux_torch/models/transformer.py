@@ -53,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from textflux_torch.config import FluxConfig
 from textflux_torch.device import resolve_device
 from textflux_torch.io.quantize import OUT_AXIS_KEYS, QuantLinear
+from textflux_torch.models.graphs import ForwardGraphs
 from textflux_torch.models.layers import (
     MLP,
     dense,
@@ -162,6 +163,7 @@ class FluxTransformer(nn.Module):
         self.rope_layout = "interleaved"
         self.tp_layout = 1
         self.tp_rank = None
+        self.graphs = ForwardGraphs()   # the serving forward's CUDA graphs (see forward)
         self.img_in = make_linear(cfg.in_channels, d, **kw)
         self.txt_in = make_linear(cfg.joint_dim, d, **kw)
         self.time_in = MLP(cfg.time_embed_channels, d, d, **kw)
@@ -183,7 +185,27 @@ class FluxTransformer(nn.Module):
         through its own module call, so a wrapper hooking the calls (FSDP's
         gathers) sees every use of every weight. With `remat`, each block
         call is checkpointed (non-reentrant): its recompute in the backward
-        calls the block again."""
+        calls the block again.
+
+        A serving call (CUDA tensors, gradients off, `mods` given, no mesh,
+        no `remat`) runs from a CUDA graph of this module's (``self.graphs``,
+        ``models.graphs.ForwardGraphs``), one per input shape; every other
+        call runs eagerly."""
+        if _graphed(img_tokens, remat=remat, mods=mods, mesh=mesh):
+            flat = [img_tokens, txt_tokens, rope_cos, rope_sin, *_flat_mods(mods)]
+            key = (tuple(img_tokens.shape), tuple(txt_tokens.shape), rope_cos.shape[0],
+                   kv_len, attn_impl, img_tokens.dtype, txt_tokens.dtype, rope_cos.dtype,
+                   mods["final"].dtype, img_tokens.device)
+            n_double = len(self.double_blocks)
+            return self.graphs.run(key, self.graphs.signature(self), lambda x: self._forward(
+                x[0], x[1], None, None, None, x[2], x[3], attn_impl=attn_impl, remat=False,
+                kv_len=kv_len, mods=_unflat_mods(x[4:], n_double), mesh=None), flat)
+        return self._forward(img_tokens, txt_tokens, pooled, timestep, guidance, rope_cos,
+                             rope_sin, attn_impl=attn_impl, remat=remat, kv_len=kv_len,
+                             mods=mods, mesh=mesh)
+
+    def _forward(self, img_tokens, txt_tokens, pooled, timestep, guidance, rope_cos, rope_sin,
+                 *, attn_impl: str, remat: bool, kv_len: Optional[int], mods, mesh):
         cfg = self.cfg
         n_txt = txt_tokens.shape[1]
         dtype = img_tokens.dtype
@@ -221,6 +243,26 @@ class FluxTransformer(nn.Module):
         # batch's rows are bitwise the single-sample call's
         return torch.cat([dense(self.final_proj, x[i:i + 1]) for i in range(x.shape[0])])
 
+
+def _graphed(x: torch.Tensor, *, remat: bool, mods, mesh) -> bool:
+    """Whether a forward on image tokens `x` may run from a CUDA graph: a
+    serving call (CUDA, gradients off, per-step modulation vectors given)
+    that runs no collective or storage gather (no mesh) and no checkpoint."""
+    return (mods is not None and mesh is None and not remat and not torch.is_grad_enabled()
+            and x.is_cuda)
+
+
+def _flat_mods(mods) -> list:
+    """``flux_mods``' per-step structure as one list: each double block's
+    (img, txt), each single block's vector, the final one."""
+    return [t for pair in mods["double"] for t in pair] + list(mods["single"]) + [mods["final"]]
+
+
+def _unflat_mods(flat, n_double: int) -> dict:
+    """``_flat_mods`` undone, for a model of `n_double` double blocks."""
+    pairs = flat[:2 * n_double]
+    return {"double": list(zip(pairs[0::2], pairs[1::2])), "single": list(flat[2 * n_double:-1]),
+            "final": flat[-1]}
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,10 @@ def make_schedule(
 
 
 def _f32(x, device) -> torch.Tensor:
+    if isinstance(x, (int, float, np.number)):
+        # filled in on the device: a copy from the host would wait for
+        # everything queued on the stream (the step's DiT forward) first
+        return torch.full((), float(x), dtype=torch.float32, device=device)
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
