@@ -294,11 +294,19 @@ def phase_build() -> dict:
 # ---------------------------------------------------------------------------
 
 def _attention_case(name, b, t_txt, lat_hw, h, d, axes, *, kv_len=None,
-                    per_row=True, strided=False, gen):
+                    per_row=True, strided=False, txt_last=False, gen):
+    """q, k, v, tables and norm scales of one case over [txt | img] (FLUX's
+    ids), or with `txt_last` over [img | txt] (Qwen-Image's centred ids, the
+    text padded to `t_txt`). `kv_len`: an int, or a list of each sample's
+    key length, handed to the kernel as an int32 device tensor."""
+    from textflux_torch.models import qwen_image
     from textflux_torch.ops import packing
     from textflux_torch.ops.rope import rope_tables_half
 
-    ids = np.concatenate([packing.text_ids(t_txt), packing.latent_image_ids(*lat_hw)], 0)
+    if txt_last:
+        ids = qwen_image.rope_ids(*lat_hw, t_txt)
+    else:
+        ids = np.concatenate([packing.text_ids(t_txt), packing.latent_image_ids(*lat_hw)], 0)
     s = len(ids)
     dev = "cuda"
     cos, sin = (torch.as_tensor(t, device=dev) for t in rope_tables_half(ids, axes))
@@ -315,20 +323,27 @@ def _attention_case(name, b, t_txt, lat_hw, h, d, axes, *, kv_len=None,
     else:
         q, k, v = (randn(b, s, h, d) for _ in range(3))
     if per_row:  # double-block tables: txt rows and img rows carry different norms
-        qs = torch.cat([(1 + 0.1 * randn(d, dtype=torch.float32)).expand(t_txt, d),
-                        (1 + 0.1 * randn(d, dtype=torch.float32)).expand(s - t_txt, d)])
-        ks = torch.cat([(1 + 0.1 * randn(d, dtype=torch.float32)).expand(t_txt, d),
-                        (1 + 0.1 * randn(d, dtype=torch.float32)).expand(s - t_txt, d)])
+        rows = (s - t_txt, t_txt) if txt_last else (t_txt, s - t_txt)
+        qs = torch.cat([(1 + 0.1 * randn(d, dtype=torch.float32)).expand(n, d) for n in rows])
+        ks = torch.cat([(1 + 0.1 * randn(d, dtype=torch.float32)).expand(n, d) for n in rows])
     else:
         qs = 1 + 0.1 * randn(d, dtype=torch.float32)
         ks = 1 + 0.1 * randn(d, dtype=torch.float32)
+    if isinstance(kv_len, list):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     return dict(name=name, q=q, k=k, v=v, cos=cos, sin=sin, qs=qs, ks=ks,
                 kv_len=s if kv_len is None else kv_len)
 
 
+def _kv_lens(c) -> list:
+    """Each sample's key length of a case."""
+    n, b = c["kv_len"], c["q"].shape[0]
+    return n.tolist() if isinstance(n, torch.Tensor) else [n] * b
+
+
 def _bound_ms(c) -> tuple:
     b, s, h, d = c["q"].shape
-    flops = 4 * b * h * s * c["kv_len"] * d
+    flops = 4 * h * s * sum(_kv_lens(c)) * d
     nbytes = 4 * b * s * h * d * 2 + 4 * s * d * 4  # q, k, v read, o written; 4 fp32 tables
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -360,22 +375,38 @@ def phase_kernels() -> list:
         _attention_case("serving_tp2_single_block", 1, 512, (56, 64), 12, 128, full_axes,
                         per_row=False, strided=True, gen=gen),
         _attention_case("serving_tp4", 1, 512, (56, 64), 6, 128, full_axes, gen=gen),
+        # Qwen-Image's 1:1 canvas at 1024 px: [img | txt], the text padded to
+        # its bucket of 512 and masked by key lengths read on the device,
+        # one sample and two of different lengths
+        _attention_case("qwen_kv_lens", 1, 512, (74, 64), 24, 128, full_axes,
+                        kv_len=[4736 + 391], txt_last=True, gen=gen),
+        _attention_case("qwen_kv_lens_b2", 2, 512, (74, 64), 24, 128, full_axes,
+                        kv_len=[4736 + 391, 4736 + 23], txt_last=True, gen=gen),
     ]
     rows = []
     failed = []
     for c in cases:
         raw = (c["q"], c["k"], c["v"], c["cos"], c["sin"], c["qs"], c["ks"])
+        launched = FA.flash_attention_qk_norm_rope.launches
         out = FA.flash_attention_qk_norm_rope(*raw, kv_len=c["kv_len"])
         torch.cuda.synchronize()
-        ref = FA.flash_attention_qk_norm_rope_reference(*raw, kv_len=c["kv_len"])
+        launches = FA.flash_attention_qk_norm_rope.launches - launched
+        lens = _kv_lens(c)
+        # per sample (an int key length each), as the kernel reads them
+        ref = torch.cat([FA.flash_attention_qk_norm_rope_reference(
+            *(x[i:i + 1] for x in raw[:3]), *raw[3:], kv_len=n) for i, n in enumerate(lens)])
         # times below are of the kernel alone, on tables folded once outside
         tables = FA.fold_tables(c["cos"], c["sin"], c["qs"], c["ks"])
         args = (c["q"], c["k"], c["v"], *tables)
-        n = c["kv_len"]
+        if isinstance(c["kv_len"], torch.Tensor):
+            kernel_kw = dict(kv_len=c["q"].shape[1], kv_lens=c["kv_len"])
+        else:
+            kernel_kw = dict(kv_len=c["kv_len"])
         # rows >= kv_len are padding whose outputs a caller drops; compare the real rows
-        err = (out[:, :n].float() - ref[:, :n].float()).abs().max().item()
-        finite = bool(torch.isfinite(out[:, :n].float()).all())
-        kernel_ms = cuda_ms(lambda: FA.launch_folded(*args, kv_len=c["kv_len"]))
+        err = max((out[i, :n].float() - ref[i, :n].float()).abs().max().item()
+                  for i, n in enumerate(lens))
+        finite = all(bool(torch.isfinite(out[i, :n].float()).all()) for i, n in enumerate(lens))
+        kernel_ms = cuda_ms(lambda: FA.launch_folded(*args, **kernel_kw))
         # the first of its two launches alone, against its plain version
         prep_args = (c["q"], c["k"], *tables)
         qn_k, kn_k = FA.norm_rope_prep(*prep_args)
@@ -384,7 +415,7 @@ def phase_kernels() -> list:
                        (kn_k.float() - kn_ref.transpose(1, 2).float()).abs().max().item())
         del qn_k, kn_k, qn_ref, kn_ref
         prep_ms = cuda_ms(lambda: FA.norm_rope_prep(*prep_args))
-        plain_ms = cuda_ms(lambda: FA._reference_folded(*args, kv_len=c["kv_len"], eps=1e-6),
+        plain_ms = cuda_ms(lambda: FA._reference_folded(*args, kv_len=max(lens), eps=1e-6),
                            iters=5)
         # library yardstick: SDPA on q/k normed and roped outside the timing
         d = c["q"].shape[-1]
@@ -394,17 +425,19 @@ def phase_kernels() -> list:
                            ).to(torch.bfloat16)
         vh = c["v"].transpose(1, 2)
         mask = None
-        if n < c["q"].shape[1]:
-            mask = (torch.arange(c["q"].shape[1], device="cuda") < n)[None, None, None, :]
+        if min(lens) < c["q"].shape[1]:
+            mask = (torch.arange(c["q"].shape[1], device="cuda")[None]
+                    < torch.tensor(lens, device="cuda")[:, None])[:, None, None, :]
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qn, kn, vh, attn_mask=mask))
         bound_ms, bound_by = _bound_ms(c)
         # the prep is inside kernel_ms; SDPA is beside the attention alone
-        row = dict(case=c["name"], shape=list(c["q"].shape), kv_len=n, max_err=err,
-                   tol=BF16_TOL, finite=finite, prep_err=prep_err, kernel_ms=kernel_ms,
+        row = dict(case=c["name"], shape=list(c["q"].shape), kv_len=lens, max_err=err,
+                   tol=BF16_TOL, finite=finite, launches=launches, prep_err=prep_err,
+                   kernel_ms=kernel_ms,
                    prep_ms=prep_ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
         log("kernel case " + json.dumps(row))
-        if not (finite and err <= BF16_TOL and prep_err <= BF16_TOL):
+        if not (finite and err <= BF16_TOL and prep_err <= BF16_TOL and launches == 1):
             failed.append(c["name"])
         rows.append(row)
         del qn, kn, c

@@ -29,7 +29,9 @@ for name in ("textflux_torch.io.params", "textflux_torch.io.lora", "textflux_tor
              "textflux_torch.pipeline.t2i", "textflux_torch.evaluation.metrics",
              "textflux_torch.evaluation.crop", "textflux_torch.evaluation.fid",
              "textflux_torch.evaluation.inception", "textflux_torch.evaluation.lpips",
-             "textflux_torch.evaluation.ppocr", "textflux_torch.parallel.partitioning"):
+             "textflux_torch.evaluation.ppocr", "textflux_torch.parallel.partitioning",
+             "textflux_torch.models.qwen_image", "textflux_torch.models.qwen_text",
+             "textflux_torch.models.vae_wan", "textflux_torch.pipeline.qwen_image"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "safetensors", "transformers")

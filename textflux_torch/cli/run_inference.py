@@ -6,13 +6,16 @@ The port of ``textflux_tpu/cli/run_inference.py``:
       --model /path/to/FLUX.1-Fill-dev \
       --transformer /path/to/textflux-beta/transformer \
       --image ori.png --mask mask.png --words words.txt \
-      [--lora path] [--steps 30] [--guidance-scale 30] [--seed 42]
+      [--lora path] [--steps 30] [--guidance-scale 30 | 4] [--seed 42]
       [--scheduler default|overshoot] [--staged-text] [--output-dir outputs]
       [--quantize] [--quantize-mode weight_only|w8a8|nf4|mixed] [--no-quantize-t5]
       [--device cuda|cpu]
 
 Loads a diffusers-layout checkpoint onto the device (a LoRA folded in at
-load), auto-detects single-line (glyph strip stacked above) vs multi-line
+load): FLUX.1-Fill into ``FillPipeline``, or, when the transformer's
+config.json names ``QwenImageTransformer2DModel``, Qwen-Image into
+``pipeline.qwen_image.QwenImagePipeline`` (bf16, true CFG against " ",
+inpainting by latent blending). Auto-detects single-line (glyph strip stacked above) vs multi-line
 (per-region rotated glyphs) conditioning from the word file, mirrors the
 reference's //32 snap and saves the same artifact set (full result, crop,
 mask, ori, rendered, txt). Runs on CUDA unless ``--device cpu`` is asked.
@@ -64,8 +67,11 @@ def render_conditioning(original: Image.Image, mask: Image.Image, words, font=No
 
 def run(pipe, image_path, mask_path, words_path, *, steps=30, guidance_scale=30.0,
         seed=42, sampler="euler", overshoot_c=None, font_path=None, device="cuda"):
-    """Fill one image. `device` names where the caller expects `pipe` to run;
-    it must match the pipeline's own device (CUDA unless asked otherwise)."""
+    """Fill one image with `pipe` (a ``FillPipeline`` or a
+    ``QwenImagePipeline``; `guidance_scale` is the latter's true-CFG scale,
+    None for the pipeline's default). `device` names where the caller
+    expects `pipe` to run; it must match the pipeline's own device (CUDA
+    unless asked otherwise)."""
     dev = resolve_device(device)
     if pipe.device.type != dev.type:
         raise ValueError(f"the pipeline runs on {pipe.device}, but device={device!r} was asked")
@@ -86,7 +92,7 @@ def run(pipe, image_path, mask_path, words_path, *, steps=30, guidance_scale=30.
 
         prompt, prompt_2 = build_prompts(words)
         text_embeds = None
-        if pipe.flux is None and hasattr(pipe, "_deferred_flux"):
+        if getattr(pipe, "flux", None) is None and hasattr(pipe, "_deferred_flux"):
             # staged residency: encode now, free the encoders, then load the
             # DiT, so the T5 encoder and the DiT never share the device
             text_embeds = pipe.encode_prompts(prompt, prompt_2)
@@ -133,7 +139,9 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--max-sequence-length", type=int, default=512,
                    help="T5 token length")
-    p.add_argument("--guidance-scale", type=float, default=30.0)
+    p.add_argument("--guidance-scale", type=float, default=None,
+                   help="FLUX's guidance (default 30), or Qwen-Image's true-CFG scale "
+                        "(default 4)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--scheduler", choices=["default", "overshoot"], default="default")
     p.add_argument("--overshoot-c", type=float, default=None,
@@ -164,18 +172,31 @@ def main(argv=None):
             p.error(f"file not found: {path_arg}")
 
     from textflux_torch.config import PipelineConfig
+    from textflux_torch.io.config_io import transformer_class
     from textflux_torch.pipeline.fill import FillPipeline
 
-    pipe = FillPipeline.from_pretrained(
-        args.model, transformer_path=args.transformer, lora_path=args.lora,
-        # an explicit --quantize-mode implies --quantize: serving unquantised
-        # because only the mode was passed would be a trap
-        quantize=((args.quantize_mode or "weight_only")
-                  if (args.quantize or args.quantize_mode) else False),
-        quantize_t5=False if args.no_quantize_t5 else None,
-        defer_transformer=args.staged_text,
-        pipe_cfg=PipelineConfig(max_sequence_length=args.max_sequence_length),
-        device=args.device)
+    t_path = args.transformer or os.path.join(args.model, "transformer")
+    if transformer_class(t_path) == "QwenImageTransformer2DModel":
+        from textflux_torch.pipeline.qwen_image import QwenImagePipeline
+
+        if args.lora or args.quantize or args.quantize_mode or args.staged_text:
+            p.error("a Qwen-Image checkpoint is served in bf16 alone: no --lora, --quantize, "
+                    "--quantize-mode or --staged-text")
+        if args.scheduler != "default":
+            p.error("a Qwen-Image checkpoint samples with Euler only")
+        pipe = QwenImagePipeline.from_pretrained(args.model, transformer_path=args.transformer,
+                                                 device=args.device)
+    else:
+        pipe = FillPipeline.from_pretrained(
+            args.model, transformer_path=args.transformer, lora_path=args.lora,
+            # an explicit --quantize-mode implies --quantize: serving unquantised
+            # because only the mode was passed would be a trap
+            quantize=((args.quantize_mode or "weight_only")
+                      if (args.quantize or args.quantize_mode) else False),
+            quantize_t5=False if args.no_quantize_t5 else None,
+            defer_transformer=args.staged_text,
+            pipe_cfg=PipelineConfig(max_sequence_length=args.max_sequence_length),
+            device=args.device)
     sampler = "overshoot" if args.scheduler == "overshoot" else "euler"
     result, cropped, rendered, original, mask = run(
         pipe, args.image, args.mask, args.words,

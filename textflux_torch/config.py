@@ -87,6 +87,96 @@ class T5Config:
 
 
 @dataclasses.dataclass(frozen=True)
+class QwenImageConfig:
+    """Qwen-Image's MM-DiT (``QwenImageTransformer2DModel``): FLUX's
+    double-stream block 60 times and no single-stream block, an RMSNorm on
+    the text before its projection, and the timestep alone as the
+    modulation's condition (no guidance embedding, no pooled vector).
+    ``in_channels`` and ``out_channels`` are the packed 2x2 patches of the
+    16 latent channels (the config's ``patch_size`` x ``out_channels``)."""
+
+    in_channels: int = 64
+    out_channels: int = 64
+    num_double_layers: int = 60
+    num_heads: int = 24
+    head_dim: int = 128
+    joint_dim: int = 3584           # the Qwen2.5-VL text width
+    axes_dims_rope: Tuple[int, ...] = (16, 56, 56)
+    rope_theta: int = 10000
+    mlp_ratio: float = 4.0
+    time_embed_channels: int = 256
+
+    @property
+    def hidden_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def mlp_dim(self) -> int:
+        return int(self.hidden_dim * self.mlp_ratio)
+
+
+@dataclasses.dataclass(frozen=True)
+class QwenTextConfig:
+    """The language model of Qwen2.5-VL-7B-Instruct used as a text encoder:
+    pre-RMSNorm decoder layers with causal grouped-query attention (q/k/v
+    bias, no o bias), rotate-half RoPE and a SwiGLU MLP."""
+
+    vocab_size: int = 152064
+    hidden_dim: int = 3584
+    num_layers: int = 28
+    num_heads: int = 28
+    num_kv_heads: int = 4
+    mlp_dim: int = 18944
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1000000.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_dim // self.num_heads
+
+
+# Qwen-Image's published per-channel latent statistics (vae/config.json)
+WAN_LATENTS_MEAN = (-0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
+                    0.4134, -0.0715, 0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921)
+WAN_LATENTS_STD = (2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
+                   3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.9160)
+
+
+@dataclasses.dataclass(frozen=True)
+class WanVAEConfig:
+    """The Wan-2.1 VAE (``AutoencoderKLQwenImage``) on single images: 8x
+    spatial, 16 latent channels normalised per channel."""
+
+    base_dim: int = 96
+    z_dim: int = 16
+    dim_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    latents_mean: Tuple[float, ...] = WAN_LATENTS_MEAN
+    latents_std: Tuple[float, ...] = WAN_LATENTS_STD
+
+    @property
+    def spatial_factor(self) -> int:
+        return 2 ** (len(self.dim_mult) - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class QwenPipelineConfig:
+    """Qwen-Image's scheduler (scheduler/scheduler_config.json: exponential
+    dynamic shift between (256, 0.5) and (8192, 0.9), stretched to a last
+    sigma of 0.02) and its pipeline defaults: true classifier-free guidance
+    at 4.0 against the negative prompt " "."""
+
+    num_inference_steps: int = 30
+    true_cfg_scale: float = 4.0
+    negative_prompt: str = " "
+    base_image_seq_len: int = 256
+    max_image_seq_len: int = 8192
+    base_shift: float = 0.5
+    max_shift: float = 0.9
+    shift_terminal: float = 0.02
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """End-to-end fill pipeline configuration (the reference's defaults)."""
 

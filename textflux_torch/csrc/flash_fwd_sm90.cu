@@ -15,7 +15,8 @@
 //                                      out, L alone
 //
 // What it computes, per (batch, head), with keys at index >= kv_len masked
-// out (-1e30) and s = score_mul * q k^T in log2 units (score_mul =
+// out (-1e30; kv_len is the sample's entry of kv_lens when that device array
+// is given, so that a CUDA graph replays with lengths it was not captured with) and s = score_mul * q k^T in log2 units (score_mul =
 // log2(e)/sqrt(D) for the flash forward; 1 for the fused path, whose prep
 // already folded log2(e)/sqrt(D) into q'):
 //   O = softmax(s) v by an exp2 online softmax with the running max
@@ -120,7 +121,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
                       float* __restrict__ lse, int seq, int heads, int kv_len,
-                      float score_mul) {
+                      const int* __restrict__ kv_lens, float score_mul) {
   constexpr int TILE = kTileBytes<D>;
   extern __shared__ unsigned char smem_raw[];
   // [Q: 2 tiles | K x kStages | V x kStages | barriers]
@@ -137,6 +138,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = blockIdx.x * kBlockRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  if (kv_lens != nullptr) kv_len = kv_lens[b];  // each sample's own, read on the device
   const int n_tiles = (kv_len + kRows - 1) / kRows;  // tiles past kv_len add exactly 0
 
   if (threadIdx.x == 0) {
@@ -340,14 +342,14 @@ constexpr int fwd_smem_bytes() {
 template <int D, bool kLseOnly>
 cudaError_t launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                        void* out, float* lse, int batch, int seq, int heads, int kv_len,
-                       float score_mul, cudaStream_t st) {
+                       const int* kv_lens, float score_mul, cudaStream_t st) {
   const int smem = fwd_smem_bytes<D>();
   static SmemLimitOnce limit;
   const cudaError_t err = limit.set(flash_fwd_sm90_kernel<D, kLseOnly>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
   flash_fwd_sm90_kernel<D, kLseOnly><<<grid, kThreads, smem, st>>>(
-      tq, tk, tv, static_cast<bf16*>(out), lse, seq, heads, kv_len, score_mul);
+      tq, tk, tv, static_cast<bf16*>(out), lse, seq, heads, kv_len, kv_lens, score_mul);
   return cudaGetLastError();
 }
 
@@ -358,7 +360,8 @@ namespace sm90 {
 
 cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                       int batch, int seq, int heads, int head_dim, int kv_len,
-                      const long long* sd, float score_mul, cudaStream_t st) {
+                      const int* kv_lens, const long long* sd, float score_mul,
+                      cudaStream_t st) {
   if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
   const void* ptrs[3] = {q, k, v};
   CUtensorMap maps[3];
@@ -368,9 +371,9 @@ cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, fl
     if (err != cudaSuccess) return err;
   }
   return head_dim == 64 ? launch_fwd<64, false>(maps[0], maps[1], maps[2], out, lse, batch, seq,
-                                                heads, kv_len, score_mul, st)
+                                                heads, kv_len, kv_lens, score_mul, st)
                         : launch_fwd<128, false>(maps[0], maps[1], maps[2], out, lse, batch,
-                                                 seq, heads, kv_len, score_mul, st);
+                                                 seq, heads, kv_len, kv_lens, score_mul, st);
 }
 
 }  // namespace sm90
@@ -388,7 +391,7 @@ extern "C" int textflux_flash_fwd(const void* q, const void* k, const void* v, v
                                   float scale_log2, void* stream) {
   const long long sd[6] = {q_sb, q_ss, k_sb, k_ss, v_sb, v_ss};
   return static_cast<int>(textflux::sm90::flash_fwd(
-      q, k, v, out, static_cast<float*>(lse), batch, seq, heads, head_dim, kv_len, sd,
+      q, k, v, out, static_cast<float*>(lse), batch, seq, heads, head_dim, kv_len, nullptr, sd,
       scale_log2, static_cast<cudaStream_t>(stream)));
 }
 
@@ -414,7 +417,7 @@ extern "C" int textflux_flash_lse(const void* q, const void* k, void* lse, int b
   return static_cast<int>(
       head_dim == 64
           ? launch_fwd<64, true>(maps[0], maps[1], maps[1], nullptr, l, batch, seq, heads,
-                                 kv_len, scale_log2, st)
+                                 kv_len, nullptr, scale_log2, st)
           : launch_fwd<128, true>(maps[0], maps[1], maps[1], nullptr, l, batch, seq, heads,
-                                  kv_len, scale_log2, st));
+                                  kv_len, nullptr, scale_log2, st));
 }

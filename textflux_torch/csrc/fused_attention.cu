@@ -160,13 +160,15 @@ extern "C" int textflux_norm_rope_prep(const void* q, const void* k, const void*
 // As textflux_norm_rope_prep, then the attention over q', k' and v: v is bf16
 // (B, S, H, D) with unit feature stride, head stride D and batch / sequence
 // strides that are multiples of 8 elements, 16-byte aligned (TMA reads it).
-// out: bf16 (B, S, H, D), contiguous. 1 <= kv_len <= seq. Returns a
-// cudaError_t.
+// out: bf16 (B, S, H, D), contiguous. 1 <= kv_len <= seq. kv_lens: null, or
+// a device array of B int32 key lengths that the attention reads in kv_len's
+// place. Returns a cudaError_t.
 extern "C" int textflux_fused_norm_rope_attention(
     const void* q, const void* k, const void* v, const void* cos_q, const void* sin_q,
     const void* cos_k, const void* sin_k, void* qn, void* kn, void* out, int batch, int seq,
     int heads, int head_dim, int kv_len, long long q_sb, long long q_ss, long long k_sb,
-    long long k_ss, long long v_sb, long long v_ss, float eps, float q_mul, void* stream) {
+    long long k_ss, long long v_sb, long long v_ss, float eps, float q_mul,
+    const void* kv_lens, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = prep(q, k, cos_q, sin_q, cos_k, sin_k, qn, kn, batch, seq, heads, head_dim,
                          q_sb, q_ss, k_sb, k_ss, eps, q_mul, st);
@@ -174,6 +176,6 @@ extern "C" int textflux_fused_norm_rope_attention(
   const long long row = static_cast<long long>(heads) * head_dim;  // q'/k' sequence stride
   const long long sd[6] = {seq * row, row, seq * row, row, v_sb, v_ss};
   err = textflux::sm90::flash_fwd(qn, kn, v, out, nullptr, batch, seq, heads, head_dim, kv_len,
-                                  sd, 1.f, st);
+                                  static_cast<const int*>(kv_lens), sd, 1.f, st);
   return static_cast<int>(err);
 }

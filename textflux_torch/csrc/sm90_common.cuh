@@ -438,10 +438,13 @@ class SmemLimitOnce {
 // feature stride and head stride D; sd = their (batch, sequence) strides in
 // elements, in the order q, k, v (multiples of 8: TMA wants 16-byte
 // strides). out: contiguous bf16 (B, S, H, D). head_dim is 64 or 128;
-// 1 <= kv_len <= seq. Returns the launch's error (cudaSuccess when it ran).
+// 1 <= kv_len <= seq. kv_lens: null, or a device array of B int32 key
+// lengths (each in [1, seq]) read by the kernel in kv_len's place. Returns
+// the launch's error (cudaSuccess when it ran).
 cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                       int batch, int seq, int heads, int head_dim, int kv_len,
-                      const long long* sd, float score_mul, cudaStream_t st);
+                      const int* kv_lens, const long long* sd, float score_mul,
+                      cudaStream_t st);
 
 }  // namespace sm90
 }  // namespace textflux

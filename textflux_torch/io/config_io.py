@@ -8,7 +8,8 @@ import json
 import os
 from typing import Optional
 
-from textflux_torch.config import CLIPTextConfig, FluxConfig, T5Config, VAEConfig
+from textflux_torch.config import (CLIPTextConfig, FluxConfig, QwenImageConfig, QwenTextConfig,
+                                   T5Config, VAEConfig, WanVAEConfig)
 
 
 def _load(path: str) -> Optional[dict]:
@@ -82,4 +83,68 @@ def t5_config_from(path: str) -> T5Config:
         num_heads=c.get("num_heads", 64),
         relative_attention_num_buckets=c.get("relative_attention_num_buckets", 32),
         relative_attention_max_distance=c.get("relative_attention_max_distance", 128),
+    )
+
+
+def transformer_class(path: str) -> str:
+    """The ``_class_name`` of a transformer directory's config.json
+    (FLUX's when it has none): which pipeline a checkpoint is for."""
+    c = _load(path)
+    return (c or {}).get("_class_name", "FluxTransformer2DModel")
+
+
+def qwen_image_config_from(path: str) -> QwenImageConfig:
+    """diffusers ``QwenImageTransformer2DModel`` config.json: the packed
+    channels are ``out_channels`` x ``patch_size``^2."""
+    c = _load(path)
+    if c is None:
+        return QwenImageConfig()
+    if c.get("guidance_embeds"):
+        raise ValueError("a Qwen-Image transformer with guidance embeddings is not supported")
+    patch = c.get("patch_size", 2)
+    return QwenImageConfig(
+        in_channels=c.get("in_channels", 64),
+        out_channels=c.get("out_channels", 16) * patch * patch,
+        num_double_layers=c.get("num_layers", 60),
+        num_heads=c.get("num_attention_heads", 24),
+        head_dim=c.get("attention_head_dim", 128),
+        joint_dim=c.get("joint_attention_dim", 3584),
+        axes_dims_rope=tuple(c.get("axes_dims_rope", (16, 56, 56))),
+    )
+
+
+def qwen_text_config_from(path: str) -> QwenTextConfig:
+    """transformers ``Qwen2_5_VLForConditionalGeneration`` config.json: its
+    language model's keys (under ``text_config`` where the file nests them)."""
+    c = _load(path)
+    if c is None:
+        return QwenTextConfig()
+    c = dict(c, **c.get("text_config", {}))
+    return QwenTextConfig(
+        vocab_size=c.get("vocab_size", 152064),
+        hidden_dim=c.get("hidden_size", 3584),
+        num_layers=c.get("num_hidden_layers", 28),
+        num_heads=c.get("num_attention_heads", 28),
+        num_kv_heads=c.get("num_key_value_heads", 4),
+        mlp_dim=c.get("intermediate_size", 18944),
+        rms_norm_eps=c.get("rms_norm_eps", 1e-6),
+        rope_theta=c.get("rope_theta", 1000000.0),
+    )
+
+
+def wan_vae_config_from(path: str) -> WanVAEConfig:
+    """diffusers ``AutoencoderKLQwenImage`` config.json (the Wan-2.1 VAE)."""
+    c = _load(path)
+    if c is None:
+        return WanVAEConfig()
+    if c.get("attn_scales"):
+        raise ValueError("attention inside the VAE's levels (attn_scales) is not supported")
+    defaults = WanVAEConfig()
+    return WanVAEConfig(
+        base_dim=c.get("base_dim", 96),
+        z_dim=c.get("z_dim", 16),
+        dim_mult=tuple(c.get("dim_mult", (1, 2, 4, 4))),
+        num_res_blocks=c.get("num_res_blocks", 2),
+        latents_mean=tuple(c.get("latents_mean", defaults.latents_mean)),
+        latents_std=tuple(c.get("latents_std", defaults.latents_std)),
     )

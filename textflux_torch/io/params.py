@@ -38,7 +38,8 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple, Uni
 import torch
 from torch import nn
 
-from textflux_torch.config import CLIPTextConfig, FluxConfig, T5Config, VAEConfig
+from textflux_torch.config import (CLIPTextConfig, FluxConfig, QwenImageConfig, QwenTextConfig,
+                                   T5Config, VAEConfig, WanVAEConfig)
 from textflux_torch.device import resolve_device
 from textflux_torch.io.quantize import QuantLinear, quantize_plan, quantize_tree
 from textflux_torch.io.safetensors import DTYPES, SafetensorsFile, read_header
@@ -266,25 +267,140 @@ def t5_key_map(model) -> KeyMap:
     return out
 
 
+def qwen_image_key_map(model) -> KeyMap:
+    """diffusers QwenImageTransformer2DModel names -> QwenImageTransformer
+    parameters (the blocks fused as FLUX's; LayerNorms without parameters)."""
+    d = model.cfg.hidden_dim
+    out: KeyMap = {}
+    _lin(out, "img_in", model.img_in)
+    out["txt_norm.weight"] = (model.txt_norm, None)
+    _lin(out, "txt_in", model.txt_in)
+    _lin(out, "time_text_embed.timestep_embedder.linear_1", model.time_in.fc1)
+    _lin(out, "time_text_embed.timestep_embedder.linear_2", model.time_in.fc2)
+    _lin(out, "norm_out.linear", model.final_mod)
+    _lin(out, "proj_out", model.final_proj)
+    for i, blk in enumerate(model.double_blocks):
+        pre = f"transformer_blocks.{i}"
+        _lin(out, f"{pre}.img_mod.1", blk.img_mod)
+        _lin(out, f"{pre}.txt_mod.1", blk.txt_mod)
+        for proj, rows in _blocks(blk.img_qkv, (("to_q", d), ("to_k", d), ("to_v", d))):
+            _lin(out, f"{pre}.attn.{proj}", blk.img_qkv, rows)
+        for proj, rows in _blocks(blk.txt_qkv, (("add_q_proj", d), ("add_k_proj", d),
+                                                ("add_v_proj", d))):
+            _lin(out, f"{pre}.attn.{proj}", blk.txt_qkv, rows)
+        for norm, prm in (("norm_q", blk.img_q_scale), ("norm_k", blk.img_k_scale),
+                          ("norm_added_q", blk.txt_q_scale), ("norm_added_k", blk.txt_k_scale)):
+            out[f"{pre}.attn.{norm}.weight"] = (prm, None)
+        _lin(out, f"{pre}.attn.to_out.0", blk.img_proj)
+        _lin(out, f"{pre}.attn.to_add_out", blk.txt_proj)
+        _lin(out, f"{pre}.img_mlp.net.0.proj", blk.img_mlp.fc1)
+        _lin(out, f"{pre}.img_mlp.net.2", blk.img_mlp.fc2)
+        _lin(out, f"{pre}.txt_mlp.net.0.proj", blk.txt_mlp.fc1)
+        _lin(out, f"{pre}.txt_mlp.net.2", blk.txt_mlp.fc2)
+    return out
+
+
+def qwen_text_key_map(model) -> KeyMap:
+    """transformers Qwen2_5_VLForConditionalGeneration names (its language
+    model; the vision tower and lm_head are not held) -> QwenTextEncoder."""
+    out: KeyMap = {"model.embed_tokens.weight": (model.embed_tokens, None),
+                   "model.norm.weight": (model.final_norm, None)}
+    for i, layer in enumerate(model.layers):
+        pre = f"model.layers.{i}"
+        out[f"{pre}.input_layernorm.weight"] = (layer.attn_norm, None)
+        out[f"{pre}.post_attention_layernorm.weight"] = (layer.mlp_norm, None)
+        for name, lin in (("self_attn.q_proj", layer.q), ("self_attn.k_proj", layer.k),
+                          ("self_attn.v_proj", layer.v), ("self_attn.o_proj", layer.o),
+                          ("mlp.gate_proj", layer.gate), ("mlp.up_proj", layer.up),
+                          ("mlp.down_proj", layer.down)):
+            _lin(out, f"{pre}.{name}", lin)
+    return out
+
+
+def wan_vae_key_map(model) -> KeyMap:
+    """diffusers AutoencoderKLQwenImage (Wan-2.1 VAE) names -> WanVAE
+    parameters: the convolutions as stored, each RMS norm's (C, 1, 1[, 1])
+    gamma into its (C,) scale."""
+    out: KeyMap = {}
+
+    def norm(name, p, dims=3):
+        out[f"{name}.gamma"] = (p.scale.view(-1, *(1,) * dims), None)
+
+    def conv(name, c):
+        out[f"{name}.weight"] = (c.weight, None)
+        out[f"{name}.bias"] = (c.bias, None)
+
+    def res(pre, r):
+        norm(f"{pre}.norm1", r.norm1)
+        conv(f"{pre}.conv1", r.conv1)
+        norm(f"{pre}.norm2", r.norm2)
+        conv(f"{pre}.conv2", r.conv2)
+        if r.shortcut is not None:
+            conv(f"{pre}.conv_shortcut", r.shortcut)
+
+    def resample(pre, r):
+        conv(f"{pre}.resample.1", r.conv)
+        if r.time_conv is not None:
+            conv(f"{pre}.time_conv", r.time_conv)
+
+    def mid(pre, m):
+        res(f"{pre}.resnets.0", m.res1)
+        norm(f"{pre}.attentions.0.norm", m.attn.norm, dims=2)
+        conv(f"{pre}.attentions.0.to_qkv", m.attn.qkv)
+        conv(f"{pre}.attentions.0.proj", m.attn.proj)
+        res(f"{pre}.resnets.1", m.res2)
+
+    from textflux_torch.models.vae_wan import Resample
+
+    enc, dec = model.encoder, model.decoder
+    conv("encoder.conv_in", enc.conv_in)
+    for i, blk in enumerate(enc.down):
+        (resample if isinstance(blk, Resample) else res)(f"encoder.down_blocks.{i}", blk)
+    mid("encoder.mid_block", enc.mid)
+    norm("encoder.norm_out", enc.norm_out)
+    conv("encoder.conv_out", enc.conv_out)
+    conv("quant_conv", model.quant_conv)
+    conv("post_quant_conv", model.post_quant_conv)
+    conv("decoder.conv_in", dec.conv_in)
+    mid("decoder.mid_block", dec.mid)
+    for i, blk in enumerate(dec.up):
+        for j, r in enumerate(blk.resnets):
+            res(f"decoder.up_blocks.{i}.resnets.{j}", r)
+        if blk.up is not None:
+            resample(f"decoder.up_blocks.{i}.upsamplers.0", blk.up)
+    norm("decoder.norm_out", dec.norm_out)
+    conv("decoder.conv_out", dec.conv_out)
+    return out
+
+
 # checkpoint keys that name the same tensor as a mapped one (loaded only
 # when the mapped key is absent), and keys that hold no weight
 ALIASES = {"encoder.embed_tokens.weight": "shared.weight"}   # T5's tied embedding
 NOT_WEIGHTS = ("text_model.embeddings.position_ids",)       # a CLIP index buffer
+# what a Qwen2.5-VL checkpoint holds beside the language model: the vision
+# tower and the output head, which a text encoder never runs
+NOT_HELD_PREFIXES = ("visual.", "lm_head.")
 
 
 def _modules():
     """config type -> (module class, key map)."""
     from textflux_torch.models.clip import CLIPTextModel
+    from textflux_torch.models.qwen_image import QwenImageTransformer
+    from textflux_torch.models.qwen_text import QwenTextEncoder
     from textflux_torch.models.t5 import T5Encoder
     from textflux_torch.models.transformer import FluxTransformer
     from textflux_torch.models.vae import FluxVAE
+    from textflux_torch.models.vae_wan import WanVAE
 
     return {FluxConfig: (FluxTransformer, flux_key_map), VAEConfig: (FluxVAE, vae_key_map),
-            CLIPTextConfig: (CLIPTextModel, clip_key_map), T5Config: (T5Encoder, t5_key_map)}
+            CLIPTextConfig: (CLIPTextModel, clip_key_map), T5Config: (T5Encoder, t5_key_map),
+            QwenImageConfig: (QwenImageTransformer, qwen_image_key_map),
+            QwenTextConfig: (QwenTextEncoder, qwen_text_key_map),
+            WanVAEConfig: (WanVAE, wan_vae_key_map)}
 
 
 def key_map(model) -> KeyMap:
-    """The checkpoint key map of any of the port's four modules."""
+    """The checkpoint key map of any of the port's modules."""
     return _modules()[type(model.cfg)][1](model)
 
 
@@ -335,7 +451,8 @@ def _resolve_keys(keys: KeyMap, present: Iterable[str]) -> Dict[str, str]:
     for alias, canonical in ALIASES.items():
         if alias in present and canonical in keys and canonical not in present:
             use[alias] = canonical
-    skipped = {k for k in present if k in ALIASES or k in NOT_WEIGHTS}
+    skipped = {k for k in present
+               if k in ALIASES or k in NOT_WEIGHTS or k.startswith(NOT_HELD_PREFIXES)}
     unexpected = sorted(present - set(use) - skipped)
     missing = sorted(set(keys) - set(use.values()))
     if unexpected or missing:

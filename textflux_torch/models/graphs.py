@@ -55,7 +55,8 @@ from torch import nn
 from textflux_torch.utils.tracking import span
 
 # graphs a module keeps: the four canvases a client cycles through, and a
-# batched run's full and ragged batches of the bucket at hand, with room
+# batched run's full and ragged batches of the bucket at hand, with room;
+# Qwen-Image's four canvases with two text buckets each fill it
 GRAPH_KEYS = 8
 
 # parameters, buffers and submodules any module has registered (an attribute

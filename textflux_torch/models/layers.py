@@ -132,11 +132,16 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000,
+                       scale: float = 1.0) -> torch.Tensor:
     """Sinusoidal embedding, [cos | sin] order (flip_sin_to_cos=True, shift=0),
-    computed in float32 regardless of the activation dtype."""
+    computed in float32 regardless of the activation dtype; the angles are
+    multiplied by `scale` after the frequencies (diffusers' ``Timesteps``
+    ``scale``, which Qwen-Image sets to 1000)."""
     half = dim // 2
     freqs = torch.exp(-math.log(max_period)
                       * torch.arange(half, dtype=torch.float32, device=t.device) / half)
     args = t.float()[:, None] * freqs[None, :]
+    if scale != 1.0:
+        args = args * scale
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)

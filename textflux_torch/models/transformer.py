@@ -104,7 +104,7 @@ class DoubleBlock(nn.Module):
         self.txt_mlp = MLP(d, m, d, **kw)
 
     def forward(self, txt, img, sv, mods, rope_cos, rope_sin, attn_impl: str,
-                kv_len: Optional[int] = None, mesh=None):
+                kv_len: Optional[int] = None, mesh=None, img_first: bool = False):
         """(txt, img) after the block. `mods` is the block's (img, txt)
         modulation vectors, or None to compute them here from `sv` =
         silu(vec)."""
@@ -112,7 +112,7 @@ class DoubleBlock(nn.Module):
             if mods is None:
                 mods = (_whole(self.img_mod, sv, mesh), _whole(self.txt_mod, sv, mesh))
             return double_block(self, self.cfg, txt, img, mods, rope_cos, rope_sin, attn_impl,
-                                kv_len, mesh)
+                                kv_len, mesh, img_first=img_first)
 
 
 class SingleBlock(nn.Module):
@@ -192,14 +192,13 @@ class FluxTransformer(nn.Module):
         ``models.graphs.ForwardGraphs``), one per input shape; every other
         call runs eagerly."""
         if _graphed(img_tokens, remat=remat, mods=mods, mesh=mesh):
-            flat = [img_tokens, txt_tokens, rope_cos, rope_sin, *_flat_mods(mods)]
             key = (tuple(img_tokens.shape), tuple(txt_tokens.shape), rope_cos.shape[0],
                    kv_len, attn_impl, img_tokens.dtype, txt_tokens.dtype, rope_cos.dtype,
                    mods["final"].dtype, img_tokens.device)
-            n_double = len(self.double_blocks)
-            return self.graphs.run(key, self.graphs.signature(self), lambda x: self._forward(
-                x[0], x[1], None, None, None, x[2], x[3], attn_impl=attn_impl, remat=False,
-                kv_len=kv_len, mods=_unflat_mods(x[4:], n_double), mesh=None), flat)
+            return graph_call(self, key, [img_tokens, txt_tokens, rope_cos, rope_sin], mods,
+                              lambda x, m: self._forward(
+                                  x[0], x[1], None, None, None, x[2], x[3], attn_impl=attn_impl,
+                                  remat=False, kv_len=kv_len, mods=m, mesh=None))
         return self._forward(img_tokens, txt_tokens, pooled, timestep, guidance, rope_cos,
                              rope_sin, attn_impl=attn_impl, remat=remat, kv_len=kv_len,
                              mods=mods, mesh=mesh)
@@ -250,6 +249,16 @@ def _graphed(x: torch.Tensor, *, remat: bool, mods, mesh) -> bool:
     that runs no collective or storage gather (no mesh) and no checkpoint."""
     return (mods is not None and mesh is None and not remat and not torch.is_grad_enabled()
             and x.is_cuda)
+
+
+def graph_call(model: nn.Module, key: tuple, inputs: list, mods, fn):
+    """``fn(inputs, mods)`` run from ``model.graphs`` under `key`: the
+    graph's inputs are `inputs` and ``flux_mods``' per-step vectors
+    (flattened), so a replay reads them anew."""
+    n, n_double = len(inputs), len(model.double_blocks)
+    return model.graphs.run(key, model.graphs.signature(model),
+                            lambda x: fn(x[:n], _unflat_mods(x[n:], n_double)),
+                            inputs + _flat_mods(mods))
 
 
 def _flat_mods(mods) -> list:
@@ -310,15 +319,21 @@ def _row(lin: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def double_block(blk: DoubleBlock, cfg: FluxConfig, txt, img, mods, rope_cos, rope_sin,
-                 attn_impl: str, kv_len: Optional[int], mesh=None):
+                 attn_impl: str, kv_len: Optional[int], mesh=None, img_first: bool = False):
     """One double-stream block: separate img/txt QKV + MLPs, joint attention.
 
     mods = (img_mod (B, 6D), txt_mod (B, 6D)) — the block's AdaLN modulation
     vectors (per step, or precomputed for the whole schedule by flux_mods),
     whole on every rank. With a tensor axis, `blk` is the rank's shard: its
     H / tp heads' q|k|v, and the output projections and fc2s summed over
-    the ranks."""
-    n_txt = txt.shape[1]
+    the ranks. The joint sequence is [txt | img], or with `img_first`
+    [img | txt] (the RoPE tables in the same order): attention does not see
+    the order, and text last lets `kv_len` mask a padded text's tail."""
+    n_txt, n_img = txt.shape[1], img.shape[1]
+
+    def joint(t, i, dim=1):
+        return torch.cat([i, t] if img_first else [t, i], dim=dim)
+
     img_mod, txt_mod = mods
     i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = img_mod.chunk(6, dim=-1)
     t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = txt_mod.chunk(6, dim=-1)
@@ -332,26 +347,27 @@ def double_block(blk: DoubleBlock, cfg: FluxConfig, txt, img, mods, rope_cos, ro
     if attn_impl == "fused":
         # raw q/k: RMSNorm + rotate-half RoPE run inside the attention kernel,
         # with per-row scale tables (txt rows, then img rows)
-        q = _heads(torch.cat([tq, iq], dim=1), h)
-        k = _heads(torch.cat([tk, ik], dim=1), h)
-        v = _heads(torch.cat([tv, iv], dim=1), h)
-        n_img = q.shape[1] - n_txt
-        qs = torch.cat([blk.txt_q_scale.expand(n_txt, hd), blk.img_q_scale.expand(n_img, hd)])
-        ks = torch.cat([blk.txt_k_scale.expand(n_txt, hd), blk.img_k_scale.expand(n_img, hd)])
+        q = _heads(joint(tq, iq), h)
+        k = _heads(joint(tk, ik), h)
+        v = _heads(joint(tv, iv), h)
+        qs = joint(blk.txt_q_scale.expand(n_txt, hd), blk.img_q_scale.expand(n_img, hd), 0)
+        ks = joint(blk.txt_k_scale.expand(n_txt, hd), blk.img_k_scale.expand(n_img, hd), 0)
         out = flash_attention_qk_norm_rope(q, k, v, rope_cos, rope_sin, qs, ks, kv_len=kv_len)
     else:
         iq = rms_norm(_heads(iq, h), blk.img_q_scale)
         ik = rms_norm(_heads(ik, h), blk.img_k_scale)
         tq = rms_norm(_heads(tq, h), blk.txt_q_scale)
         tk = rms_norm(_heads(tk, h), blk.txt_k_scale)
-        # text tokens first
-        q = apply_rope_bshd(torch.cat([tq, iq], dim=1), rope_cos, rope_sin)
-        k = apply_rope_bshd(torch.cat([tk, ik], dim=1), rope_cos, rope_sin)
-        v = torch.cat([_heads(tv, h), _heads(iv, h)], dim=1)
+        q = apply_rope_bshd(joint(tq, iq), rope_cos, rope_sin)
+        k = apply_rope_bshd(joint(tk, ik), rope_cos, rope_sin)
+        v = joint(_heads(tv, h), _heads(iv, h))
         out = dot_product_attention(q, k, v, impl=attn_impl, kv_len=kv_len)
 
     out = out.reshape(out.shape[0], out.shape[1], -1)
-    txt_attn, img_attn = out[:, :n_txt], out[:, n_txt:]
+    if img_first:
+        img_attn, txt_attn = out[:, :n_img], out[:, n_img:]
+    else:
+        txt_attn, img_attn = out[:, :n_txt], out[:, n_txt:]
 
     img = img + i_gate1[:, None] * _row(blk.img_proj, img_attn, mesh)
     img_mlp_in = _modulate(img, i_shift2, i_scale2)

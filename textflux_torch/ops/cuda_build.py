@@ -120,7 +120,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     signatures = {
-        "textflux_fused_norm_rope_attention": [ptr] * 10 + [i32] * 5 + [i64] * 6 + [f32, f32, ptr],
+        "textflux_fused_norm_rope_attention": ([ptr] * 10 + [i32] * 5 + [i64] * 6
+                                               + [f32, f32, ptr, ptr]),
         "textflux_norm_rope_prep": [ptr] * 8 + [i32] * 4 + [i64] * 4 + [f32, f32, ptr],
         "textflux_flash_fwd": [ptr] * 5 + [i32] * 5 + [i64] * 6 + [f32, ptr],
         "textflux_flash_lse": [ptr] * 3 + [i32] * 5 + [i64] * 4 + [f32, ptr],

@@ -161,17 +161,22 @@ def _check_folded(q, k, v, cos_q, sin_q, cos_k, sin_k) -> None:
 
 
 def launch_folded(q, k, v, cos_q, sin_q, cos_k, sin_k, *, kv_len: int,
-                  eps: float = 1e-6) -> torch.Tensor:
+                  eps: float = 1e-6, kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA kernel on already-folded tables (see fold_tables): a
     norm+rope pass into bf16 scratch, then the attention mainloop, on the
     current stream, without synchronising. Validates every argument and
-    raises on what the kernel does not take."""
+    raises on what the kernel does not take. `kv_lens`, when given, is a
+    device int32 (B,) tensor of key lengths that the kernel reads in
+    `kv_len`'s place (each must lie in [1, S]; read on the device, so not
+    checked here)."""
     from textflux_torch.ops.cuda_build import load_library
 
     b, s, h, d = q.shape
     _check_folded(q, k, v, cos_q, sin_q, cos_k, sin_k)
     if not 1 <= kv_len <= s:
         raise ValueError(f"kv_len must be in [1, {s}], got {kv_len}")
+    if kv_lens is not None:
+        _check_kv_lens(kv_lens, b, q.device)
     # scratch for the normed, roped q'/k' rows, and the output
     qn, kn, out = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
                    for _ in range(3))
@@ -183,7 +188,8 @@ def launch_folded(q, k, v, cos_q, sin_q, cos_k, sin_k, *, kv_len: int,
             cos_q.data_ptr(), sin_q.data_ptr(), cos_k.data_ptr(), sin_k.data_ptr(),
             qn.data_ptr(), kn.data_ptr(), out.data_ptr(), b, s, h, d, kv_len,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            float(eps), LOG2_E / math.sqrt(d), stream)
+            float(eps), LOG2_E / math.sqrt(d), None if kv_lens is None else kv_lens.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: CUDA error {err}")
     flash_attention_qk_norm_rope.launches += 1
@@ -215,11 +221,18 @@ def norm_rope_prep(q, k, cos_q, sin_q, cos_k, sin_k, *, eps: float = 1e-6):
     return qn, kn
 
 
+def _check_kv_lens(kv_lens: torch.Tensor, b: int, device) -> None:
+    if (kv_lens.dtype != torch.int32 or tuple(kv_lens.shape) != (b,)
+            or kv_lens.device != device or not kv_lens.is_contiguous()):
+        raise ValueError(f"kv_len as a tensor must be a contiguous int32 ({b},) tensor on "
+                         f"{device}")
+
+
 def flash_attention_qk_norm_rope(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cos: torch.Tensor, sin: torch.Tensor,
     q_scale: torch.Tensor, k_scale: torch.Tensor,
-    *, kv_len: Optional[int] = None, eps: float = 1e-6,
+    *, kv_len=None, eps: float = 1e-6,
 ) -> torch.Tensor:
     """Fully fused attention over BSHD q/k/v.
 
@@ -232,16 +245,26 @@ def flash_attention_qk_norm_rope(
       cos, sin: (S, D) rotate-half tables.
       q_scale, k_scale: RMSNorm scales, already permuted: (D,) shared or
         (S, D) per row (the double blocks use different txt/img norms).
-      kv_len: keys at index >= kv_len are masked out (sequence padding).
+      kv_len: keys at index >= kv_len are masked out (sequence padding): an
+        int, or an int32 (B,) tensor on q's device of each sample's key
+        length, which the kernel reads on the device (a CUDA graph then
+        replays with lengths other than those it was captured with).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, whose
     launches are counted in ``flash_attention_qk_norm_rope.launches``.
     """
     with span("attn.fused"):
+        tables = fold_tables(cos, sin, q_scale, k_scale)
+        if isinstance(kv_len, torch.Tensor):
+            _check_kv_lens(kv_len, q.shape[0], q.device)
+            if q.device.type == "cpu":
+                return torch.cat([_reference_folded(q[i:i + 1], k[i:i + 1], v[i:i + 1], *tables,
+                                                    kv_len=int(n), eps=eps)
+                                  for i, n in enumerate(kv_len.tolist())])
+            return launch_folded(q, k, v, *tables, kv_len=q.shape[1], eps=eps, kv_lens=kv_len)
         kv_len = q.shape[1] if kv_len is None else int(kv_len)
         if not 1 <= kv_len <= q.shape[1]:
             raise ValueError(f"kv_len must be in [1, {q.shape[1]}], got {kv_len}")
-        tables = fold_tables(cos, sin, q_scale, k_scale)
         if q.device.type == "cpu":
             return _reference_folded(q, k, v, *tables, kv_len=kv_len, eps=eps)
         return launch_folded(q, k, v, *tables, kv_len=kv_len, eps=eps)

@@ -62,6 +62,48 @@ def make_schedule(
     return np.append(sigmas, 0.0).astype(np.float32)
 
 
+def make_terminal_schedule(num_steps: int, image_seq_len: int, *, base_seq_len: int = 256,
+                           max_seq_len: int = 8192, base_shift: float = 0.5,
+                           max_shift: float = 0.9, shift_terminal: float = 0.02) -> np.ndarray:
+    """Qwen-Image's sigmas (num_steps + 1, float32, 0 last): linspace(1,
+    1/N, N) shifted exponentially by mu (``calculate_shift`` between
+    (base_seq_len, base_shift) and (max_seq_len, max_shift)), then
+    stretched so that the last is `shift_terminal` (diffusers'
+    ``stretch_shift_to_terminal``), in float64 until the float32 result."""
+    if num_steps < 2:
+        raise ValueError("the stretch to a terminal sigma needs at least 2 steps")
+    mu = calculate_shift(image_seq_len, base_seq_len, max_seq_len, base_shift, max_shift)
+    sig = np.linspace(1.0, 1.0 / num_steps, num_steps, dtype=np.float64)
+    sig = math.exp(mu) / (math.exp(mu) + (1.0 / sig - 1.0))
+    one_minus = 1.0 - sig
+    sig = 1.0 - one_minus / (one_minus[-1] / (1.0 - shift_terminal))
+    return np.append(sig, 0.0).astype(np.float32)
+
+
+def true_cfg(v_cond: torch.Tensor, v_uncond: torch.Tensor, scale: float) -> torch.Tensor:
+    """True classifier-free guidance with Qwen-Image's norm rescale:
+    v = v_u + s (v_c - v_u), then v * |v_c| / |v| with the norms per token
+    over the last axis; float32 inside, out in v_cond's dtype."""
+    c, u = v_cond.float(), v_uncond.float()
+    v = u + scale * (c - u)
+    v = v * (torch.linalg.vector_norm(c, dim=-1, keepdim=True)
+             / torch.linalg.vector_norm(v, dim=-1, keepdim=True))
+    return v.to(v_cond.dtype)
+
+
+def mask_blend(x: torch.Tensor, mask: torch.Tensor, z0: torch.Tensor, noise: torch.Tensor,
+               sigma_next) -> torch.Tensor:
+    """Inpainting by latent blending, after a step to sigma_next: the
+    masked tokens keep the sampler's state, the rest take the image's
+    latents noised to sigma_next, ``scale_noise(z0, sigma_next, noise)``:
+    m x + (1 - m) ((1 - s) z0 + s noise). Float32 inside, out in x's dtype
+    (at sigma_next = 0 the rest is z0 itself)."""
+    s = _f32(sigma_next, x.device)
+    m = mask.float()
+    kept = (1.0 - s) * z0.float() + s * noise.float()
+    return (m * x.float() + (1.0 - m) * kept).to(x.dtype)
+
+
 def _f32(x, device) -> torch.Tensor:
     if isinstance(x, (int, float, np.number)):
         # filled in on the device: a copy from the host would wait for

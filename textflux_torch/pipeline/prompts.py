@@ -26,6 +26,18 @@ WORDS_TEMPLATE = (
 )
 
 
+# Qwen-Image's chat template around a prompt (pipeline_qwenimage.py's
+# prompt_template_encode); the encoder runs over all of it and its output
+# drops the tokens of the system prefix, everything before the prompt
+QWEN_TEMPLATE = (
+    "<|im_start|>system\nDescribe the image by detailing the color, shape, size, texture, "
+    "quantity, text, spatial relationships of the objects and background:<|im_end|>\n"
+    "<|im_start|>user\n{}<|im_end|>\n<|im_start|>assistant\n"
+)
+QWEN_PREFIX = QWEN_TEMPLATE.split("{}")[0]
+QWEN_MAX_TOKENS = 1024      # the pipeline's tokenizer_max_length, past the prefix
+
+
 def words_prompt(words: Sequence[str]) -> str:
     words_str = ", ".join(f"'{w}'" for w in words)
     return WORDS_TEMPLATE.format(words=words_str)
