@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
      bf16, with times for the kernel, the plain version and one PyTorch
      library call computing the same function (yardstick only; for the LSE
      pass, FlashAttention-2's forward, whose logsumexp is held to the plain
-     L first);
+     L first; for the int8 weight-only kernel, F.linear on the bf16
+     weight), the int8 kernel at the serving step's, the conditioning's
+     and T5's shapes, one launch a call on the host and on the device;
   4. main path: full-width FLUX.1-Fill-dev + CLIP-L + T5-XXL + FLUX VAE with
      random bf16 weights made on the card from a seed, driven through
      textflux_torch.cli.run_inference.run on resource/example (euler, then
@@ -67,7 +69,10 @@ Phases, in order; any failure exits non-zero:
      weight_only, w8a8, nf4 and mixed (T5 int8 weight-only with each), then
      --staged-text weight_only, 2 steps at the 512 px single-line shape: load
      seconds, GB/s and device bytes by component, the device's peak over the
-     load and over serving, step ms, fused launches per step and the relative
+     load and over serving, step ms, fused launches per step, the int8
+     kernel's launches on the device (each weight_only DiT linear once a
+     step or, for the conditioning and modulations, once an image; each of
+     T5's once) and the relative
      velocity error of one full-depth DiT forward against the bf16 DiT. Fails
      when a mode breaks the JAX package's divergence bounds on a full-width
      1-double + 1-single stack (2 / 3 / 25 / 5 %, mixed also under nf4's / 3)
@@ -76,8 +81,9 @@ Phases, in order; any failure exits non-zero:
      full-width DiT quantised nf4 in place, rank-128 LoRA with 8-bit AdamW
      (lr 2e-5, clip 1.0), 3 steps at 4,224 tokens through train_lora, then
      one step over a weight_only base: step ms, the peak, launches per step
-     (114/0/57/57), the optimizer's state bytes beside AdamW's; every
-     target's B must move;
+     (114/0/57/57; the int8 kernel's 618 over weight_only, with the
+     blocks' recompute, 0 over nf4), the optimizer's state bytes beside
+     AdamW's; every target's B must move;
  11. eval: phase 7's checkpoint (written here when no earlier phase did)
      through textflux_torch.cli.run_eval.main over an AnyWord json of three
      items on the example images (two in one //32 bucket): --batch-size 1,
@@ -237,7 +243,7 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 
 KERNEL_NAMES = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel",
-                "norm_rope_kernel")
+                "norm_rope_kernel", "w8a16_gemm_sm90_kernel")
 
 
 def ptxas_report(text: str) -> dict:
@@ -446,7 +452,109 @@ def phase_kernels() -> list:
     return rows
 
 
-FLASH_KERNELS = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
+BF16_U = 2.0 ** -8    # bf16's unit roundoff: a rounding moves a value by at most this share
+# (name, K, N, bias) of the int8 weight_only linears timed and checked: the
+# step's five main products (a single block's linear1 / linear2, a double
+# block's qkv and MLP), the modulation of one block, and T5-XXL's three
+# shapes (no bias)
+INT8_LINEARS = (("linear1", 3072, 21504, True), ("linear2", 15360, 3072, True),
+                ("qkv", 3072, 9216, True), ("mlp_in", 3072, 12288, True),
+                ("mlp_out", 12288, 3072, True), ("mod", 3072, 18432, True))
+INT8_T5_LINEARS = (("t5_qkvo", 4096, 4096, False), ("t5_wi", 4096, 10240, False),
+                   ("t5_wo", 10240, 4096, False))
+# rows: the 4:3 edit's joint sequence, the text (and T5's 512), a schedule's
+# 30 modulation rows, the conditioning vector
+INT8_ROWS = (1408, 512, 30, 1)
+
+
+def _int8_bound_ms(m, n, k, bias) -> tuple:
+    """(bound_ms, bound_by): the products' FLOPs at the bf16 peak against
+    the bytes (codes, scale, bias, x read; y written) at HBM's."""
+    nbytes = n * k + 4 * n + 2 * n * bias + 2 * m * k + 2 * m * n
+    t_ops, t_bytes = 2 * m * n * k / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_int8_kernels() -> list:
+    """The int8 weight-only kernel (``ops.int8_matmul``, which
+    ``QuantLinear``'s weight_only product calls on CUDA) at the main path's
+    shapes: each case is one call of ``int8_matmul``, which must count one
+    host launch and run one ``w8a16_gemm_sm90_kernel`` on the device. Its
+    output is held to a float32 product of the dequantised weight within
+    the one rounding the kernel makes (BF16_U of each output, plus float32
+    sums in another order), and to the plain version within the roundings
+    the two make: each element of the plain version's bf16 weight (the
+    scale's cast and the product's: 2 BF16_U of |x| @ |w|^T), its product's
+    rounding (BF16_U of |x| @ |w|^T), its bias add's and the kernel's own
+    (BF16_U of the output each). Times: the kernel, the plain version, and
+    F.linear on the bf16 weight with the bias (cuBLAS; a yardstick the port
+    does not call)."""
+    import torch.nn.functional as F
+
+    from textflux_torch.ops import int8_matmul as IM
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [(f"{name}_m{m}", m, k, n, bias) for m in INT8_ROWS
+             for name, k, n, bias in INT8_LINEARS]
+    cases += [(f"{name}_m512", 512, k, n, bias) for name, k, n, bias in INT8_T5_LINEARS]
+    # a tensor-parallel rank's row-parallel half of linear2: no bias
+    cases.append(("linear2_tp2_m1408", 1408, 15360 // 2, 3072, False))
+    rows, failed = [], []
+    for name, m, k, n, with_bias in cases:
+        w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        scale = (0.06 + 0.02 * torch.rand(n, generator=gen, device="cuda")) / 127.0
+        bias = (torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+                if with_bias else None)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        host = IM.int8_matmul.launches
+        with DeviceLaunches() as ran:
+            out = IM.int8_matmul(x, w_q, scale, bias)
+        host = IM.int8_matmul.launches - host
+        device = ran.counts["w8a16_gemm_sm90_kernel"]
+        plain = IM.int8_matmul_reference(x, w_q, scale, bias).float()
+        w = w_q.float() * scale[:, None]
+        exact = x.float() @ w.t()
+        absdot = x.float().abs() @ w.abs().t()
+        if bias is not None:
+            exact = exact + bias.float()
+            absdot = absdot + bias.float().abs()
+        del w
+        slack = 1e-4 * exact.abs().max()        # float32 sums in another order
+        err_f32 = (out.float() - exact).abs()
+        tol_f32 = BF16_U * exact.abs() + slack
+        err_plain = (out.float() - plain).abs()
+        tol_plain = BF16_U * (3 * absdot + 2 * exact.abs()) + slack
+        f32_ratio = (err_f32 / tol_f32).max().item()
+        plain_ratio = (err_plain / tol_plain).max().item()
+        finite = bool(torch.isfinite(out.float()).all())
+        del exact, absdot, plain, err_f32, err_plain, tol_f32, tol_plain
+        w_bf16 = (w_q.to(torch.bfloat16) * scale.to(torch.bfloat16)[:, None])
+        kernel_ms = cuda_ms(lambda: IM.launch(x, w_q, scale, bias))
+        plain_ms = cuda_ms(lambda: IM.int8_matmul_reference(x, w_q, scale, bias), iters=5)
+        library_ms = cuda_ms(lambda: F.linear(x, w_bf16, bias))
+        bound_ms, bound_by = _int8_bound_ms(m, n, k, bias is not None)
+        row = dict(case=name, m=m, n=n, k=k, bias=bias is not None,
+                   tile=IM.token_tile(m, n, torch.cuda.get_device_properties(0)
+                                      .multi_processor_count),
+                   host_launches=host, device_launches=device, finite=finite,
+                   # the largest error as a share of its tolerance (1 = at it)
+                   err_over_tol_f32=f32_ratio, err_over_tol_plain=plain_ratio,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, of_bound=bound_ms / kernel_ms)
+        log("int8 kernel case " + json.dumps(row))
+        if not (finite and f32_ratio <= 1 and plain_ratio <= 1 and host == 1 and device == 1):
+            failed.append(name)
+        rows.append(row)
+        del w_q, scale, bias, x, out, w_bf16
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"int8 kernel disagrees with its plain version or launched "
+                             f"other than once in cases {failed}")
+    return rows
+
+
+FLASH_KERNELS =("flash_attention", "flash_attention_lse", "flash_attention_dq",
                  "flash_attention_dkv")
 LSE_TOL = 1e-3     # fp32 output: only the summation order differs
 REL_TOL = 2e-2     # bf16 outputs, relative to the largest |value| of the plain version
@@ -1169,6 +1277,8 @@ def _run_main(argv, recorder, steps, expected_per_step):
     rec = dict(recorder.rec, seconds=time.perf_counter() - t0, steps=steps,
                launches=ran.fused, host_launches=flash_attention_qk_norm_rope.launches,
                expected_launches=expected_per_step * steps,
+               # the int8 weight_only kernel's launches on the device
+               int8_launches=ran.counts["w8a16_gemm_sm90_kernel"],
                ru_maxrss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
     rec["load_gb_per_s"] = {k: v["bytes"] / v["seconds"] / 1e9 for k, v in rec["load"].items()}
     return rec
@@ -2114,6 +2224,32 @@ def _full_depth_inputs(flux_cfg):
             torch.tensor([30.0], device="cuda"), cos, sin)
 
 
+# DiT linears that run once an image in serving (flux_vec's embedders and
+# flux_mods' modulations, precomputed for the schedule); the rest run once
+# a denoise step
+_ONCE_AN_IMAGE = ("time_in.", "guidance_in.", "vector_in.")
+
+
+def _int8_split(flux) -> tuple:
+    """(paths of `flux`'s weight_only linears that run once an image in
+    serving, paths of those that run once a step)."""
+    from textflux_torch.io.quantize import quantized_linears
+
+    paths = [p for p, m in quantized_linears(flux).items() if m == "weight_only"]
+    once = [p for p in paths if p.startswith(_ONCE_AN_IMAGE) or p.endswith("mod")]
+    return once, [p for p in paths if p not in once]
+
+
+def _int8_expected(flux, t5_linears: int, steps: int) -> dict:
+    """The int8 kernel's launches on the device in one image of `steps`
+    steps: each weight_only DiT linear once a step or once an image, and
+    each of T5's `t5_linears` once (full width: 231 a step, 83 an image,
+    168 an encode)."""
+    once, each = _int8_split(flux)
+    return dict(per_step=len(each), per_image=len(once), t5=t5_linears,
+                total=steps * len(each) + len(once) + t5_linears)
+
+
 def phase_quantized(smi: str, have_checkpoint: bool, profile: bool = False) -> dict:
     """Phase 9. Phase 7's checkpoint (written here when no earlier phase
     did) served through cli.run_inference.main with --quantize-mode
@@ -2125,16 +2261,19 @@ def phase_quantized(smi: str, have_checkpoint: bool, profile: bool = False) -> d
     full-depth forward of the served DiT against the bf16 DiT on the same
     inputs. Fails when a mode breaks the JAX package's divergence bound on
     the full-width 1+1 stack, when the weight_only load peaks more than
-    1 GiB above the loaded models' bytes, or when a launch count, the
+    1 GiB above the loaded models' bytes, or when a launch count (the fused
+    kernel's, or the int8 kernel's on the device: ``_int8_expected``), the
     quantised modules or an image are wrong. With `profile`, one more
     denoise step of each mode is traced (device time by kernel, idle
     share)."""
     from PIL import Image
 
-    from textflux_torch.config import flux_fill_config
-    from textflux_torch.io.quantize import quantized_linears
+    from textflux_torch.config import flux_fill_config, t5_xxl_config
+    from textflux_torch.io.quantize import quantize_tree, quantized_linears
+    from textflux_torch.models.t5 import T5Encoder
     from textflux_torch.models.transformer import (FluxTransformer, flux_apply,
                                                    half_permute_flux_params)
+    from textflux_torch.ops import int8_matmul as IM
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2146,6 +2285,9 @@ def phase_quantized(smi: str, have_checkpoint: bool, profile: bool = False) -> d
     flux_cfg = flux_fill_config()
     per_step = flux_cfg.num_double_layers + flux_cfg.num_single_layers
     problems, out = [], {}
+    # T5 is weight_only in every mode (a staged run releases it: counted here)
+    t5_int8 = len(quantized_linears(quantize_tree(
+        T5Encoder(t5_xxl_config(), device="meta", dtype=torch.bfloat16), mode="weight_only")))
 
     t0 = time.perf_counter()
     stack = stack_divergence()
@@ -2182,10 +2324,15 @@ def phase_quantized(smi: str, have_checkpoint: bool, profile: bool = False) -> d
         runs.append(("staged_weight_only", ["--quantize-mode", "weight_only", "--staged-text"]))
         for i, (name, extra) in enumerate(runs):
             mode = extra[1]
+            int8_before = IM.int8_matmul.launches
             with _Recorder() as recorder:
                 rec = _run_main(argv + extra, recorder, QUANT_STEPS, per_step)
             pipe = recorder.pipe
             rec.update(card=smi, mode=mode, step_ms=recorder.step_ms(),
+                       # the wrapper's count: a graph's capture calls it, its
+                       # replays do not
+                       int8_host_launches=IM.int8_matmul.launches - int8_before,
+                       expected_int8=_int8_expected(pipe.flux, t5_int8, QUANT_STEPS),
                        serve_peak_bytes=torch.cuda.max_memory_allocated(),
                        launches_per_step=rec["launches"] / QUANT_STEPS,
                        dit_device_bytes=pipe.load_stats["transformer"]["device_bytes"],
@@ -2219,6 +2366,9 @@ def phase_quantized(smi: str, have_checkpoint: bool, profile: bool = False) -> d
                                 f" T5 {rec['t5_modes']}, {t5_stats}")
             if not rec["image"]["finite"] or rec["image"]["std"] <= 0:
                 problems.append(f"{name}: image not finite/non-constant {rec['image']}")
+            if rec["int8_launches"] != rec["expected_int8"]["total"]:
+                problems.append(f"{name}: the int8 kernel ran {rec['int8_launches']} times, "
+                                f"expected {rec['expected_int8']}")
             if not np.isfinite(rec["full_depth_rel_err"]):
                 problems.append(f"{name}: the full-depth forward is not finite")
         # loading holds no full-size transient copy on the device
@@ -2248,6 +2398,7 @@ def _qlora_run(base_mode: str, steps: int, models, sample, per_step) -> dict:
     from textflux_torch.io.quantize import quantize_tree, quantized_bytes, quantized_linears
     from textflux_torch.models.transformer import FluxTransformer
     from textflux_torch.ops import flash_attention as FA
+    from textflux_torch.ops import int8_matmul as IM
     from textflux_torch.training import train as TR
     from textflux_torch.training.optim8bit import state_bytes
 
@@ -2263,7 +2414,7 @@ def _qlora_run(base_mode: str, steps: int, models, sample, per_step) -> dict:
     quantize_s = time.perf_counter() - t1
     base_bytes = quantized_bytes(flux)   # before the factors are attached
     tc = TR.TrainConfig(optimizer="adamw8bit")   # lr 2e-5, clip 1.0, rank 128, alpha 128
-    starts, ends, counts = [], [], []
+    starts, ends, counts, int8_counts = [], [], [], []
 
     def batches():
         while True:
@@ -2277,9 +2428,11 @@ def _qlora_run(base_mode: str, steps: int, models, sample, per_step) -> dict:
         ev.record()
         ends.append(ev)
         counts.append({k: getattr(FA, k).launches for k in FLASH_KERNELS})
+        int8_counts.append(IM.int8_matmul.launches)
 
     for k in FLASH_KERNELS:
         getattr(FA, k).launches = 0
+    int8_before = IM.int8_matmul.launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state = {}
@@ -2291,6 +2444,12 @@ def _qlora_run(base_mode: str, steps: int, models, sample, per_step) -> dict:
     for c in counts:
         by_step.append({k: c[k] - prev[k] for k in FLASH_KERNELS})
         prev = c
+    int8_by_step = [b - a for a, b in zip([int8_before] + int8_counts, int8_counts)]
+    # no graph in training: each weight_only linear once a forward, and the
+    # blocks' again in the backward's recompute
+    once, each = _int8_split(flux)
+    blocks = [p for p in once + each if p.startswith(("double_blocks.", "single_blocks."))]
+    int8_expected = len(once) + len(each) + (len(blocks) if tc.remat else 0)
     n_params = sum(p.numel() for p in TR.lora_parameters(lora))
     rec = dict(base=base_mode, steps=steps, init_s=t1 - t0, quantize_s=quantize_s,
                dit_bf16_bytes=bf16_bytes, dit_device_bytes=base_bytes,
@@ -2298,6 +2457,9 @@ def _qlora_run(base_mode: str, steps: int, models, sample, per_step) -> dict:
                step_ms=[s.elapsed_time(e) for s, e in zip(starts, ends)],
                history=history, launches={k: getattr(FA, k).launches for k in FLASH_KERNELS},
                launches_per_step=by_step, expected_per_step=per_step,
+               # the int8 kernel's forwards (a weight_only base's products,
+               # through its autograd function where x needs a gradient)
+               int8_launches_per_step=int8_by_step, int8_expected_per_step=int8_expected,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                lora_params=n_params, state_bytes=state_bytes(state["opt_state"]),
                # torch's AdamW: two float32 moments and a float32 step per tensor
@@ -2315,7 +2477,8 @@ def phase_qlora(smi: str) -> dict:
     seed 0, nothing written to disk): 3 QLoRA steps over an nf4 base with
     adamw8bit at 4,224 tokens, then one step over a weight_only base.
     Fails on a non-finite loss, a launch count other than 114/0/57/57 a
-    step, or a target whose B did not move."""
+    step, an int8 kernel count other than each weight_only linear's once a
+    forward and once a recompute, or a target whose B did not move."""
     from textflux_torch.config import clip_l_config, flux_fill_config, flux_vae_config, t5_xxl_config
     from textflux_torch.models.clip import CLIPTextModel
     from textflux_torch.models.t5 import T5Encoder
@@ -2354,6 +2517,9 @@ def phase_qlora(smi: str) -> dict:
                             f"of {rec['b_targets']} targets did not move")
         if rec["dit_modes"] != [base_mode]:
             problems.append(f"{base_mode}: DiT modes {rec['dit_modes']}")
+        if rec["int8_launches_per_step"] != [rec["int8_expected_per_step"]] * steps:
+            problems.append(f"{base_mode}: int8 kernel launches {rec['int8_launches_per_step']}"
+                            f", expected {rec['int8_expected_per_step']} a step")
     del models
     gc.collect()
     torch.cuda.empty_cache()
@@ -5089,6 +5255,36 @@ def _flash_entries(flash_rows, train_rec, build_rec, tm_rec=None, qlora_rec=None
     return out
 
 
+def _int8_entry(int8_rows, build_rec, q_rec=None, qlora_rec=None) -> dict:
+    """The int8 weight-only kernel's JSON entry: launches on the device by
+    run (the quantized phase's images, the qlora phase's steps), its build,
+    and its errors and times at every case of phase 3, those of the step's
+    linear1 at 1,408 rows on the entry itself."""
+    by_run = {f"quantized_{k}": r["int8_launches"] for k, r in (q_rec or {}).items()
+              if k != "stack_rel_err"}
+    by_run.update({f"qlora_{k}": sum(r["int8_launches_per_step"])
+                   for k, r in (qlora_rec or {}).items()})
+    entry = dict(name="int8_matmul", route="cuda",
+                 source="textflux_torch/csrc/w8a16_gemm_sm90.cu",
+                 build={k: v for k, v in build_rec.get("kernels", {}).items()
+                        if k.startswith("w8a16_gemm_sm90_kernel")},
+                 # the JAX package dequantises inside XLA's dot
+                 replaces=None,
+                 launches=sum(by_run.values()) if by_run else None,
+                 launches_by_run=by_run or None)
+    main_case = next((r for r in int8_rows if r["case"] == "linear1_m1408"), None)
+    if main_case:
+        entry.update(max_err_over_tol=max(max(r["err_over_tol_f32"], r["err_over_tol_plain"])
+                                          for r in int8_rows),
+                     ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
+                     library_ms=main_case["library_ms"], bound_ms=main_case["bound_ms"],
+                     bound_by=main_case["bound_by"],
+                     by_case={r["case"]: {k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                             "bound_ms", "tile")}
+                              for r in int8_rows})
+    return entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5129,6 +5325,7 @@ def main() -> int:
         build_rec = run("build", phase_build)
     kernel_rows = run("kernels", phase_kernels) if "kernels" in phases else []
     flash_rows = run("kernels_flash", phase_flash_kernels) if "kernels" in phases else {}
+    int8_rows = run("kernels_int8", phase_int8_kernels) if "kernels" in phases else []
     main_rec = run("main", phase_main, "profile" in phases) if "main" in phases else None
     train_rec = run("train", phase_train, "profile" in phases) if "train" in phases else None
     smi = dev["nvidia_smi"]
@@ -5166,6 +5363,7 @@ def main() -> int:
                                    eval_rec, tp_rec)]
     kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec, qlora_rec, tf_rec,
                                      fsdp_rec, tpt_rec)
+    kernel_entries.append(_int8_entry(int8_rows, build_rec, q_rec, qlora_rec))
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

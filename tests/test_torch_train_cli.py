@@ -509,6 +509,25 @@ def test_main_refuses_unported_choices(extra, item, tmp_path):
         CLI.main(argv)
 
 
+@pytest.mark.parametrize("extra,refused", [
+    (["--quantize-base", "weight_only", "--mixed-precision", "no", "--device", "cuda"], True),
+    (["--quantize-base", "weight_only", "--mixed-precision", "no", "--device", "cuda:1"], True),
+    (["--quantize-base", "weight_only", "--mixed-precision", "no"], False),   # --device cpu
+    (["--quantize-base", "weight_only", "--device", "cuda"], False),          # bf16
+    (["--quantize-base", "nf4", "--mixed-precision", "no", "--device", "cuda"], False)])
+def test_float32_over_an_int8_base_on_cuda_exits(extra, refused, tmp_path):
+    """The int8 kernel that runs a weight_only base's products on CUDA takes
+    bf16 activations: float32 LoRA training over that base exits there with
+    the reason, before any model or data is read; on the CPU (the plain
+    version), in bf16, or over an NF4 base it passes the check."""
+    args = CLI.parse_args(_argv("unused", str(tmp_path), tmp_path / "out") + extra)
+    if refused:
+        with pytest.raises(SystemExit, match="needs --mixed-precision bf16"):
+            CLI.check_ported(args)
+    else:
+        CLI.check_ported(args)
+
+
 def test_main_trains_with_loader_processes(checkpoint, tmp_path, rng):
     """--loader-procs 1: two LoRA steps (two epochs of a one-sample dataset
     at one resolution, so the order and the samples are fixed) with the

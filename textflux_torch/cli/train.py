@@ -26,7 +26,9 @@ written as ``<output>/transformer/`` in float32 (the checkpoint's
 interleaved q/k layout), which ``FillPipeline.from_pretrained(
 transformer_path=...)`` serves. ``--mode lora`` trains LoRA factors over
 the frozen base (``--quantize-base`` stores it int8 weight-only or NF4,
-quantised as it loads: QLoRA) and writes them as
+quantised as it loads: QLoRA; over an int8 base on CUDA the compute
+dtype is bf16, as the int8 kernel takes bf16 activations, and
+``--mixed-precision no`` exits) and writes them as
 ``<output>/pytorch_lora_weights.safetensors``, which
 ``FillPipeline.from_pretrained(lora_path=...)`` serves. ``--optimizer
 adamw8bit`` (or ``--use-8bit-adam``, the reference's full-parameter
@@ -516,11 +518,17 @@ def mesh_shape(args) -> Optional[Tuple[int, int, int]]:
 
 
 def check_ported(args) -> None:
-    """Exit on a choice the JAX trainer refuses, with its message (and on a
-    malformed --mesh)."""
+    """Exit on a choice the JAX trainer refuses, with its message, on a
+    malformed --mesh, and on a float32 forward over an int8 base on CUDA,
+    which the int8 kernel (bf16 activations only) does not run."""
     if args.quantize_base != "none" and args.mode != "lora":
         raise SystemExit("--quantize-base requires --mode lora (full-param "
                          "training cannot update a quantized base)")
+    if (args.quantize_base == "weight_only" and args.mixed_precision == "no"
+            and torch.device(args.device).type == "cuda"):
+        raise SystemExit("--quantize-base weight_only on CUDA needs --mixed-precision bf16: "
+                         "its int8 kernel takes bf16 activations (float32 runs with "
+                         "--device cpu, or over --quantize-base nf4)")
     mesh_shape(args)
 
 

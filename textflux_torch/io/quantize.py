@@ -4,7 +4,8 @@ The port of ``textflux_tpu/io/quantize.py``. Four modes, chosen per linear:
 
   * "weight_only": int8 codes with one fp32 scale per output channel
     (w = w_q * scale), dequantised on read into matmuls in the activation
-    dtype; halves the DiT's bytes;
+    dtype on the CPU, read as codes by one kernel on CUDA
+    (``ops.int8_matmul``); halves the DiT's bytes;
   * "w8a8": the same codes, and the activations quantised per token to int8
     as well: the product runs int8 x int8 -> int32 (``torch._int_mm``), then
     is rescaled;
@@ -50,6 +51,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from textflux_torch.ops.int8_matmul import int8_matmul
 
 # bitsandbytes NF4 codebook: the 16 quantiles of N(0, 1) scaled to [-1, 1]
 NF4_CODEBOOK = (
@@ -279,15 +282,16 @@ class QuantLinear(nn.Module):
         computes it; without the bias when `bias` is False. `amax_reduce`
         (w8a8 only) takes the per-token |x| maxima in place to their max over
         the features held elsewhere (a row-parallel shard's other ranks)."""
+        if self.mode == "weight_only":
+            # on the CPU the codes dequantised in x's dtype (cast, times the
+            # scale cast), then the product and the bias; on CUDA one kernel
+            return int8_matmul(x, self.w_q, self.scale, self.bias if bias else None)
         if self.mode == "w8a8":
             y = self._w8a8(x, amax_reduce)
-        elif self.mode == "nf4":
+        else:
             top, bot = self.nf4_halves(x.dtype)
             half = top.shape[1]
             y = F.linear(x[..., :half], top) + F.linear(x[..., half:], bot)
-        else:
-            # dequantise in x's dtype: codes cast, times the scale cast
-            y = F.linear(x, self.w_q.to(x.dtype) * self.scale.to(x.dtype)[:, None])
         if bias and self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
