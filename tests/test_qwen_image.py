@@ -26,6 +26,7 @@ from textflux_torch.models.qwen_image import (QwenImageTransformer, model_timest
 from textflux_torch.models.qwen_text import QwenTextEncoder, qwen_encode
 from textflux_torch.models.vae_wan import WanVAE, wan_decode, wan_encode
 from textflux_torch.ops import packing, samplers
+from textflux_torch.config import FluxConfig
 from textflux_torch.ops.rope import rope_tables, rope_tables_half
 from textflux_torch.pipeline.prompts import QWEN_PREFIX, QWEN_TEMPLATE
 from textflux_torch.pipeline.qwen_image import QwenImagePipeline
@@ -100,17 +101,17 @@ def test_centred_rope_ids_by_hand():
     assert torch.equal(torch.cat([img, txt]), torch.as_tensor(ids))
 
 
-@pytest.mark.parametrize("attn_impl", ["plain", "fused"])
+@pytest.mark.parametrize("attn_impl", ["plain", "fused", "auto"])
 def test_dit_forward_matches_the_reference(models, attn_impl):
-    dit, _, _ = models
-    if attn_impl == "fused":
-        dit = QwenImageTransformer(dit.cfg, device="cpu")
-        dit.load_state_dict(models[0].state_dict())
-        T.half_permute_flux_params(dit)
+    """On each path the serving pipeline may take ("auto" is "plain" on the
+    CPU), its layout and tables from the shared functions."""
+    dit = QwenImageTransformer(models[0].cfg, device="cpu")
+    dit.load_state_dict(models[0].state_dict())
+    attn_impl = T.resolve_attn_impl(attn_impl, dit.cfg.head_dim, torch.device("cpu"))
+    T.to_attn_layout(dit, attn_impl)
     grid, n_txt, sigma = (4, 6), 7, 0.6
     x, txt, mods = _dit_inputs(dit, grid, n_txt, sigma)
-    fn = rope_tables_half if attn_impl == "fused" else rope_tables
-    cos, sin = (torch.as_tensor(t) for t in fn(rope_ids(*grid, n_txt), dit.cfg.axes_dims_rope))
+    cos, sin = T.model_rope_tables(dit, rope_ids(*grid, n_txt), "cpu")
     with torch.no_grad():
         v = qwen_apply(dit, x, txt, cos, sin, mods=mods, attn_impl=attn_impl)
     ref = Q.velocities(DIT, SEED, [dict(x=x, txt=txt, sigma=sigma, grid=grid)], "cpu")[0]
@@ -124,16 +125,14 @@ def test_bucketed_text_matches_the_unpadded(models, attn_impl):
     masked by a key-length tensor: the velocity of the unpadded call."""
     dit = QwenImageTransformer(models[0].cfg, device="cpu")
     dit.load_state_dict(models[0].state_dict())
-    if attn_impl == "fused":
-        T.half_permute_flux_params(dit)
+    T.to_attn_layout(dit, attn_impl)
     grid, n_txt = (4, 4), 37
     x, txt, mods = _dit_inputs(dit, grid, n_txt)
-    fn = rope_tables_half if attn_impl == "fused" else rope_tables
     bucket = text_bucket(n_txt)
     assert bucket == 64
 
     def call(t, n, kv_len):
-        cos, sin = (torch.as_tensor(a) for a in fn(rope_ids(*grid, n), dit.cfg.axes_dims_rope))
+        cos, sin = T.model_rope_tables(dit, rope_ids(*grid, n), "cpu")
         with torch.no_grad():
             return qwen_apply(dit, x, t, cos, sin, mods=mods, attn_impl=attn_impl, kv_len=kv_len)
 
@@ -143,6 +142,44 @@ def test_bucketed_text_matches_the_unpadded(models, attn_impl):
     unmasked = call(torch.nn.functional.pad(txt, (0, 0, 0, bucket - n_txt)), bucket, None)
     assert _rel(padded, plain) < 1e-5
     assert _rel(unmasked, plain) > 1e-3      # the padding, left unmasked, shows
+
+
+@pytest.mark.parametrize("attn_impl", ["auto", "fused", "unknown"])
+@pytest.mark.parametrize("kind", ["flux", "qwen"])
+def test_the_serving_attention_path(models, kind, attn_impl):
+    """What both pipelines decide through the shared functions, on tiny
+    FLUX and Qwen-Image DiTs: "auto" is "plain" on the CPU (and on CUDA for
+    a head_dim the fused kernel does not take), leaving the weights and
+    tables interleaved; "fused" half-permutes the weights once and takes
+    rotate-half tables; an unknown name raises."""
+    if kind == "flux":
+        dit = T.FluxTransformer(FluxConfig(in_channels=8, out_channels=4, num_double_layers=1,
+                                           num_single_layers=1, num_heads=2, head_dim=16,
+                                           joint_dim=8, pooled_dim=8, axes_dims_rope=(4, 6, 6)),
+                                device="cpu")
+        ids = np.arange(15, dtype=np.float64).reshape(5, 3)
+    else:
+        dit = QwenImageTransformer(models[0].cfg, device="cpu")
+        ids = rope_ids(2, 3, 4)
+    if attn_impl == "unknown":
+        with pytest.raises(ValueError, match="attn_impl"):
+            T.resolve_attn_impl(attn_impl, dit.cfg.head_dim, torch.device("cpu"))
+        with pytest.raises(ValueError, match="attn_impl"):
+            T.check_attn_layout(dit, attn_impl)
+        return
+    assert T.resolve_attn_impl("auto", dit.cfg.head_dim, torch.device("cuda")) == "plain"
+    impl = T.resolve_attn_impl(attn_impl, dit.cfg.head_dim, torch.device("cpu"))
+    assert impl == {"auto": "plain", "fused": "fused"}[attn_impl]
+    weight = dit.double_blocks[0].img_qkv.weight.clone()
+    for _ in range(2):                     # a second call leaves the layout as it is
+        assert T.to_attn_layout(dit, impl) is dit
+    T.check_attn_layout(dit, impl)
+    assert dit.rope_layout == ("half" if impl == "fused" else "interleaved")
+    assert torch.equal(dit.double_blocks[0].img_qkv.weight, weight) is (impl == "plain")
+    fn = rope_tables_half if impl == "fused" else rope_tables
+    for got, want in zip(T.model_rope_tables(dit, ids, "cpu"),
+                         fn(ids, dit.cfg.axes_dims_rope, dit.cfg.rope_theta)):
+        assert torch.equal(got, torch.as_tensor(want))
 
 
 def test_text_buckets():

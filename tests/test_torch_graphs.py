@@ -18,10 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from textflux_torch.config import FluxConfig
+from textflux_torch.config import FluxConfig, QwenImageConfig
 from textflux_torch.io import quantize as Q
 from textflux_torch.io.quantize import quantize_tree
 from textflux_torch.models import graphs as G
+from textflux_torch.models import qwen_image as QI
 from textflux_torch.models import transformer as T
 from textflux_torch.ops import flash_attention as FA
 from textflux_torch.ops import packing
@@ -90,13 +91,7 @@ def _inputs(model, *, lat_hw=(4, 6), t_txt=5, b=1, seed=0, steps=3, dtype=torch.
     vec = T.flux_vec(model, sig.repeat_interleave(b), torch.full((steps * b,), 30.0),
                      torch.randn(steps * b, cfg.pooled_dim, generator=g), dtype)
     mods = T.flux_mods(model, vec)
-
-    def step(i):
-        rows = slice(i * b, (i + 1) * b)
-        return {"double": [(im[rows], tm[rows]) for im, tm in mods["double"]],
-                "single": [m[rows] for m in mods["single"]], "final": mods["final"][rows]}
-
-    return img, txt, cos, sin, step
+    return img, txt, cos, sin, lambda i: T.step_mods(mods, i, b)
 
 
 def _forward(model, img, txt, cos, sin, mods, **kw):
@@ -244,6 +239,57 @@ def test_keys_tell_inputs_apart(graphed, change):
     assert (model.graphs.captures, len(model.graphs)) == (graphs, graphs)
 
 
+@pytest.mark.parametrize("case", ["flux_canvas_again", "flux_new_canvas", "qwen_one_bucket"])
+def test_the_key_is_derived_from_what_the_graph_takes(graphed, monkeypatch, case):
+    """``graph_call`` keys a forward by its inputs' shapes, dtypes and
+    devices and its other arguments: another request on a canvas already
+    captured replays, a new canvas captures, and two Qwen-Image texts of
+    one bucket (their own lengths reach the graph as a key-length tensor)
+    share one graph. The ``flux.graph`` span names the key."""
+    if case == "qwen_one_bucket":
+        monkeypatch.setattr(QI, "_graphed", lambda x, **kw: True)
+        model = QI.QwenImageTransformer(
+            QwenImageConfig(in_channels=8, out_channels=8, num_double_layers=2, num_heads=2,
+                            head_dim=16, joint_dim=12, axes_dims_rope=(4, 6, 6)),
+            device="cpu", generator=torch.Generator().manual_seed(0)).requires_grad_(False)
+        g = torch.Generator().manual_seed(1)
+        img = torch.randn(1, 6, 8, generator=g)
+        mods = T.flux_mods(model, QI.qwen_vec(model, torch.tensor([0.5]), torch.float32))
+        cos, sin = (torch.as_tensor(t) for t in rope_tables(QI.rope_ids(2, 3, 64), (4, 6, 6)))
+
+        def call(n, forward, txt):
+            return forward(img, txt, cos, sin, attn_impl="plain", mods=mods,
+                           kv_len=torch.tensor([6 + n], dtype=torch.int32))
+
+        tracking.enable(True)
+        with torch.no_grad():
+            texts = {n: torch.nn.functional.pad(torch.randn(1, n, 12, generator=g),
+                                                (0, 0, 0, 64 - n)) for n in (5, 9, 30, 64)}
+            outs = [(call(n, model, t), call(n, model._forward, t)) for n, t in texts.items()]
+        want = (1, 2, 1)
+    else:
+        model = _model()
+        a, b = _inputs(model, seed=1), _inputs(model, seed=2)
+        other = _inputs(model, lat_hw=(6, 4) if case == "flux_canvas_again" else (6, 6))
+        tracking.enable(True)
+        with torch.no_grad():
+            outs = [(_forward(model, *x[:4], x[4](i)), _eager(model, *x[:4], x[4](i)))
+                    for x in (a, b, other) for i in range(2)]
+        want = (1, 4, 1) if case == "flux_canvas_again" else (2, 2, 2)
+    for out, ref in outs:
+        assert torch.equal(out, ref)
+    g = model.graphs
+    assert (g.captures, g.replays, len(g)) == want
+    key = next(iter(g._graphs))
+    assert key[0] == (img.shape if case == "qwen_one_bucket" else a[0].shape,
+                      torch.float32, torch.device("cpu"))
+    assert "attn_impl='plain'" in key and "mods" not in "".join(map(str, key))
+    spans = [r.attrs for r in tracking.drain() if r.name == "flux.graph"]
+    assert spans[0] == dict(key=G._describe(key), captured=True)
+    kv_len = " 1:int32:cpu " if case == "qwen_one_bucket" else " kv_len=None"
+    assert "attn_impl='plain'" in spans[0]["key"] and kv_len in spans[0]["key"]
+
+
 def test_the_least_recently_used_key_goes_first(graphed, monkeypatch):
     monkeypatch.setattr(G, "GRAPH_KEYS", 2)
     model = _model()
@@ -258,7 +304,7 @@ def test_the_least_recently_used_key_goes_first(graphed, monkeypatch):
             call(hw), call(hw)             # eager, capture
         call(shapes[0])                    # (2, 2) is now the most recent
         call(shapes[2]), call(shapes[2])   # a third key evicts (2, 4)
-        keys = [k[0][1] for k in model.graphs._graphs]
+        keys = [k[0][0][1] for k in model.graphs._graphs]   # the image tokens' count
         assert keys == [1, 4] and model.graphs.captures == 3
         # the evicted graph's own static buffers went with it
         assert sorted(k[1][1] for k in model.graphs._buffers if k[0] == 0) == [1, 4]

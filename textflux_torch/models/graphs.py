@@ -46,6 +46,7 @@ Not thread-safe: one caller at a time, as the pipelines that call it.
 from __future__ import annotations
 
 import collections
+import itertools
 import weakref
 from typing import Callable, List, NamedTuple, Sequence
 
@@ -73,6 +74,14 @@ for _hook in (nn.modules.module.register_module_parameter_registration_hook,
               nn.modules.module.register_module_buffer_registration_hook,
               nn.modules.module.register_module_module_registration_hook):
     _hook(_registered)
+
+
+def key_of(inputs: Sequence[torch.Tensor], static: dict) -> tuple:
+    """The key of a forward on tensors `inputs` and other arguments `static`
+    (baked into its launches): each input's (shape, dtype, device), then
+    each other argument as ``name=value``."""
+    return (tuple((t.shape, t.dtype, t.device) for t in inputs)
+            + tuple(f"{k}={v!r}" for k, v in static.items()))
 
 
 class _Graph(NamedTuple):
@@ -220,5 +229,9 @@ class ForwardGraphs:
 
 def _describe(key: tuple) -> str:
     """A key as the ``flux.graph`` span's ``key`` attribute: a string, so
-    that a span record stays plain data."""
-    return " ".join(str(x) for x in key)
+    that a span record stays plain data. An input reads
+    ``shape:dtype:device``; a run of n equal words is written once, ``*n``."""
+    words = [f"{'x'.join(map(str, x[0]))}:{str(x[1]).removeprefix('torch.')}:{x[2]}"
+             if isinstance(x, tuple) else str(x) for x in key]
+    runs = [(w, len(list(g))) for w, g in itertools.groupby(words)]
+    return " ".join(w if n == 1 else f"{w}*{n}" for w, n in runs)

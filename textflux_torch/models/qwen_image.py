@@ -19,11 +19,11 @@ around the blocks:
   text padded to a bucket is masked by the attention's key length.
 
 A serving call (CUDA, gradients off, modulation vectors given) runs from
-the module's ``ForwardGraphs`` like FLUX's. Its key holds the shapes (the
-text's padded length, its bucket, among them) and never the text's own
-length: that reaches the fused kernel as an int32 device tensor
-(``kv_len``), an input of the graph, so requests whose texts differ in
-length but share a bucket replay one graph.
+the module's ``ForwardGraphs`` through FLUX's ``graph_call``. Its key holds
+the inputs' shapes (the text's padded length, its bucket, among them) and
+never the text's own length: that reaches the fused kernel as an int32
+device tensor (``kv_len``), an input of the graph, so requests whose texts
+differ in length but share a bucket replay one graph.
 """
 
 from __future__ import annotations
@@ -35,11 +35,10 @@ import torch
 from torch import nn
 
 from textflux_torch.config import QwenImageConfig
-from textflux_torch.device import resolve_device
-from textflux_torch.models.graphs import ForwardGraphs
-from textflux_torch.models.layers import (MLP, dense, layer_norm, make_linear, ones_param,
-                                          rms_norm, silu, timestep_embedding)
-from textflux_torch.models.transformer import ATTN_IMPLS, DoubleBlock, _graphed, graph_call
+from textflux_torch.models.layers import (MLP, dense, make_linear, ones_param, rms_norm, silu,
+                                          timestep_embedding)
+from textflux_torch.models.transformer import (DoubleBlock, _graphed, check_attn_layout,
+                                               dit_init, graph_call, output_head)
 
 TIMESTEP_SCALE = 1000.0
 # text buckets: powers of two from this up, so a prompt's length moves its
@@ -80,18 +79,10 @@ class QwenImageTransformer(nn.Module):
     def __init__(self, cfg: QwenImageConfig, *, device="cuda", dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        device = resolve_device(device, allow_meta=True)
-        if generator is None and device.type != "meta":
-            generator = torch.Generator(device=device).manual_seed(0)
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        kw = dit_init(self, cfg, device, dtype, generator)
         d = cfg.hidden_dim
-        self.cfg = cfg
-        self.rope_layout = "interleaved"
-        self.tp_layout = 1
-        self.tp_rank = None
-        self.graphs = ForwardGraphs()
         self.img_in = make_linear(cfg.in_channels, d, **kw)
-        self.txt_norm = ones_param(cfg.joint_dim, device=device, dtype=dtype)
+        self.txt_norm = ones_param(cfg.joint_dim, device=kw["device"], dtype=dtype)
         self.txt_in = make_linear(cfg.joint_dim, d, **kw)
         self.time_in = MLP(cfg.time_embed_channels, d, d, **kw)
         self.final_mod = make_linear(d, 2 * d, **kw)
@@ -103,16 +94,11 @@ class QwenImageTransformer(nn.Module):
     def forward(self, img_tokens, txt_tokens, rope_cos, rope_sin, *, attn_impl: str,
                 kv_len=None, mods) -> torch.Tensor:
         """The velocity (see ``qwen_apply``)."""
+        args = dict(img_tokens=img_tokens, txt_tokens=txt_tokens, rope_cos=rope_cos,
+                    rope_sin=rope_sin, attn_impl=attn_impl, kv_len=kv_len)
         if _graphed(img_tokens, remat=False, mods=mods, mesh=None):
-            lens = kv_len is not None
-            key = (tuple(img_tokens.shape), tuple(txt_tokens.shape), lens, attn_impl,
-                   img_tokens.dtype, txt_tokens.dtype, mods["final"].dtype, img_tokens.device)
-            inputs = [img_tokens, txt_tokens, rope_cos, rope_sin] + ([kv_len] if lens else [])
-            return graph_call(self, key, inputs, mods, lambda x, m: self._forward(
-                x[0], x[1], x[2], x[3], attn_impl=attn_impl, kv_len=x[4] if lens else None,
-                mods=m))
-        return self._forward(img_tokens, txt_tokens, rope_cos, rope_sin, attn_impl=attn_impl,
-                             kv_len=kv_len, mods=mods)
+            return graph_call(self, mods, **args)
+        return self._forward(**args, mods=mods)
 
     def _forward(self, img_tokens, txt_tokens, rope_cos, rope_sin, *, attn_impl: str, kv_len,
                  mods):
@@ -129,11 +115,7 @@ class QwenImageTransformer(nn.Module):
         for blk, m in zip(self.double_blocks, mods["double"]):
             txt, img = blk(txt, img, None, m, rope_cos, rope_sin, attn_impl, kv_len, None,
                            img_first=True)
-        scale, shift = mods["final"].chunk(2, dim=-1)
-        x = layer_norm(img) * (1.0 + scale[:, None]) + shift[:, None]
-        # per sample, as FluxTransformer's head: a batch's rows are bitwise
-        # the single-sample call's
-        return torch.cat([dense(self.final_proj, x[i:i + 1]) for i in range(x.shape[0])])
+        return output_head(self, img, mods["final"])
 
 
 def qwen_vec(model: QwenImageTransformer, timestep: torch.Tensor, dtype=torch.bfloat16):
@@ -165,11 +147,6 @@ def qwen_apply(model: QwenImageTransformer, img_tokens: torch.Tensor,
     (B,) tensor on the device of each sample's key length, T_img plus its
     text's own: the keys past it (the text's padding) are masked. A CUDA
     graph takes it as an input."""
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    want = "half" if attn_impl == "fused" else "interleaved"
-    if model.rope_layout != want:
-        raise ValueError(f"attn_impl={attn_impl!r} needs q/k weights in the {want!r} layout, "
-                         f"the model is {model.rope_layout!r} (see half_permute_flux_params)")
+    check_attn_layout(model, attn_impl)
     return model(img_tokens, txt_tokens, rope_cos, rope_sin, attn_impl=attn_impl, kv_len=kv_len,
                  mods=mods)

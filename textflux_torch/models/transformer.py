@@ -53,7 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from textflux_torch.config import FluxConfig
 from textflux_torch.device import resolve_device
 from textflux_torch.io.quantize import OUT_AXIS_KEYS, QuantLinear
-from textflux_torch.models.graphs import ForwardGraphs
+from textflux_torch.models.graphs import ForwardGraphs, key_of
 from textflux_torch.models.layers import (
     MLP,
     dense,
@@ -66,8 +66,8 @@ from textflux_torch.models.layers import (
     timestep_embedding,
 )
 from textflux_torch.ops.attention import dot_product_attention
-from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
-from textflux_torch.ops.rope import apply_rope_bshd, half_permutation
+from textflux_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS, flash_attention_qk_norm_rope
+from textflux_torch.ops.rope import apply_rope_bshd, half_permutation, rope_tables, rope_tables_half
 from textflux_torch.parallel import partitioning as PT
 from textflux_torch.parallel.partitioning import LORA_KEYS
 from textflux_torch.utils.tracking import span
@@ -154,16 +154,8 @@ class FluxTransformer(nn.Module):
     def __init__(self, cfg: FluxConfig, *, device="cuda", dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        device = resolve_device(device, allow_meta=True)
-        if generator is None and device.type != "meta":
-            generator = torch.Generator(device=device).manual_seed(0)
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        kw = dit_init(self, cfg, device, dtype, generator)
         d = cfg.hidden_dim
-        self.cfg = cfg
-        self.rope_layout = "interleaved"
-        self.tp_layout = 1
-        self.tp_rank = None
-        self.graphs = ForwardGraphs()   # the serving forward's CUDA graphs (see forward)
         self.img_in = make_linear(cfg.in_channels, d, **kw)
         self.txt_in = make_linear(cfg.joint_dim, d, **kw)
         self.time_in = MLP(cfg.time_embed_channels, d, d, **kw)
@@ -191,17 +183,13 @@ class FluxTransformer(nn.Module):
         no `remat`) runs from a CUDA graph of this module's (``self.graphs``,
         ``models.graphs.ForwardGraphs``), one per input shape; every other
         call runs eagerly."""
+        args = dict(img_tokens=img_tokens, txt_tokens=txt_tokens, rope_cos=rope_cos,
+                    rope_sin=rope_sin, attn_impl=attn_impl, remat=remat, kv_len=kv_len, mesh=mesh)
         if _graphed(img_tokens, remat=remat, mods=mods, mesh=mesh):
-            key = (tuple(img_tokens.shape), tuple(txt_tokens.shape), rope_cos.shape[0],
-                   kv_len, attn_impl, img_tokens.dtype, txt_tokens.dtype, rope_cos.dtype,
-                   mods["final"].dtype, img_tokens.device)
-            return graph_call(self, key, [img_tokens, txt_tokens, rope_cos, rope_sin], mods,
-                              lambda x, m: self._forward(
-                                  x[0], x[1], None, None, None, x[2], x[3], attn_impl=attn_impl,
-                                  remat=False, kv_len=kv_len, mods=m, mesh=None))
-        return self._forward(img_tokens, txt_tokens, pooled, timestep, guidance, rope_cos,
-                             rope_sin, attn_impl=attn_impl, remat=remat, kv_len=kv_len,
-                             mods=mods, mesh=mesh)
+            # the modulation vectors given, the graph takes no conditioning
+            return graph_call(self, mods, pooled=None, timestep=None, guidance=None, **args)
+        return self._forward(pooled=pooled, timestep=timestep, guidance=guidance, **args,
+                             mods=mods)
 
     def _forward(self, img_tokens, txt_tokens, pooled, timestep, guidance, rope_cos, rope_sin,
                  *, attn_impl: str, remat: bool, kv_len: Optional[int], mods, mesh):
@@ -232,15 +220,20 @@ class FluxTransformer(nn.Module):
         x = torch.cat([txt, img], dim=1)
         for blk, m in zip(self.single_blocks, single_mods):
             x = call(blk, x, sv, m, rope_cos, rope_sin, attn_impl, kv_len, mesh)
-        x = x[:, n_txt:]
+        return output_head(self, x[:, n_txt:], final)
 
-        # AdaLN-continuous output head: chunk order is (scale, shift)
-        scale, shift = final.chunk(2, dim=-1)
-        x = layer_norm(x) * (1.0 + scale[:, None]) + shift[:, None]
-        # a product this narrow (out_channels columns) gets a split reduction
-        # from cuBLAS whose factor depends on the row count: per sample, a
-        # batch's rows are bitwise the single-sample call's
-        return torch.cat([dense(self.final_proj, x[i:i + 1]) for i in range(x.shape[0])])
+
+def dit_init(model: nn.Module, cfg, device, dtype, generator) -> dict:
+    """Set what serving reads of a DiT as built (its config, the q/k layout
+    "interleaved", whole: tp_layout 1, tp_rank None; its forward's CUDA
+    graphs) and return its parameters' factory arguments (`generator`
+    default: seed 0 on `device`)."""
+    device = resolve_device(device, allow_meta=True)
+    if generator is None and device.type != "meta":
+        generator = torch.Generator(device=device).manual_seed(0)
+    model.cfg, model.rope_layout, model.tp_layout, model.tp_rank = cfg, "interleaved", 1, None
+    model.graphs = ForwardGraphs()
+    return dict(device=device, dtype=dtype, generator=generator)
 
 
 def _graphed(x: torch.Tensor, *, remat: bool, mods, mesh) -> bool:
@@ -251,14 +244,19 @@ def _graphed(x: torch.Tensor, *, remat: bool, mods, mesh) -> bool:
             and x.is_cuda)
 
 
-def graph_call(model: nn.Module, key: tuple, inputs: list, mods, fn):
-    """``fn(inputs, mods)`` run from ``model.graphs`` under `key`: the
-    graph's inputs are `inputs` and ``flux_mods``' per-step vectors
-    (flattened), so a replay reads them anew."""
-    n, n_double = len(inputs), len(model.double_blocks)
-    return model.graphs.run(key, model.graphs.signature(model),
-                            lambda x: fn(x[:n], _unflat_mods(x[n:], n_double)),
-                            inputs + _flat_mods(mods))
+def graph_call(model: nn.Module, mods, **args):
+    """``model._forward(**args, mods=mods)`` run from ``model.graphs``: the
+    tensors of `args` and ``flux_mods``' per-step vectors (flattened) are
+    the graph's inputs, read anew by a replay; the other arguments are baked
+    into its launches. Its key (``graphs.key_of``) is derived from both."""
+    names = [k for k, v in args.items() if isinstance(v, torch.Tensor)]
+    static = {k: v for k, v in args.items() if k not in names}
+    inputs = [args[k] for k in names] + _flat_mods(mods)
+    n, n_double = len(names), len(model.double_blocks)
+    return model.graphs.run(key_of(inputs, static), model.graphs.signature(model),
+                            lambda x: model._forward(**dict(zip(names, x)), **static,
+                                                     mods=_unflat_mods(x[n:], n_double)),
+                            inputs)
 
 
 def _flat_mods(mods) -> list:
@@ -277,6 +275,16 @@ def _unflat_mods(flat, n_double: int) -> dict:
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
+
+def output_head(model: nn.Module, x: torch.Tensor, final: torch.Tensor) -> torch.Tensor:
+    """The AdaLN-continuous output head on image tokens `x` (`final`'s chunk
+    order is scale, shift). ``final_proj`` runs per sample: a product this
+    narrow gets a split reduction from cuBLAS whose factor depends on the
+    row count, so a batch's rows are bitwise the single-sample call's."""
+    scale, shift = final.chunk(2, dim=-1)
+    x = _modulate(x, shift, scale)
+    return torch.cat([dense(model.final_proj, x[i:i + 1]) for i in range(x.shape[0])])
+
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, s, _ = x.shape
@@ -463,6 +471,52 @@ def flux_mods(model: FluxTransformer, vec: torch.Tensor, mesh=None):
     }
 
 
+def step_mods(mods_all: dict, i: int, b: int) -> dict:
+    """Step `i`'s `b` rows of ``flux_mods`` over (steps * b) rows."""
+    rows = slice(i * b, (i + 1) * b)
+    return {"double": [(im[rows], tm[rows]) for im, tm in mods_all["double"]],
+            "single": [m[rows] for m in mods_all["single"]], "final": mods_all["final"][rows]}
+
+
+def resolve_attn_impl(attn_impl: str, head_dim: int, device: torch.device) -> str:
+    """A serving pipeline's attention path: "auto" is "fused" on CUDA for a
+    head_dim the Hopper kernel takes (``SUPPORTED_HEAD_DIMS``), else
+    "plain" (the CPU runs the plain path unless asked for the fused one)."""
+    if attn_impl == "auto":
+        attn_impl = "fused" if device.type == "cuda" and head_dim in SUPPORTED_HEAD_DIMS else "plain"
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be 'auto' or one of {ATTN_IMPLS}")
+    return attn_impl
+
+
+def to_attn_layout(model: nn.Module, attn_impl: str) -> nn.Module:
+    """`model`, its q/k weights half-permuted in place for "fused" unless
+    they are (``half_permute_flux_params``)."""
+    if attn_impl == "fused" and model.rope_layout == "interleaved":
+        half_permute_flux_params(model)
+    return model
+
+
+def check_attn_layout(model: nn.Module, attn_impl: str) -> None:
+    """Raise unless `attn_impl` is a path and `model`'s q/k weights are in
+    the layout it reads."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    want = "half" if attn_impl == "fused" else "interleaved"
+    if model.rope_layout != want:
+        raise ValueError(f"attn_impl={attn_impl!r} needs q/k weights in the {want!r} "
+                         f"layout, the model is {model.rope_layout!r} "
+                         "(see half_permute_flux_params)")
+
+
+def model_rope_tables(model: nn.Module, ids: np.ndarray, device) -> tuple:
+    """(cos, sin) on `device` for RoPE ids (S, n_axes) in the layout of
+    `model`'s q/k weights: rotate-half for "half", else interleaved."""
+    fn = rope_tables_half if model.rope_layout == "half" else rope_tables
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in fn(ids, model.cfg.axes_dims_rope, model.cfg.rope_theta))
+
+
 def check_tp(model: FluxTransformer, mesh) -> None:
     """Raise unless `model` holds what a forward over `mesh` needs: for tp >
     1, this rank's shard of weights permuted for that tp (a forward on
@@ -508,13 +562,7 @@ def flux_apply(
     (``parallel.partitioning.shard_for_training``) or the storage shards
     (``shard_storage``) gather each module's weights as it is called."""
     check_tp(model, mesh)
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    want = "half" if attn_impl == "fused" else "interleaved"
-    if model.rope_layout != want:
-        raise ValueError(f"attn_impl={attn_impl!r} needs q/k weights in the {want!r} "
-                         f"layout, the model is {model.rope_layout!r} "
-                         "(see half_permute_flux_params)")
+    check_attn_layout(model, attn_impl)
     return model(img_tokens, txt_tokens, pooled, timestep, guidance, rope_cos, rope_sin,
                  attn_impl=attn_impl, remat=remat, kv_len=kv_len, mods=mods, mesh=mesh)
 

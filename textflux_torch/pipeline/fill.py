@@ -27,6 +27,7 @@ through ``noise=``.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Callable, List, Mapping, Optional, Sequence, Union
@@ -36,6 +37,8 @@ import torch
 
 from textflux_torch.config import FluxConfig, PipelineConfig
 from textflux_torch.device import resolve_device
+from textflux_torch.io.params import checkpoint_bytes, load_checkpoint_dir, load_flux_transformer
+from textflux_torch.io.quantize import check_mode, quantize_tree, quantized_bytes
 from textflux_torch.models import transformer
 from textflux_torch.models.clip import CLIPTextModel, clip_encode
 from textflux_torch.models.t5 import T5Encoder, t5_encode
@@ -43,8 +46,7 @@ from textflux_torch.models.transformer import FluxTransformer, flux_apply
 from textflux_torch.models.vae import (FluxVAE, vae_decode, vae_decode_tiled, vae_encode,
                                        vae_encode_tiled)
 from textflux_torch.ops import packing, samplers
-from textflux_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
-from textflux_torch.ops.rope import rope_tables, rope_tables_half
+from textflux_torch.parallel import partitioning as PT
 from textflux_torch.pipeline import image_processor as improc
 from textflux_torch.pipeline.prompts import GENERIC_TEMPLATE, build_prompts, words_prompt
 from textflux_torch.utils.tracking import span
@@ -63,6 +65,22 @@ def _check_noise(noise) -> dict:
     if unknown:
         raise ValueError(f"unknown noise keys {sorted(unknown)}")
     return noise
+
+
+def timed_load(stats: dict, name: str, paths: Sequence[str], load: Callable, device,
+               device_bytes: Optional[Callable] = None):
+    """``load()``, recording in ``stats[name]`` (a pipeline's ``load_stats``)
+    its seconds, the device synchronised after it, the checkpoint bytes
+    under `paths` and, given `device_bytes`, ``device_bytes(module)``."""
+    t0 = time.perf_counter()
+    out = load()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stats[name] = dict(seconds=time.perf_counter() - t0,
+                       bytes=sum(checkpoint_bytes(p) for p in paths))
+    if device_bytes is not None:
+        stats[name]["device_bytes"] = device_bytes(out)
+    return out
 
 
 class FillPipeline:
@@ -99,24 +117,21 @@ class FillPipeline:
         self.clip_tokenize = clip_tokenize
         self.t5_tokenize = t5_tokenize
         self.pipe_cfg = pipe_cfg
-        if attn_impl == "auto":
-            # the Hopper kernel takes head_dim in SUPPORTED_HEAD_DIMS; the CPU
-            # runs the plain path unless asked for the fused one
-            fused_ok = self.flux_cfg.head_dim in SUPPORTED_HEAD_DIMS
-            attn_impl = "fused" if self.device.type == "cuda" and fused_ok else "plain"
-        if attn_impl not in transformer.ATTN_IMPLS:
-            raise ValueError(f"attn_impl must be 'auto' or one of {transformer.ATTN_IMPLS}")
-        self.attn_impl = attn_impl
+        self.attn_impl = transformer.resolve_attn_impl(attn_impl, self.flux_cfg.head_dim,
+                                                       self.device)
+        if self.flux is not None:
+            transformer.to_attn_layout(self.flux, self.attn_impl)
         self.load_stats = {}         # from_pretrained: seconds and bytes by component
-        if attn_impl == "fused" and self.flux is not None and self.flux.rope_layout == "interleaved":
-            # fold the rotate-half permutation into the q/k weights once
-            # (in place, see half_permute_flux_params)
-            transformer.half_permute_flux_params(self.flux)
         self.last_joint_seq = None   # joint sequence length of the last denoise
 
-    def _rope_tables(self, ids):
-        fn = rope_tables_half if self.attn_impl == "fused" else rope_tables
-        return fn(ids, self.flux_cfg.axes_dims_rope, self.flux_cfg.rope_theta)
+    def _sampling(self, guidance_scale, sampler, overshoot_c) -> tuple:
+        """(guidance_scale, sampler, overshoot_c), the configuration's where None."""
+        cfgp = self.pipe_cfg
+        sampler = sampler or cfgp.sampler
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
+        return (cfgp.guidance_scale if guidance_scale is None else guidance_scale, sampler,
+                cfgp.overshoot_c if overshoot_c is None else overshoot_c)
 
     # ------------------------------------------------------------------
     # stages
@@ -205,7 +220,7 @@ class FillPipeline:
                     kv_len = t_txt + t_img
             self.last_joint_seq = len(ids)
 
-            cos, sin = (torch.as_tensor(t, device=dev) for t in self._rope_tables(ids))
+            cos, sin = transformer.model_rope_tables(self.flux, ids, dev)
             sigmas = samplers.make_schedule(
                 steps, t_img,
                 base_seq_len=cfgp.base_image_seq_len, max_seq_len=cfgp.max_image_seq_len,
@@ -224,18 +239,13 @@ class FillPipeline:
                 pooled.repeat(steps, 1), latents.dtype)
             mods_all = transformer.flux_mods(self.flux, vec_all, mesh=self.mesh)
 
-        def step_mods(i):
-            rows = slice(i * b, (i + 1) * b)
-            return {"double": [(im[rows], tm[rows]) for im, tm in mods_all["double"]],
-                    "single": [m[rows] for m in mods_all["single"]],
-                    "final": mods_all["final"][rows]}
-
         for i in range(steps):
             noise = None
             if step_noise is not None:
                 noise = torch.as_tensor(step_noise[i], device=dev)
             latents = self._denoise_step(
-                latents, cond, txt, pooled, guidance, cos, sin, step_mods(i),
+                latents, cond, txt, pooled, guidance, cos, sin,
+                transformer.step_mods(mods_all, i, b),
                 sigmas[i], sigmas[i + 1], sampler=sampler, overshoot_c=overshoot_c,
                 kv_len=kv_len, noise=noise, generator=generator, step=i)
         return latents[:, :t_img] if t_pad != t_img else latents
@@ -319,28 +329,15 @@ class FillPipeline:
             (B, T, 4*latent_channels) draw per overshoot step). Missing keys
             are drawn from the generator.
         """
-        cfgp = self.pipe_cfg
-        steps = num_inference_steps or cfgp.num_inference_steps
+        steps = num_inference_steps or self.pipe_cfg.num_inference_steps
         with span("fill.call", steps=steps) as call:
-            guidance_scale = cfgp.guidance_scale if guidance_scale is None else guidance_scale
-            sampler = sampler or cfgp.sampler
-            if sampler not in SAMPLERS:
-                raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
-            overshoot_c = cfgp.overshoot_c if overshoot_c is None else overshoot_c
+            guidance_scale, sampler, overshoot_c = self._sampling(guidance_scale, sampler,
+                                                                  overshoot_c)
             noise = _check_noise(noise)
             dev = self.device
-
-            pil = improc.to_pil(image)
-            w0, h0 = pil.size
-            # latent grid must be even for 2x2 packing => 16-pixel granularity
-            width = ((width or w0) // 16) * 16
-            height = ((height or h0) // 16) * 16
+            img, mask, height, width = improc.canvas(image, mask_image, height, width,
+                                                     device=dev, dtype=dtype)
             call.set(height=height, width=width)
-
-            img = torch.as_tensor(improc.preprocess_image(image, height, width),
-                                  device=dev).to(dtype)
-            mask = torch.as_tensor(improc.preprocess_mask(mask_image, height, width),
-                                   device=dev).to(dtype)
 
             if text_embeds is None:
                 if prompt is None or prompt_2 is None:
@@ -438,15 +435,11 @@ class FillPipeline:
         generates its contiguous slice (the tensor ranks of a data group the
         same slice, together), and the images are all-gathered over (data,
         fsdp), so that every rank returns the whole batch, padding dropped."""
-        cfgp = self.pipe_cfg
-        steps = num_inference_steps or cfgp.num_inference_steps
+        steps = num_inference_steps or self.pipe_cfg.num_inference_steps
         with span("fill.call", steps=steps, batch=len(images)) as call:
-            guidance_scale = cfgp.guidance_scale if guidance_scale is None else guidance_scale
-            sampler = sampler or cfgp.sampler
-            if sampler not in SAMPLERS:
-                raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
-            overshoot_c = cfgp.overshoot_c if overshoot_c is None else overshoot_c
-            width, height = (width // 16) * 16, (height // 16) * 16
+            guidance_scale, sampler, overshoot_c = self._sampling(guidance_scale, sampler,
+                                                                  overshoot_c)
+            width, height = improc.snap_to_multiple(width, height, improc.PIXEL_MULTIPLE)
             call.set(height=height, width=width)
 
             b = len(images)
@@ -464,8 +457,6 @@ class FillPipeline:
                 call.set(joint=self.last_joint_seq)
                 with span("fill.postprocess"):
                     return improc.postprocess_image(out.cpu().numpy())
-
-            from textflux_torch.parallel import partitioning as PT
 
             shards = mesh.batch_shards
             n = b + (-b) % shards
@@ -494,10 +485,8 @@ class FillPipeline:
         (B, H, W, 3) on the device, before ``postprocess_image``."""
         dev = self.device
         b = len(images)
-        img = torch.as_tensor(np.concatenate(
-            [improc.preprocess_image(im, height, width) for im in images]), device=dev).to(dtype)
-        mask = torch.as_tensor(np.concatenate(
-            [improc.preprocess_mask(m, height, width) for m in masks]), device=dev).to(dtype)
+        img, mask, _, _ = improc.canvas(list(images), list(masks), height, width, device=dev,
+                                        dtype=dtype)
         if text_embeds is not None:
             # staged residency: embeddings computed while the encoders were
             # resident (encode_batch_prompts)
@@ -550,9 +539,6 @@ class FillPipeline:
         after the permutation (the order NF4 needs, its packed input rows
         cannot be permuted). A pipeline already permuted for another tp, or
         already sharded over fsdp, raises: reload the checkpoint."""
-        from textflux_torch.io.quantize import check_mode, quantize_tree
-        from textflux_torch.parallel import partitioning as PT
-
         if hasattr(self.flux, "_storage"):
             raise ValueError("the DiT is already sharded over fsdp: reload the checkpoint")
         if mesh.device.type != self.device.type or (
@@ -585,8 +571,6 @@ class FillPipeline:
     def _shard_fsdp(self) -> None:
         """Keep 1/fsdp of the DiT on this rank (``shard_storage``) when the
         mesh has an fsdp axis."""
-        from textflux_torch.parallel import partitioning as PT
-
         if self.mesh is not None and self.mesh.shape["fsdp"] > 1 and self.flux is not None:
             PT.shard_storage(self.flux, self.mesh.fsdp_group, params=True)
 
@@ -645,9 +629,6 @@ class FillPipeline:
         from textflux_torch.io.config_io import (clip_config_from, flux_config_from,
                                                  t5_config_from, vae_config_from)
         from textflux_torch.io.lora import load_folded_flux_transformer, resolve_lora_path
-        from textflux_torch.io.params import (checkpoint_bytes, load_checkpoint_dir,
-                                              load_flux_transformer)
-        from textflux_torch.io.quantize import check_mode, quantized_bytes
         from textflux_torch.pipeline.tokenizers import load_tokenizers
 
         flux_mode = check_mode(quantize if isinstance(quantize, str) else "weight_only") \
@@ -660,16 +641,7 @@ class FillPipeline:
         t_path = transformer_path or os.path.join(base_path, "transformer")
         flux_cfg = flux_config_from(t_path)
         stats = {}
-
-        def timed(name, paths, fn):
-            t0 = time.perf_counter()
-            out = fn()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            stats[name] = dict(seconds=time.perf_counter() - t0,
-                               bytes=sum(checkpoint_bytes(p) for p in paths),
-                               device_bytes=quantized_bytes(out))
-            return out
+        timed = functools.partial(timed_load, stats, device=dev, device_bytes=quantized_bytes)
 
         def load_flux():
             if lora_path is None:
@@ -703,8 +675,6 @@ class FillPipeline:
     def _shard_fsdp_stats(self) -> None:
         """``_shard_fsdp``, the DiT's ``device_bytes`` then its storage
         shard's."""
-        from textflux_torch.parallel import partitioning as PT
-
         self._shard_fsdp()
         if hasattr(self.flux, "_storage"):
             self.load_stats["transformer"]["device_bytes"] = PT.storage_bytes(self.flux)
@@ -724,8 +694,5 @@ class FillPipeline:
             return
         if not hasattr(self, "_deferred_flux"):
             raise ValueError("pipeline was not built with defer_transformer=True")
-        flux = self._deferred_flux()
-        if self.attn_impl == "fused":
-            transformer.half_permute_flux_params(flux)
-        self.flux = flux
+        self.flux = transformer.to_attn_layout(self._deferred_flux(), self.attn_impl)
         self._shard_fsdp_stats()

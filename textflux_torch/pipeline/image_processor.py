@@ -1,18 +1,20 @@
 """Host-side image pre/post-processing (VaeImageProcessor equivalent).
 
 Images are NHWC float32 in [-1, 1] on the way in, uint8 PIL on the way out.
-The fill pipeline uses 16-pixel granularity (vae 8x * patch 2x), mirroring
-diffusers pipeline_flux_fill.py:1397-1404.
+The pipelines' canvas (``canvas``) has 16-pixel granularity (vae 8x * patch
+2x), mirroring diffusers pipeline_flux_fill.py:1397-1404.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 from PIL import Image
 
 ImageLike = Union[Image.Image, np.ndarray]
+PIXEL_MULTIPLE = 16
 
 
 def snap_to_multiple(width: int, height: int, multiple: int = 32) -> Tuple[int, int]:
@@ -56,6 +58,24 @@ def preprocess_mask(mask: ImageLike, height: int, width: int, threshold: float =
         pil = pil.resize((width, height), Image.LANCZOS)
     arr = np.asarray(pil, dtype=np.float32) / 255.0
     return (arr >= threshold).astype(np.float32)[None]
+
+
+def canvas(images, masks, height: Optional[int] = None, width: Optional[int] = None, *,
+           device, dtype) -> tuple:
+    """(image (B, H, W, 3), mask (B, H, W), height, width): `images` and
+    `masks` (one each, or sequences of them) at height x width (default:
+    the first image's) snapped down to PIXEL_MULTIPLE, on `device` in
+    `dtype`."""
+    if not isinstance(images, (list, tuple)):
+        images, masks = [images], [masks]
+    if not (height and width):
+        w0, h0 = to_pil(images[0]).size
+        width, height = width or w0, height or h0
+    width, height = snap_to_multiple(width, height, PIXEL_MULTIPLE)
+    img = np.concatenate([preprocess_image(im, height, width) for im in images])
+    mask = np.concatenate([preprocess_mask(m, height, width) for m in masks])
+    return (torch.as_tensor(img, device=device).to(dtype),
+            torch.as_tensor(mask, device=device).to(dtype), height, width)
 
 
 def postprocess_image(images: np.ndarray) -> list:

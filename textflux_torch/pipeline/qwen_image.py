@@ -43,7 +43,6 @@ the blend's noise. The encode takes the posterior's mean and draws nothing.
 from __future__ import annotations
 
 import os
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -57,9 +56,8 @@ from textflux_torch.models.qwen_image import (QwenImageTransformer, model_timest
 from textflux_torch.models.qwen_text import QwenTextEncoder, qwen_encode
 from textflux_torch.models.vae_wan import WanVAE, wan_decode, wan_encode
 from textflux_torch.ops import packing, samplers
-from textflux_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
-from textflux_torch.ops.rope import rope_tables, rope_tables_half
 from textflux_torch.pipeline import image_processor as improc
+from textflux_torch.pipeline.fill import timed_load
 from textflux_torch.pipeline.prompts import QWEN_MAX_TOKENS, QWEN_PREFIX, QWEN_TEMPLATE
 from textflux_torch.utils.tracking import span
 
@@ -82,14 +80,9 @@ class QwenImagePipeline:
         self.tokenize = tokenize
         self.template_drop = int(template_drop)
         self.pipe_cfg = pipe_cfg
-        if attn_impl == "auto":
-            fused_ok = self.dit_cfg.head_dim in SUPPORTED_HEAD_DIMS
-            attn_impl = "fused" if self.device.type == "cuda" and fused_ok else "plain"
-        if attn_impl not in transformer.ATTN_IMPLS:
-            raise ValueError(f"attn_impl must be 'auto' or one of {transformer.ATTN_IMPLS}")
-        self.attn_impl = attn_impl
-        if attn_impl == "fused" and self.dit.rope_layout == "interleaved":
-            transformer.half_permute_flux_params(self.dit)
+        self.attn_impl = transformer.resolve_attn_impl(attn_impl, self.dit_cfg.head_dim,
+                                                       self.device)
+        transformer.to_attn_layout(self.dit, self.attn_impl)
         self.text_tokens = {"real": 0, "padded": 0}
         self.load_stats = {}
 
@@ -157,13 +150,11 @@ class QwenImagePipeline:
     def _texts(self, txt_pos, txt_neg, grid_h: int, grid_w: int):
         """Per text: (padded embedding, RoPE cos, sin, key length)."""
         out = []
-        fn = rope_tables_half if self.attn_impl == "fused" else rope_tables
         t_img = grid_h * grid_w
         for txt in (txt_pos, txt_neg):
             padded, n, bucket = self._padded_text(txt)
-            cos, sin = (torch.as_tensor(t, device=self.device) for t in fn(
-                rope_ids(grid_h, grid_w, bucket), self.dit_cfg.axes_dims_rope,
-                self.dit_cfg.rope_theta))
+            cos, sin = transformer.model_rope_tables(self.dit, rope_ids(grid_h, grid_w, bucket),
+                                                     self.device)
             kv_len = torch.full((txt.shape[0],), t_img + n, dtype=torch.int32, device=self.device)
             out.append((padded, cos, sin, kv_len))
         return out
@@ -193,15 +184,9 @@ class QwenImagePipeline:
                 raise ValueError(f"the Qwen-Image pipeline samples with Euler, not {sampler!r}")
             scale = cfgp.true_cfg_scale if guidance_scale is None else float(guidance_scale)
             dev = self.device
-            pil = improc.to_pil(image)
-            w0, h0 = pil.size
-            width = ((width or w0) // 16) * 16
-            height = ((height or h0) // 16) * 16
+            img, mask, height, width = improc.canvas(image, mask_image, height, width,
+                                                     device=dev, dtype=dtype)
             call.set(height=height, width=width)
-            img = torch.as_tensor(improc.preprocess_image(image, height, width),
-                                  device=dev).to(dtype)
-            mask = torch.as_tensor(improc.preprocess_mask(mask_image, height, width),
-                                   device=dev).to(dtype)
             if text_embeds is None:
                 text = prompt_2 or prompt
                 if text is None:
@@ -231,16 +216,11 @@ class QwenImagePipeline:
                 mods_all = transformer.flux_mods(
                     self.dit, qwen_vec(self.dit, ts.repeat_interleave(b), dtype))
 
-            def step_mods(i):
-                rows = slice(i * b, (i + 1) * b)
-                return {"double": [(im[rows], tm[rows]) for im, tm in mods_all["double"]],
-                        "single": [], "final": mods_all["final"][rows]}
-
             latents = noise
             for i in range(steps):
-                latents = self._denoise_step(latents, texts, step_mods(i), sigmas[i],
-                                             sigmas[i + 1], cfg_scale=scale, mask=mask_tokens,
-                                             z0=z0, noise=noise, step=i)
+                latents = self._denoise_step(latents, texts, transformer.step_mods(mods_all, i, b),
+                                             sigmas[i], sigmas[i + 1], cfg_scale=scale,
+                                             mask=mask_tokens, z0=z0, noise=noise, step=i)
             call.set(joint=t_img + texts[0][0].shape[1])
             decoded = self._decode(latents, lat_h, lat_w)
             with span("fill.postprocess"):
@@ -263,7 +243,7 @@ class QwenImagePipeline:
         `template_drop` are given."""
         from textflux_torch.io.config_io import (qwen_image_config_from, qwen_text_config_from,
                                                  wan_vae_config_from)
-        from textflux_torch.io.params import checkpoint_bytes, load_checkpoint_dir
+        from textflux_torch.io.params import load_checkpoint_dir
 
         dev = resolve_device(device)
         if tokenize is None:
@@ -276,11 +256,8 @@ class QwenImagePipeline:
                                      ("text_encoder", os.path.join(base_path, "text_encoder"),
                                       qwen_text_config_from),
                                      ("vae", os.path.join(base_path, "vae"), wan_vae_config_from)):
-            t0 = time.perf_counter()
-            parts[name] = load_checkpoint_dir(path, cfg_from(path), dtype=dtype, device=dev)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            stats[name] = dict(seconds=time.perf_counter() - t0, bytes=checkpoint_bytes(path))
+            parts[name] = timed_load(stats, name, [path], lambda: load_checkpoint_dir(
+                path, cfg_from(path), dtype=dtype, device=dev), dev)
         pipe = cls(**parts, tokenize=tokenize, template_drop=template_drop, pipe_cfg=pipe_cfg,
                    attn_impl=attn_impl, device=dev)
         pipe.load_stats = stats

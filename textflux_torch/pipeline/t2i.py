@@ -22,6 +22,7 @@ import torch
 
 from textflux_torch.config import PipelineConfig
 from textflux_torch.pipeline import image_processor as improc
+from textflux_torch.pipeline.fill import FillPipeline, _check_noise
 
 
 class Text2ImagePipeline:
@@ -30,8 +31,6 @@ class Text2ImagePipeline:
     def __init__(self, *, flux, vae, clip=None, t5=None, clip_tokenize=None,
                  t5_tokenize=None, pipe_cfg: PipelineConfig = PipelineConfig(guidance_scale=3.5),
                  attn_impl: str = "auto", device="cuda"):
-        from textflux_torch.pipeline.fill import FillPipeline
-
         # reuse the fill pipeline's stages with no cond tokens
         self._fill = FillPipeline(
             flux=flux, vae=vae, clip=clip, t5=t5, clip_tokenize=clip_tokenize,
@@ -46,17 +45,11 @@ class Text2ImagePipeline:
                  seq_pad_multiple: Optional[int] = None, dtype=torch.bfloat16,
                  text_embeds=None, output_type: str = "pil",
                  noise: Optional[Mapping[str, object]] = None):
-        from textflux_torch.pipeline.fill import SAMPLERS, _check_noise
-
         f = self._fill
-        cfgp = f.pipe_cfg
-        steps = num_inference_steps or cfgp.num_inference_steps
-        guidance_scale = cfgp.guidance_scale if guidance_scale is None else guidance_scale
-        sampler = sampler or cfgp.sampler
-        if sampler not in SAMPLERS:
-            raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
+        steps = num_inference_steps or f.pipe_cfg.num_inference_steps
+        guidance_scale, sampler, overshoot_c = f._sampling(guidance_scale, sampler, overshoot_c)
         noise = _check_noise(noise)
-        width, height = (width // 16) * 16, (height // 16) * 16
+        width, height = improc.snap_to_multiple(width, height, improc.PIXEL_MULTIPLE)
         dev = f.device
 
         if text_embeds is None:
@@ -84,8 +77,7 @@ class Text2ImagePipeline:
         latents = f._run_denoise(
             latents, cond, txt, pooled,
             t_img=t_img, lat_h=lat_h, lat_w=lat_w, steps=steps,
-            guidance_scale=guidance_scale, sampler=sampler,
-            overshoot_c=cfgp.overshoot_c if overshoot_c is None else overshoot_c,
+            guidance_scale=guidance_scale, sampler=sampler, overshoot_c=overshoot_c,
             seq_pad_multiple=seq_pad_multiple, step_noise=noise.get("steps"),
             generator=generator)
         if output_type == "latent":
