@@ -13,11 +13,14 @@ Phases, in order; any failure exits non-zero:
      pass, FlashAttention-2's forward, whose logsumexp is held to the plain
      L first; for the int8 weight-only kernel, F.linear on the bf16
      weight), the int8 kernel at the serving step's, the conditioning's
-     and T5's shapes, one launch a call on the host and on the device;
+     and T5's shapes, the AdaLN modulate kernel at FLUX's and Qwen-Image's
+     token counts (its bytes bound beside it), one launch a call on the
+     host and on the device;
   4. main path: full-width FLUX.1-Fill-dev + CLIP-L + T5-XXL + FLUX VAE with
      random bf16 weights made on the card from a seed, driven through
      textflux_torch.cli.run_inference.run on resource/example (euler, then
-     overshoot), with the kernel launch counts checked;
+     overshoot), with the kernel launch counts checked (the AdaLN kernel's:
+     115 a step on the device, 115 a forward not replayed on the host);
   5. profile: one more denoise step timed unprofiled, then traced with
      torch.profiler: device time by kernel and the device's idle share (and
      the same for one train step when the train phase runs, and for one
@@ -200,13 +203,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA events)."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls (CUDA events).
+    With `queued`, the calls are enqueued behind a sleep on the device, so
+    that a kernel shorter than its host launch path is timed alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(100_000_000)   # ~60 ms, longer than the host's enqueueing
     start.record()
     for _ in range(iters):
         fn()
@@ -243,7 +250,7 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 
 KERNEL_NAMES = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel",
-                "norm_rope_kernel", "w8a16_gemm_sm90_kernel")
+                "norm_rope_kernel", "w8a16_gemm_sm90_kernel", "adaln_modulate_kernel")
 
 
 def ptxas_report(text: str) -> dict:
@@ -554,6 +561,108 @@ def phase_int8_kernels() -> list:
     return rows
 
 
+# the AdaLN modulate at D = 3,072: (name, B, rows, leading tokens skipped,
+# chunks of the modulation vector). FLUX's joint 1,216 to 1,664 tokens
+# (1,408 the 4:3 edit's), the head's image tokens past 512 text tokens
+# (a batch-strided slice, the (B, 2D) final modulation), a single block's
+# (B, 3D) chunks; Qwen-Image's 3,008 to 5,248 tokens a forward
+ADALN_D = 3072
+ADALN_CASES = tuple((f"s{s}_b{b}", b, s, 0, 6) for s in (1216, 1408, 1664, 3008, 4224, 5248)
+                    for b in (1, 2)) + (("head_s896_skip512_b1", 1, 896, 512, 2),
+                                        ("head_s896_skip512_b2", 2, 896, 512, 2),
+                                        ("single_s1408_b2", 2, 1408, 0, 3))
+ADALN_BITWISE = 0.99     # least share of outputs bitwise the composition's
+L2_BYTES = 50 << 20      # H100's L2
+
+
+def _bf16_place(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 place (a unit in the last of 8 significant bits) of |v|."""
+    e = torch.floor(torch.log2(v.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def phase_adaln_kernels() -> list:
+    """The AdaLN modulate kernel (``ops.adaln``, which the DiT's
+    ``_modulate`` calls where no gradient flows through a bf16 call) at the
+    main path's shapes (ADALN_CASES): each case is one ``adaln_modulate``
+    call, which must count one host launch and run one
+    ``adaln_modulate_kernel`` on the device. Held to the composition it
+    replaces, run on the card: each element within one bf16 place of the
+    composition's normalised value carried through the product and the sum,
+    plus the one place each of those rounds to, and at least ADALN_BITWISE
+    of them bitwise equal (tests/test_torch_adaln_cuda.py holds the same).
+    Times by CUDA events over 20 calls enqueued behind a sleep on the device
+    (``cuda_ms(queued=True)``: the host's launch path outlasts the kernel),
+    with x cycled through copies that exceed twice the L2, so each call
+    reads x from device memory: the kernel, the plain composition, and the
+    bytes bound (x read and y written once in bf16,
+    the two vectors once, at PEAK_BYTES)."""
+    from textflux_torch.models.layers import layer_norm
+    from textflux_torch.ops import adaln as AM
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = ADALN_D
+    rows, failed = [], []
+    for name, b, s, skip, chunks in ADALN_CASES:
+        spread = 0.5 + 4.0 * torch.rand(b, skip + s, 1, generator=gen, device="cuda")
+        offset = torch.randn(b, skip + s, 1, generator=gen, device="cuda")
+        copies = [(spread * torch.randn(b, skip + s, d, generator=gen, device="cuda") + offset)
+                  .to(torch.bfloat16)[:, skip:]
+                  for _ in range(max(1, -(-2 * L2_BYTES // (2 * b * (skip + s) * d))))]
+        mod = (0.5 * torch.randn(b, chunks * d, generator=gen, device="cuda")).to(torch.bfloat16)
+        shift, scale = mod.chunk(chunks, dim=-1)[:2]
+        x = copies[0]
+        host = AM.adaln_modulate.launches
+        with torch.inference_mode(), DeviceLaunches() as ran:
+            y = AM.adaln_modulate(x, shift, scale)
+        host = AM.adaln_modulate.launches - host
+        device = ran.counts["adaln_modulate_kernel"]
+        n = layer_norm(x)
+        g = 1.0 + scale[:, None]
+        p = n * g
+        want = p + shift[:, None]
+        err = (y.float() - want.float()).abs()
+        tol = _bf16_place(n) * g.float().abs() + _bf16_place(p) + _bf16_place(want)
+        err_over_tol = (err / tol).max().item()
+        bitwise = (y == want).float().mean().item()
+        finite = bool(torch.isfinite(y.float()).all())
+        del n, g, p, want, err, tol, y
+        turn = {"i": 0}
+
+        def next_x():
+            turn["i"] = (turn["i"] + 1) % len(copies)
+            return copies[turn["i"]]
+
+        kernel_ms = cuda_ms(lambda: AM.launch(next_x(), shift, scale), queued=True)
+        plain_ms = cuda_ms(lambda: AM.adaln_modulate_reference(next_x(), shift, scale),
+                           queued=True)
+        bound_ms = 1e3 * (2 * b * s * d + 2 * b * d) * 2 / PEAK_BYTES
+        row = dict(case=name, b=b, s=s, d=d, skip=skip, chunks=chunks,
+                   host_launches=host, device_launches=device, finite=finite,
+                   err_over_tol=err_over_tol, bitwise_share=bitwise,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by="bytes", of_bound=bound_ms / kernel_ms,
+                   speedup=plain_ms / kernel_ms)
+        log("adaln kernel case " + json.dumps(row))
+        if not (finite and err_over_tol <= 1 and bitwise >= ADALN_BITWISE and host == 1
+                and device == 1):
+            failed.append(name)
+        rows.append(row)
+        del copies, mod, shift, scale, x
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"AdaLN kernel disagrees with the composition or launched other "
+                             f"than once in cases {failed}")
+    return rows
+
+
+def adaln_per_forward(cfg) -> int:
+    """AdaLN modulates a DiT forward makes: 4 a double block (two streams,
+    before the attention and before the MLP), 1 a single block, 1 the
+    output head (115 at FLUX.1-Fill's depth)."""
+    return 4 * cfg.num_double_layers + getattr(cfg, "num_single_layers", 0) + 1
+
+
 FLASH_KERNELS =("flash_attention", "flash_attention_lse", "flash_attention_dq",
                  "flash_attention_dkv")
 LSE_TOL = 1e-3     # fp32 output: only the summation order differs
@@ -854,6 +963,7 @@ def phase_main(profile: bool = False) -> dict:
     from textflux_torch.models.t5 import T5Encoder
     from textflux_torch.models.transformer import FluxTransformer
     from textflux_torch.models.vae import FluxVAE
+    from textflux_torch.ops.adaln import adaln_modulate
     from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
     from textflux_torch.pipeline.fill import FillPipeline
 
@@ -894,12 +1004,14 @@ def phase_main(profile: bool = False) -> dict:
 
     pipe._denoise_step = timed_step
     per_block = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    per_forward = adaln_per_forward(flux_cfg)
     paths = EXAMPLE_PATHS
     runs = {}
     for sampler, steps in (("euler", 4), ("overshoot", 2)):
         step_events.clear()
         torch.cuda.synchronize()
         flash_attention_qk_norm_rope.launches = 0
+        adaln_modulate.launches = 0
         graphs = pipe.flux.graphs
         captures, replays = graphs.captures, graphs.replays
         t0 = time.perf_counter()
@@ -920,7 +1032,13 @@ def phase_main(profile: bool = False) -> dict:
                    expected_launches=per_block * steps,
                    graph_captures=graphs.captures - captures,
                    graph_replays=graphs.replays - replays,
+                   adaln_launches=ran.counts["adaln_modulate_kernel"],
+                   adaln_host_launches=adaln_modulate.launches,
                    memory_reserved=torch.cuda.memory_reserved(), images=stats)
+        # the device runs every step's modulates; the host launches those of
+        # the eager and captured forwards, a replay none
+        rec["expected_adaln"] = dict(device=per_forward * steps,
+                                     host=per_forward * (steps - rec["graph_replays"]))
         log("main path " + json.dumps(rec))
         runs[sampler] = rec
         for k_, st in stats.items():
@@ -930,6 +1048,11 @@ def phase_main(profile: bool = False) -> dict:
             raise AssertionError(f"{sampler}: the device ran norm_rope_kernel {launches} and "
                                  f"flash_fwd_sm90_kernel {attn} times, expected "
                                  f"{per_block} x {steps}")
+        if (rec["adaln_launches"], rec["adaln_host_launches"]) != (
+                rec["expected_adaln"]["device"], rec["expected_adaln"]["host"]):
+            raise AssertionError(f"{sampler}: adaln_modulate_kernel ran {rec['adaln_launches']} "
+                                 f"times on the device and {rec['adaln_host_launches']} on the "
+                                 f"host, expected {rec['expected_adaln']}")
     second = runs["overshoot"]
     if (second["graph_captures"], second["graph_replays"]) != (0, second["steps"]):
         raise AssertionError(f"the second image of a canvas should replay the first one's "
@@ -1267,10 +1390,12 @@ def _run_main(argv, recorder, steps, expected_per_step):
     import resource
 
     from textflux_torch.cli.run_inference import main as cli_main
+    from textflux_torch.ops.adaln import adaln_modulate
     from textflux_torch.ops.flash_attention import flash_attention_qk_norm_rope
 
     torch.cuda.synchronize()
     flash_attention_qk_norm_rope.launches = 0
+    adaln_modulate.launches = 0
     t0 = time.perf_counter()
     with DeviceLaunches() as ran:
         cli_main(argv)
@@ -1279,6 +1404,9 @@ def _run_main(argv, recorder, steps, expected_per_step):
                expected_launches=expected_per_step * steps,
                # the int8 weight_only kernel's launches on the device
                int8_launches=ran.counts["w8a16_gemm_sm90_kernel"],
+               # the AdaLN kernel's on the device and the host's launches of it
+               adaln_launches=ran.counts["adaln_modulate_kernel"],
+               adaln_host_launches=adaln_modulate.launches,
                ru_maxrss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
     rec["load_gb_per_s"] = {k: v["bytes"] / v["seconds"] / 1e9 for k, v in rec["load"].items()}
     return rec
@@ -2284,6 +2412,7 @@ def phase_quantized(smi: str, have_checkpoint: bool, profile: bool = False) -> d
         torch.cuda.empty_cache()
     flux_cfg = flux_fill_config()
     per_step = flux_cfg.num_double_layers + flux_cfg.num_single_layers
+    per_forward = adaln_per_forward(flux_cfg)
     problems, out = [], {}
     # T5 is weight_only in every mode (a staged run releases it: counted here)
     t5_int8 = len(quantized_linears(quantize_tree(
@@ -2333,6 +2462,12 @@ def phase_quantized(smi: str, have_checkpoint: bool, profile: bool = False) -> d
                        # replays do not
                        int8_host_launches=IM.int8_matmul.launches - int8_before,
                        expected_int8=_int8_expected(pipe.flux, t5_int8, QUANT_STEPS),
+                       graph_replays=pipe.flux.graphs.replays,
+                       # a step's modulates on the device; the host's of the
+                       # forwards not replayed
+                       expected_adaln=dict(
+                           device=per_forward * QUANT_STEPS,
+                           host=per_forward * (QUANT_STEPS - pipe.flux.graphs.replays)),
                        serve_peak_bytes=torch.cuda.max_memory_allocated(),
                        launches_per_step=rec["launches"] / QUANT_STEPS,
                        dit_device_bytes=pipe.load_stats["transformer"]["device_bytes"],
@@ -2369,6 +2504,11 @@ def phase_quantized(smi: str, have_checkpoint: bool, profile: bool = False) -> d
             if rec["int8_launches"] != rec["expected_int8"]["total"]:
                 problems.append(f"{name}: the int8 kernel ran {rec['int8_launches']} times, "
                                 f"expected {rec['expected_int8']}")
+            if (rec["adaln_launches"], rec["adaln_host_launches"]) != (
+                    rec["expected_adaln"]["device"], rec["expected_adaln"]["host"]):
+                problems.append(f"{name}: adaln_modulate_kernel ran {rec['adaln_launches']} "
+                                f"times on the device and {rec['adaln_host_launches']} on the "
+                                f"host, expected {rec['expected_adaln']}")
             if not np.isfinite(rec["full_depth_rel_err"]):
                 problems.append(f"{name}: the full-depth forward is not finite")
         # loading holds no full-size transient copy on the device
@@ -5285,6 +5425,35 @@ def _int8_entry(int8_rows, build_rec, q_rec=None, qlora_rec=None) -> dict:
     return entry
 
 
+def _adaln_entry(adaln_rows, build_rec, main_rec=None, q_rec=None) -> dict:
+    """The AdaLN modulate kernel's JSON entry: launches on the device by run
+    (the main phase's images, the quantized phase's), its build, and its
+    errors and times at every case of phase 3, those of FLUX's 1,408 joint
+    tokens on the entry itself."""
+    by_run = {f"main_{k}": r["adaln_launches"] for k, r in ((main_rec or {}).get("runs") or {})
+              .items()}
+    by_run.update({f"quantized_{k}": r["adaln_launches"] for k, r in (q_rec or {}).items()
+                   if k != "stack_rel_err"})
+    entry = dict(name="adaln_modulate", route="cuda",
+                 source="textflux_torch/csrc/adaln_modulate.cu",
+                 build={k: v for k, v in build_rec.get("kernels", {}).items()
+                        if k.startswith("adaln_modulate_kernel")},
+                 # the JAX package's composition is fused by XLA
+                 replaces=None,
+                 launches=sum(by_run.values()) if by_run else None,
+                 launches_by_run=by_run or None)
+    main_case = next((r for r in adaln_rows if r["case"] == "s1408_b1"), None)
+    if main_case:
+        entry.update(max_err_over_tol=max(r["err_over_tol"] for r in adaln_rows),
+                     min_bitwise_share=min(r["bitwise_share"] for r in adaln_rows),
+                     ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
+                     bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+                     by_case={r["case"]: {k: r[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                                             "of_bound")}
+                              for r in adaln_rows})
+    return entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5326,6 +5495,7 @@ def main() -> int:
     kernel_rows = run("kernels", phase_kernels) if "kernels" in phases else []
     flash_rows = run("kernels_flash", phase_flash_kernels) if "kernels" in phases else {}
     int8_rows = run("kernels_int8", phase_int8_kernels) if "kernels" in phases else []
+    adaln_rows = run("kernels_adaln", phase_adaln_kernels) if "kernels" in phases else []
     main_rec = run("main", phase_main, "profile" in phases) if "main" in phases else None
     train_rec = run("train", phase_train, "profile" in phases) if "train" in phases else None
     smi = dev["nvidia_smi"]
@@ -5364,6 +5534,7 @@ def main() -> int:
     kernel_entries += _flash_entries(flash_rows, train_rec, build_rec, tm_rec, qlora_rec, tf_rec,
                                      fsdp_rec, tpt_rec)
     kernel_entries.append(_int8_entry(int8_rows, build_rec, q_rec, qlora_rec))
+    kernel_entries.append(_adaln_entry(adaln_rows, build_rec, main_rec, q_rec))
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -50,6 +50,7 @@ from textflux_torch.io.export import (export_lora_state_dict, save_safetensors,
                                       save_transformer_checkpoint)
 from textflux_torch.io.params import load_flux_transformer
 from textflux_torch.models import transformer as TT
+from textflux_torch.models.layers import layer_norm
 from textflux_torch.ops import packing
 from textflux_torch.ops.rope import rope_tables, rope_tables_half
 from textflux_torch.parallel import partitioning as PT
@@ -421,7 +422,7 @@ def _flux_apply_as_before(model, img, txt, pooled, timestep, guidance, cos, sin,
         x = call(TT.single_block, blk, cfg, x, m, cos, sin, attn_impl, None, None)
     x = x[:, n_txt:]
     scale, shift = final.chunk(2, dim=-1)
-    x = TT.layer_norm(x) * (1.0 + scale[:, None]) + shift[:, None]
+    x = layer_norm(x) * (1.0 + scale[:, None]) + shift[:, None]
     return torch.cat([TT.dense(model.final_proj, x[i:i + 1]) for i in range(x.shape[0])])
 
 

@@ -58,13 +58,13 @@ from textflux_torch.models.layers import (
     MLP,
     dense,
     gelu_tanh,
-    layer_norm,
     make_linear,
     ones_param,
     rms_norm,
     silu,
     timestep_embedding,
 )
+from textflux_torch.ops.adaln import adaln_modulate, adaln_modulate_reference
 from textflux_torch.ops.attention import dot_product_attention
 from textflux_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS, flash_attention_qk_norm_rope
 from textflux_torch.ops.rope import apply_rope_bshd, half_permutation, rope_tables, rope_tables_half
@@ -292,7 +292,16 @@ def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def _modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    return layer_norm(x) * (1.0 + scale[:, None]) + shift[:, None]
+    """AdaLN: LayerNorm(x) * (1 + scale) + shift. Where a gradient flows
+    through the call (training, remat's recompute) or the model is not bf16,
+    the plain composition, which autograd differentiates and which is
+    bitwise what the DiT ran before the kernel; else ``adaln_modulate``: the
+    kernel on a CUDA tensor (raising on a layout it does not take), the
+    composition on the CPU."""
+    if x.dtype != torch.bfloat16 or (
+            torch.is_grad_enabled() and any(t.requires_grad for t in (x, shift, scale))):
+        return adaln_modulate_reference(x, shift, scale)
+    return adaln_modulate(x, shift, scale)
 
 
 def _tp(mesh) -> int:
