@@ -15,12 +15,17 @@ Phases, in order; any failure exits non-zero:
      weight), the int8 kernel at the serving step's, the conditioning's
      and T5's shapes, the AdaLN modulate kernel at FLUX's and Qwen-Image's
      token counts (its bytes bound beside it), one launch a call on the
-     host and on the device;
+     host and on the device, and Wan's self- and cross-attention
+     (``attn_self``, ``attn_cross``) at the Wan cell's 8,400 and 9,880
+     video tokens, against themselves and 512 text keys, with their bound
+     from h100_bench/flops_wan.py, one host launch and one prep and one
+     mainloop on the device a call;
   4. main path: full-width FLUX.1-Fill-dev + CLIP-L + T5-XXL + FLUX VAE with
      random bf16 weights made on the card from a seed, driven through
      textflux_torch.cli.run_inference.run on resource/example (euler, then
      overshoot), with the kernel launch counts checked (the AdaLN kernel's:
-     115 a step on the device, 115 a forward not replayed on the host);
+     115 a step on the device, 115 a forward not replayed on the host;
+     Wan's attention kernels none);
   5. profile: one more denoise step timed unprofiled, then traced with
      torch.profiler: device time by kernel and the device's idle share (and
      the same for one train step when the train phase runs, and for one
@@ -250,12 +255,14 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 
 KERNEL_NAMES = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel",
-                "norm_rope_kernel", "w8a16_gemm_sm90_kernel", "adaln_modulate_kernel")
+                "norm_rope_kernel", "w8a16_gemm_sm90_kernel", "adaln_modulate_kernel",
+                "norm_across_heads_kernel", "flash_fwd_cross_sm90_kernel")
 
 
 def ptxas_report(text: str) -> dict:
-    """Registers and spill bytes of each kernel instantiation (name<D>, and
-    name<D,lse> for the forward's LSE-only one) from an -Xptxas -v build
+    """Registers and spill bytes of each kernel instantiation (name<D>,
+    name<D,lse> for the forward's LSE-only one, name<true> / name<false> for
+    one whose only template argument is a bool) from an -Xptxas -v build
     log, and ptxas's wgmma serialisation warnings."""
     kernels, cur = {}, None
     for line in text.splitlines():
@@ -263,8 +270,10 @@ def ptxas_report(text: str) -> dict:
         if m:
             name = next((k for k in KERNEL_NAMES if k in m.group(1)), None)
             d = re.search(r"ILi(\d+)E", m.group(1))
+            flag = re.search(r"ILb([01])E", m.group(1))
             lse = ",lse" if "ELb1E" in m.group(1) else ""
-            cur = f"{name}<{d.group(1) if d else ''}{lse}>" if name else None
+            arg = d.group(1) if d else ("true" if flag.group(1) == "1" else "false") if flag else ""
+            cur = f"{name}<{arg}{lse}>" if name else None
             if cur:
                 kernels.setdefault(cur, {})
             continue
@@ -663,6 +672,140 @@ def adaln_per_forward(cfg) -> int:
     return 4 * cfg.num_double_layers + getattr(cfg, "num_single_layers", 0) + 1
 
 
+# the Wan cell's canvases: video tokens -> (latent frames, rows, columns)
+WAN_GRIDS = {8400: (5, 56, 30), 9880: (5, 38, 52)}
+WAN_HEADS, WAN_HEAD_DIM, WAN_TEXT = 40, 128, 512
+# outputs past one bf16 place of the plain softmax (tests/test_wan_vace_cuda.py)
+WAN_PAST_ONE, WAN_MAX_PLACES = 5e-3, 4.0
+
+
+def _places(got, want) -> torch.Tensor:
+    """|got - want| in bf16 last places at |want|, or at the RMS of its row
+    where |want| is smaller (an element near zero, where float32 sums in
+    another order cancel differently, is judged at its row's scale)."""
+    want = want.float()
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    _, e = torch.frexp(torch.maximum(want.abs(), rms).clamp_min(2.0 ** -126))
+    return (got.float() - want).abs() / torch.ldexp(torch.ones_like(want), e - 8)
+
+
+def _wan_softmax(qn, kn, v) -> torch.Tensor:
+    """The mainloop's plain version on prepped (B, S, H, D) q' (log2 units)
+    and k': exp2 softmax over every key, P rounded to bf16, fp32 sums; 8
+    heads at a time (``across_heads_attention_reference`` after its prep)."""
+    out = []
+    for h in range(0, qn.shape[2], 8):
+        s = torch.einsum("bqhd,bkhd->bhqk", qn[:, :, h:h + 8].float(), kn[:, :, h:h + 8].float())
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(),
+                         v[:, :, h:h + 8].float())
+        out.append(o / p.sum(-1).transpose(1, 2)[..., None])
+        del s, p, o
+    return torch.cat(out, 2).to(torch.bfloat16)
+
+
+def phase_wan_attention_kernels() -> list:
+    """Wan's two attention calls (``ops.flash_attention.attn_self`` and
+    ``attn_cross``, which ``models.wan`` reaches through
+    ``transformer.wan_attention``) at the Wan cell's shapes: 8,400 and 9,880
+    video tokens of 40 heads of 128 against themselves (the across-heads
+    prep with RoPE, then ``flash_fwd_sm90_kernel``) and against 512 text
+    keys (the prep without RoPE, then ``flash_fwd_cross_sm90_kernel``), q,
+    k, v strided views of one projection as the block has them. Each call
+    must count one host launch and run one ``norm_across_heads_kernel`` and
+    its own mainloop on the device, and none of the other. Held to the plain
+    version as tests/test_wan_vace_cuda.py holds them: q' and k' within one
+    bf16 place of ``across_heads_prep_reference``; the output within
+    WAN_MAX_PLACES places of the plain softmax over the kernel's own prep,
+    at most WAN_PAST_ONE of it past one place, and the same on a second
+    call. Times by CUDA events: the call over 20, the prep alone over 20,
+    the plain version (``across_heads_prep_reference`` of q and k, then the
+    plain softmax) over 3, and the bound max(FLOPs / 989 TFLOP/s, bytes /
+    3.35 TB/s) of ``h100_bench/flops_wan.py``."""
+    from h100_bench import flops, flops_wan
+    from textflux_torch.models.wan import rope_ids
+    from textflux_torch.ops import flash_attention as FA
+    from textflux_torch.ops.rope import rope_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = {"num_attention_heads": WAN_HEADS, "attention_head_dim": WAN_HEAD_DIM}
+    peak = {"flops_per_s": PEAK_BF16_FLOPS, "bytes_per_s": PEAK_BYTES}
+    d = WAN_HEADS * WAN_HEAD_DIM
+    mul = FA.LOG2_E / math.sqrt(WAN_HEAD_DIM)
+    rows, failed = [], []
+    for seq, grid in sorted(WAN_GRIDS.items()):
+        def heads(t):
+            return t.reshape(1, t.shape[1], WAN_HEADS, WAN_HEAD_DIM)
+
+        qkv = torch.randn(1, seq, 3 * d, generator=gen, device="cuda").to(torch.bfloat16)
+        kv = torch.randn(1, WAN_TEXT, 2 * d, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (heads(t) for t in qkv.chunk(3, -1))
+        ck, cv = (heads(t) for t in kv.chunk(2, -1))
+        wq, wk = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda") for _ in range(2))
+        cos, sin = (torch.as_tensor(t, device="cuda")
+                    for t in rope_tables(rope_ids(*grid), (44, 42, 42), 10000))
+        for form, kk, vv, tables, wrapper, mainloop, other, cost in (
+                ("self", k, v, (cos, sin), FA.attn_self, "flash_fwd_sm90_kernel",
+                 "flash_fwd_cross_sm90_kernel", flops_wan.self_attention(cfg, seq)),
+                ("cross", ck, cv, (None, None), FA.attn_cross, "flash_fwd_cross_sm90_kernel",
+                 "flash_fwd_sm90_kernel", flops_wan.cross_attention(cfg, seq))):
+            def call():
+                if form == "self":
+                    return FA.attn_self(q, k, v, wq, wk, cos, sin)
+                return FA.attn_cross(q, ck, cv, wq, wk)
+
+            host = wrapper.launches
+            with torch.inference_mode(), DeviceLaunches() as ran:
+                out = call()
+            host = wrapper.launches - host
+            device = {n: ran.counts[n] for n in ("norm_across_heads_kernel", mainloop, other)}
+            rerun = bool(torch.equal(out, call()))
+            qn, kn = FA.across_heads_prep(q, kk, wq, wk, *tables)
+            prep_places = max(
+                float(_places(qn, FA.across_heads_prep_reference(
+                    q, wq, *tables, eps=1e-6, mul=mul, dtype=torch.bfloat16)).max()),
+                float(_places(kn, FA.across_heads_prep_reference(
+                    kk, wk, *tables, eps=1e-6, mul=1.0, dtype=torch.bfloat16)).max()))
+            places = _places(out, _wan_softmax(qn, kn, vv))
+            max_places, past_one = float(places.max()), float((places > 1.0).float().mean())
+            finite = bool(torch.isfinite(out.float()).all())
+            del out, places
+
+            def plain():
+                return _wan_softmax(
+                    FA.across_heads_prep_reference(q, wq, *tables, eps=1e-6, mul=mul,
+                                                   dtype=torch.bfloat16),
+                    FA.across_heads_prep_reference(kk, wk, *tables, eps=1e-6, mul=1.0,
+                                                   dtype=torch.bfloat16), vv)
+
+            kernel_ms = cuda_ms(call)
+            prep_ms = cuda_ms(lambda: FA.across_heads_prep(q, kk, wq, wk, *tables))
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            bound_ms = 1e3 * flops.bound_s(*cost, peak)
+            row = dict(case=f"{form}_{seq}", form=form, seq=seq, keys=kk.shape[1],
+                       heads=WAN_HEADS, head_dim=WAN_HEAD_DIM, host_launches=host,
+                       device_launches=device, finite=finite, rerun_equal=rerun,
+                       prep_max_places=prep_places, max_places=max_places, past_one=past_one,
+                       flops=cost[0], bytes=cost[1], kernel_ms=kernel_ms, prep_ms=prep_ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=("operations" if cost[0] / PEAK_BF16_FLOPS
+                                 >= cost[1] / PEAK_BYTES else "bytes"),
+                       of_bound=bound_ms / kernel_ms, speedup=plain_ms / kernel_ms)
+            log("wan attention case " + json.dumps(row))
+            want = {"norm_across_heads_kernel": 1, mainloop: 1, other: 0}
+            if not (finite and rerun and prep_places <= 1.0 and max_places <= WAN_MAX_PLACES
+                    and past_one < WAN_PAST_ONE and host == 1 and device == want):
+                failed.append(row["case"])
+            rows.append(row)
+            del qn, kn
+        del qkv, kv, q, k, v, ck, cv, cos, sin
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"Wan's attention disagrees with its plain version or launched "
+                             f"other than once in cases {failed}")
+    return rows
+
+
 FLASH_KERNELS =("flash_attention", "flash_attention_lse", "flash_attention_dq",
                  "flash_attention_dkv")
 LSE_TOL = 1e-3     # fp32 output: only the summation order differs
@@ -1034,6 +1177,8 @@ def phase_main(profile: bool = False) -> dict:
                    graph_replays=graphs.replays - replays,
                    adaln_launches=ran.counts["adaln_modulate_kernel"],
                    adaln_host_launches=adaln_modulate.launches,
+                   wan_launches=ran.counts["norm_across_heads_kernel"]
+                   + ran.counts["flash_fwd_cross_sm90_kernel"],
                    memory_reserved=torch.cuda.memory_reserved(), images=stats)
         # the device runs every step's modulates; the host launches those of
         # the eager and captured forwards, a replay none
@@ -1048,6 +1193,9 @@ def phase_main(profile: bool = False) -> dict:
             raise AssertionError(f"{sampler}: the device ran norm_rope_kernel {launches} and "
                                  f"flash_fwd_sm90_kernel {attn} times, expected "
                                  f"{per_block} x {steps}")
+        if rec["wan_launches"]:
+            raise AssertionError(f"{sampler}: FLUX's path ran Wan's attention kernels "
+                                 f"{rec['wan_launches']} times")
         if (rec["adaln_launches"], rec["adaln_host_launches"]) != (
                 rec["expected_adaln"]["device"], rec["expected_adaln"]["host"]):
             raise AssertionError(f"{sampler}: adaln_modulate_kernel ran {rec['adaln_launches']} "
@@ -5454,6 +5602,37 @@ def _adaln_entry(adaln_rows, build_rec, main_rec=None, q_rec=None) -> dict:
     return entry
 
 
+def _wan_attention_entries(wan_rows, build_rec) -> list:
+    """Wan's two attention calls' JSON entries: their builds (the prep's
+    instantiation and the mainloop's at head_dim 128), and their errors
+    and times at each case of phase 3, those at 9,880 tokens on the entry
+    itself. Neither replaces a TPU kernel: the JAX package runs no Wan."""
+    entries = []
+    for form, prep, mainloop in (("self", "norm_across_heads_kernel<true>",
+                                  "flash_fwd_sm90_kernel<128>"),
+                                 ("cross", "norm_across_heads_kernel<false>",
+                                  "flash_fwd_cross_sm90_kernel<128>")):
+        rows = [r for r in wan_rows if r["form"] == form]
+        entry = dict(name=f"attn_{form}", route="cuda",
+                     source="textflux_torch/csrc/fused_attention.cu",
+                     mainloop_source="textflux_torch/csrc/flash_fwd_sm90.cu",
+                     build={k: v for k, v in build_rec.get("kernels", {}).items()
+                            if k in (prep, mainloop)},
+                     replaces=None)
+        main_case = next((r for r in rows if r["seq"] == max(WAN_GRIDS)), None)
+        if main_case:
+            entry.update(max_places=max(r["max_places"] for r in rows),
+                         prep_max_places=max(r["prep_max_places"] for r in rows),
+                         ms=main_case["kernel_ms"], prep_ms=main_case["prep_ms"],
+                         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+                         bound_by=main_case["bound_by"],
+                         by_case={r["case"]: {k: r[k] for k in ("kernel_ms", "prep_ms", "plain_ms",
+                                                                 "bound_ms", "of_bound")}
+                                  for r in rows})
+        entries.append(entry)
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5496,6 +5675,8 @@ def main() -> int:
     flash_rows = run("kernels_flash", phase_flash_kernels) if "kernels" in phases else {}
     int8_rows = run("kernels_int8", phase_int8_kernels) if "kernels" in phases else []
     adaln_rows = run("kernels_adaln", phase_adaln_kernels) if "kernels" in phases else []
+    wan_rows = (run("kernels_wan_attention", phase_wan_attention_kernels)
+                if "kernels" in phases else [])
     main_rec = run("main", phase_main, "profile" in phases) if "main" in phases else None
     train_rec = run("train", phase_train, "profile" in phases) if "train" in phases else None
     smi = dev["nvidia_smi"]
@@ -5535,6 +5716,7 @@ def main() -> int:
                                      fsdp_rec, tpt_rec)
     kernel_entries.append(_int8_entry(int8_rows, build_rec, q_rec, qlora_rec))
     kernel_entries.append(_adaln_entry(adaln_rows, build_rec, main_rec, q_rec))
+    kernel_entries += _wan_attention_entries(wan_rows, build_rec)
     log(dev["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,12 @@ Loads a diffusers-layout checkpoint onto the device (a LoRA folded in at
 load): FLUX.1-Fill into ``FillPipeline``, or, when the transformer's
 config.json names ``QwenImageTransformer2DModel``, Qwen-Image into
 ``pipeline.qwen_image.QwenImagePipeline`` (bf16, true CFG against " ",
-inpainting by latent blending). Auto-detects single-line (glyph strip stacked above) vs multi-line
+inpainting by latent blending), or, when it names
+``WanVACETransformer3DModel``, Wan2.1-VACE into
+``pipeline.wan_vace.WanVACEPipeline`` (bf16, CFG 5 against the negative
+prompt). For Wan, ``--image`` is a clip: a directory of numbered PNG frames
+(1 + 4k of them), ``--mask`` one mask for every frame or a directory of one
+mask a frame; the results are directories of numbered frames. Auto-detects single-line (glyph strip stacked above) vs multi-line
 (per-region rotated glyphs) conditioning from the word file, mirrors the
 reference's //32 snap and saves the same artifact set (full result, crop,
 mask, ori, rendered, txt). Runs on CUDA unless ``--device cpu`` is asked.
@@ -65,16 +70,29 @@ def render_conditioning(original: Image.Image, mask: Image.Image, words, font=No
         lambda result: crop_singleline_result(result, orig_h, sh)), strip
 
 
+def clip_frames(path: str) -> list:
+    """The PNG frames of a clip directory, in the order of their names."""
+    names = sorted(n for n in os.listdir(path) if n.lower().endswith(".png"))
+    if not names:
+        raise ValueError(f"no PNG frames in {path}")
+    return [os.path.join(path, n) for n in names]
+
+
 def run(pipe, image_path, mask_path, words_path, *, steps=30, guidance_scale=30.0,
         seed=42, sampler="euler", overshoot_c=None, font_path=None, device="cuda"):
     """Fill one image with `pipe` (a ``FillPipeline`` or a
     ``QwenImagePipeline``; `guidance_scale` is the latter's true-CFG scale,
-    None for the pipeline's default). `device` names where the caller
-    expects `pipe` to run; it must match the pipeline's own device (CUDA
-    unless asked otherwise)."""
+    None for the pipeline's default), or, when `image_path` is a directory,
+    a clip with a ``WanVACEPipeline``: then every returned image is a list
+    of frames. `device` names where the caller expects `pipe` to run; it
+    must match the pipeline's own device (CUDA unless asked otherwise)."""
     dev = resolve_device(device)
     if pipe.device.type != dev.type:
         raise ValueError(f"the pipeline runs on {pipe.device}, but device={device!r} was asked")
+    if os.path.isdir(image_path):
+        return _run_clip(pipe, image_path, mask_path, words_path, steps=steps,
+                         guidance_scale=guidance_scale, seed=seed, sampler=sampler,
+                         font_path=font_path)
     with span("edit.request"):
         original = Image.open(image_path).convert("RGB")
         mask = Image.open(mask_path).convert("RGB")
@@ -111,6 +129,61 @@ def run(pipe, image_path, mask_path, words_path, *, steps=30, guidance_scale=30.
         return result, cropped, rendered, original, mask
 
 
+def _run_clip(pipe, frames_dir, mask_path, words_path, *, steps, guidance_scale, seed,
+              sampler, font_path):
+    """``run`` for a clip: the single-line canvas of every frame (one glyph
+    strip, drawn once), the pipeline over all of them, each result cropped."""
+    with span("edit.request"):
+        originals = [Image.open(f).convert("RGB") for f in clip_frames(frames_dir)]
+        masks = ([Image.open(f).convert("RGB") for f in clip_frames(mask_path)]
+                 if os.path.isdir(mask_path) else
+                 [Image.open(mask_path).convert("RGB")] * len(originals))
+        if len(masks) != len(originals):
+            raise ValueError(f"{len(originals)} frames but {len(masks)} masks")
+        words = read_words(words_path)
+        if len(words) > 1:
+            raise ValueError("a clip takes the single-line edit: one line of words")
+        font = load_font(font_path, 60)
+        with span("edit.render"):
+            canvases, canvas_masks, crops = [], [], []
+            strip = None
+            for frame, m in zip(originals, masks):
+                combined, combined_mask, crop_fn, rendered = render_conditioning(
+                    frame, m, words, font)
+                strip = strip or rendered
+                new_w, new_h = snap_to_multiple(*combined.size)
+                canvases.append(combined.resize((new_w, new_h)))
+                canvas_masks.append(combined_mask.resize((new_w, new_h)))
+                crops.append(crop_fn)
+        prompt, prompt_2 = build_prompts(words)
+        result = pipe(image=canvases, mask_image=canvas_masks, prompt=prompt, prompt_2=prompt_2,
+                      height=new_h, width=new_w, num_inference_steps=steps,
+                      guidance_scale=guidance_scale, seed=seed, sampler=sampler)
+        with span("edit.crop"):
+            cropped = [crop(r) for crop, r in zip(crops, result)]
+        return result, cropped, strip, originals, masks
+
+
+def save_clip_results(out_dir, result, cropped, masks, originals, rendered, words_path):
+    """A clip's artifacts: numbered frames under result_NNNN/ and
+    crop/crop_NNNN/, the masks and originals likewise, the strip and the
+    words once."""
+    n = 1
+    while os.path.exists(os.path.join(out_dir, f"result_{n:04d}")):
+        n += 1
+    seq = f"{n:04d}"
+    for sub, frames in ((f"result_{seq}", result), (f"crop/crop_{seq}", cropped),
+                        (f"mask/mask_{seq}", masks), (f"ori/ori_{seq}", originals)):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+        for i, frame in enumerate(frames):
+            frame.save(os.path.join(out_dir, sub, f"{i:04d}.png"))
+    os.makedirs(os.path.join(out_dir, "rendered"), exist_ok=True)
+    rendered.convert("RGB").save(os.path.join(out_dir, "rendered", f"rendered_{seq}.png"))
+    os.makedirs(os.path.join(out_dir, "txt"), exist_ok=True)
+    shutil.copy2(words_path, os.path.join(out_dir, "txt", f"words_{seq}.txt"))
+    return seq
+
+
 def save_results(out_dir, result, cropped, mask, original, rendered, words_path):
     for sub in ("", "crop", "mask", "ori", "txt", "rendered"):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
@@ -141,7 +214,7 @@ def main(argv=None):
                    help="T5 token length")
     p.add_argument("--guidance-scale", type=float, default=None,
                    help="FLUX's guidance (default 30), or Qwen-Image's true-CFG scale "
-                        "(default 4)")
+                        "(default 4), or Wan's CFG scale (default 5)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--scheduler", choices=["default", "overshoot"], default="default")
     p.add_argument("--overshoot-c", type=float, default=None,
@@ -176,14 +249,31 @@ def main(argv=None):
     from textflux_torch.pipeline.fill import FillPipeline
 
     t_path = args.transformer or os.path.join(args.model, "transformer")
-    if transformer_class(t_path) == "QwenImageTransformer2DModel":
-        from textflux_torch.pipeline.qwen_image import QwenImagePipeline
-
+    kind = transformer_class(t_path)
+    if kind in ("QwenImageTransformer2DModel", "WanVACETransformer3DModel"):
         if args.lora or args.quantize or args.quantize_mode or args.staged_text:
-            p.error("a Qwen-Image checkpoint is served in bf16 alone: no --lora, --quantize, "
+            p.error(f"a {kind} checkpoint is served in bf16 alone: no --lora, --quantize, "
                     "--quantize-mode or --staged-text")
         if args.scheduler != "default":
-            p.error("a Qwen-Image checkpoint samples with Euler only")
+            p.error(f"a {kind} checkpoint samples with Euler only")
+    if kind == "WanVACETransformer3DModel":
+        from textflux_torch.pipeline.wan_vace import WanVACEPipeline
+
+        if not os.path.isdir(args.image):
+            p.error("a Wan2.1-VACE checkpoint edits a clip: --image is a directory of frames")
+        pipe = WanVACEPipeline.from_pretrained(args.model, transformer_path=args.transformer,
+                                               device=args.device)
+        result, cropped, rendered, originals, masks = run(
+            pipe, args.image, args.mask, args.words, steps=args.steps,
+            guidance_scale=args.guidance_scale, seed=args.seed, font_path=args.font,
+            device=args.device)
+        seq = save_clip_results(args.output_dir, result, cropped, masks, originals, rendered,
+                                args.words)
+        print(f"saved result_{seq}/ under {args.output_dir}")
+        return
+    if kind == "QwenImageTransformer2DModel":
+        from textflux_torch.pipeline.qwen_image import QwenImagePipeline
+
         pipe = QwenImagePipeline.from_pretrained(args.model, transformer_path=args.transformer,
                                                  device=args.device)
     else:

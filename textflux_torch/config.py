@@ -84,6 +84,9 @@ class T5Config:
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
     layer_norm_eps: float = 1e-6
+    # one relative-position bias for every layer (T5 v1.1), or one per layer
+    # (UMT5, Wan's ``shared_pos=False``)
+    shared_pos: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +177,61 @@ class QwenPipelineConfig:
     base_shift: float = 0.5
     max_shift: float = 0.9
     shift_terminal: float = 0.02
+
+
+@dataclasses.dataclass(frozen=True)
+class WanVACEConfig:
+    """Wan2.1-VACE's DiT (diffusers' ``WanVACETransformer3DModel``): 3-D
+    patches (1, 2, 2) of the 16 latent channels, blocks of self-attention
+    (q/k RMSNorm across heads, 3-axis interleaved RoPE), cross-attention to
+    the text and a GELU-tanh FFN under AdaLN modulation from the timestep
+    alone; the VACE branch of blocks of the same kind over the control
+    (``vace_in_channels``: inactive and reactive latents and the 64 mask
+    channels), whose hints join the main stream after ``vace_layers``."""
+
+    in_channels: int = 16
+    out_channels: int = 16
+    vace_in_channels: int = 96
+    num_layers: int = 40
+    vace_layers: Tuple[int, ...] = (0, 5, 10, 15, 20, 25, 30, 35)
+    num_heads: int = 40
+    head_dim: int = 128
+    ffn_dim: int = 13824
+    text_dim: int = 4096
+    text_len: int = 512
+    patch_size: Tuple[int, ...] = (1, 2, 2)
+    freq_dim: int = 256
+    eps: float = 1e-6
+    rope_theta: int = 10000
+
+    @property
+    def hidden_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def axes_dims_rope(self) -> Tuple[int, ...]:
+        """The head's rotary split over (frame, row, column): Wan's
+        (D - 4 (D // 6), 2 (D // 6), 2 (D // 6)), (44, 42, 42) at 128."""
+        d = self.head_dim
+        return (d - 4 * (d // 6), 2 * (d // 6), 2 * (d // 6))
+
+    @property
+    def patch_dim(self) -> int:
+        return self.patch_size[0] * self.patch_size[1] * self.patch_size[2]
+
+
+@dataclasses.dataclass(frozen=True)
+class WanPipelineConfig:
+    """Wan2.1-VACE serving defaults: flow-matching Euler over the static
+    shift sigma' = shift sigma / (1 + (shift - 1) sigma), true CFG against
+    the negative prompt, the text padded to ``text_len``."""
+
+    num_inference_steps: int = 30
+    guidance_scale: float = 5.0
+    flow_shift: float = 5.0
+    # a fixed English stand-in for Wan's default negative prompt
+    negative_prompt: str = ("bright colors, overexposed, static, blurred details, subtitles, "
+                            "worst quality, low quality, ugly, deformed, still picture")
 
 
 @dataclasses.dataclass(frozen=True)

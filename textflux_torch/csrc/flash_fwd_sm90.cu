@@ -13,6 +13,11 @@
 //                                      pass 1): the same mainloop with V's
 //                                      loads, P*V and the O epilogue compiled
 //                                      out, L alone
+//   flash_fwd_cross_sm90_kernel<D>  <- no TPU kernel: Wan's cross-attention
+//                                      (the JAX package has no such model),
+//                                      the same mainloop (flash_fwd_block)
+//                                      over keys and values of their own
+//                                      length, under a name of its own
 //
 // What it computes, per (batch, head), with keys at index >= kv_len masked
 // out (-1e30; kv_len is the sample's entry of kv_lens when that device array
@@ -115,13 +120,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
   for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 }
 
+// The mainloop of one block, under both kernels below: q's rows from tm_q
+// (seq of them), K and V from tm_k / tm_v, whose own row count the keys past
+// kv_len never reach.
 template <int D, bool kLseOnly>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
-                      const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
-                      float* __restrict__ lse, int seq, int heads, int kv_len,
-                      const int* __restrict__ kv_lens, float score_mul) {
+__device__ __forceinline__ void flash_fwd_block(const CUtensorMap* tmq, const CUtensorMap* tmk,
+                                                const CUtensorMap* tmv, bf16* __restrict__ out,
+                                                float* __restrict__ lse, int seq, int heads,
+                                                int kv_len, const int* __restrict__ kv_lens,
+                                                float score_mul) {
+  const CUtensorMap& tm_q = *tmq;
+  const CUtensorMap& tm_k = *tmk;
+  const CUtensorMap& tm_v = *tmv;
   constexpr int TILE = kTileBytes<D>;
   extern __shared__ unsigned char smem_raw[];
   // [Q: 2 tiles | K x kStages | V x kStages | barriers]
@@ -333,6 +343,30 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+template <int D, bool kLseOnly>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
+                      float* __restrict__ lse, int seq, int heads, int kv_len,
+                      const int* __restrict__ kv_lens, float score_mul) {
+  flash_fwd_block<D, kLseOnly>(&tm_q, &tm_k, &tm_v, out, lse, seq, heads, kv_len, kv_lens,
+                               score_mul);
+}
+
+// Cross-attention: the same mainloop, O alone, with keys and values of a
+// length of their own (kv_len, the text's rows) against seq queries; a kernel
+// of its own name, so that a profile tells its time from self-attention's.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_cross_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
+                            int seq, int heads, int kv_len, float score_mul) {
+  flash_fwd_block<D, false>(&tm_q, &tm_k, &tm_v, out, nullptr, seq, heads, kv_len, nullptr,
+                            score_mul);
+}
+
 template <int D>
 constexpr int fwd_smem_bytes() {
   return 1024 + (kConsumers + 2 * kStages) * kTileBytes<D> + 8 * (3 * kStages + 1);
@@ -353,22 +387,44 @@ cudaError_t launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUten
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_cross(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                         void* out, int batch, int seq, int heads, int kv_len, float score_mul,
+                         cudaStream_t st) {
+  const int smem = fwd_smem_bytes<D>();
+  static SmemLimitOnce limit;
+  const cudaError_t err = limit.set(flash_fwd_cross_sm90_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
+  flash_fwd_cross_sm90_kernel<D><<<grid, kThreads, smem, st>>>(
+      tq, tk, tv, static_cast<bf16*>(out), seq, heads, kv_len, score_mul);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 namespace textflux {
 namespace sm90 {
 
 cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
-                      int batch, int seq, int heads, int head_dim, int kv_len,
-                      const int* kv_lens, const long long* sd, float score_mul,
+                      int batch, int seq, int seq_k, int heads, int head_dim, int kv_len,
+                      const int* kv_lens, const long long* sd, float score_mul, bool cross,
                       cudaStream_t st) {
   if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
+  if (cross && (lse != nullptr || kv_lens != nullptr)) return cudaErrorInvalidValue;
   const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {seq, seq_k, seq_k};
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
-    const cudaError_t err = make_bshd_map(&maps[i], ptrs[i], batch, seq, heads, head_dim,
+    const cudaError_t err = make_bshd_map(&maps[i], ptrs[i], batch, rows[i], heads, head_dim,
                                           sd[2 * i + 1], sd[2 * i], kRows);
     if (err != cudaSuccess) return err;
+  }
+  if (cross) {
+    return head_dim == 64 ? launch_cross<64>(maps[0], maps[1], maps[2], out, batch, seq, heads,
+                                             kv_len, score_mul, st)
+                          : launch_cross<128>(maps[0], maps[1], maps[2], out, batch, seq, heads,
+                                              kv_len, score_mul, st);
   }
   return head_dim == 64 ? launch_fwd<64, false>(maps[0], maps[1], maps[2], out, lse, batch, seq,
                                                 heads, kv_len, kv_lens, score_mul, st)
@@ -391,8 +447,8 @@ extern "C" int textflux_flash_fwd(const void* q, const void* k, const void* v, v
                                   float scale_log2, void* stream) {
   const long long sd[6] = {q_sb, q_ss, k_sb, k_ss, v_sb, v_ss};
   return static_cast<int>(textflux::sm90::flash_fwd(
-      q, k, v, out, static_cast<float*>(lse), batch, seq, heads, head_dim, kv_len, nullptr, sd,
-      scale_log2, static_cast<cudaStream_t>(stream)));
+      q, k, v, out, static_cast<float*>(lse), batch, seq, seq, heads, head_dim, kv_len, nullptr,
+      sd, scale_log2, false, static_cast<cudaStream_t>(stream)));
 }
 
 // The LSE pass alone: L = natural-log row LSE of scale_log2 * q k^T (log2

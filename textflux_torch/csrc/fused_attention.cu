@@ -175,7 +175,184 @@ extern "C" int textflux_fused_norm_rope_attention(
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long row = static_cast<long long>(heads) * head_dim;  // q'/k' sequence stride
   const long long sd[6] = {seq * row, row, seq * row, row, v_sb, v_ss};
-  err = textflux::sm90::flash_fwd(qn, kn, v, out, nullptr, batch, seq, heads, head_dim, kv_len,
-                                  static_cast<const int*>(kv_lens), sd, 1.f, st);
+  err = textflux::sm90::flash_fwd(qn, kn, v, out, nullptr, batch, seq, seq, heads, head_dim,
+                                  kv_len, static_cast<const int*>(kv_lens), sd, 1.f, false, st);
+  return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// Wan's attention: q/k RMSNorm across the token's heads, then RoPE or none
+// ---------------------------------------------------------------------------
+//
+// Replaces no TPU kernel: the JAX package has no model whose q/k norm spans
+// the heads. Wan's self-attention normalises each token's q (and k) over all
+// H*D features with one (H*D,) weight, then applies interleaved 3-axis RoPE;
+// its cross-attention does the same without RoPE, q over the video tokens
+// and k over the text's. The per-head prep above cannot: its statistic is a
+// warp's one head. norm_across_heads_kernel gives each token row of q or k
+// one block of kAcrossThreads threads, which reads the row's H*D bf16
+// features once (8-byte loads, kept in registers), sums their squares over
+// the block, and writes
+//   dst = rope(x * rsqrt(mean(x^2) + eps) * w) * mul   (fp32, one rounding)
+// rope: (a, b) -> (a cos - b sin, b cos + a sin) on each interleaved pair,
+// whose two features sit in one thread's 4-feature chunk. Bound on the H100
+// by bytes: 2 + 2 bytes a feature of q and of k (plus the fp32 tables, read
+// from L2 after the first head): at Wan's S = 9,880, H*D = 5,120, ~0.20 GB,
+// ~0.06 ms at 3.35 TB/s. The attention then runs the forward mainloop on
+// q', k' and v: flash_fwd_sm90_kernel for self-attention,
+// flash_fwd_cross_sm90_kernel for cross-attention (keys of the text's
+// length).
+
+namespace {
+
+constexpr int kAcrossThreads = 256;
+constexpr int kAcrossChunks = 8;  // 4-feature chunks a thread holds: H*D <= 8,192
+
+template <bool kRope>
+__global__ void __launch_bounds__(kAcrossThreads)
+norm_across_heads_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const float* __restrict__ wq, const float* __restrict__ wk,
+                         const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                         __nv_bfloat16* __restrict__ qn, __nv_bfloat16* __restrict__ kn,
+                         int batch, int seq_q, int seq_k, int head_dim, int width,
+                         long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                         float eps, float q_mul) {
+  __shared__ float partial[kAcrossThreads / 32];
+  const long long q_rows = static_cast<long long>(batch) * seq_q;
+  long long row = blockIdx.x;
+  const bool is_q = row < q_rows;
+  if (!is_q) row -= q_rows;
+  const int seq = is_q ? seq_q : seq_k;
+  const int s = static_cast<int>(row % seq);
+  const int b = static_cast<int>(row / seq);
+  const __nv_bfloat16* src = is_q ? q + b * q_sb + s * q_ss : k + b * k_sb + s * k_ss;
+  __nv_bfloat16* dst = (is_q ? qn : kn) + row * width;
+  const float* w = is_q ? wq : wk;
+  const float mul = is_q ? q_mul : 1.f;
+  const int chunks = width / 4;
+
+  float x[kAcrossChunks][4];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kAcrossChunks; ++i) {
+    const int c = i * kAcrossThreads + threadIdx.x;
+    if (c < chunks) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(src + 4 * c);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+      x[i][0] = lo.x;
+      x[i][1] = lo.y;
+      x[i][2] = hi.x;
+      x[i][3] = hi.y;
+      ss += lo.x * lo.x + lo.y * lo.y + hi.x * hi.x + hi.y * hi.y;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kAcrossThreads / 32; ++i) ss += partial[i];
+  const float r = rsqrtf(ss / static_cast<float>(width) + eps);
+
+#pragma unroll
+  for (int i = 0; i < kAcrossChunks; ++i) {
+    const int c = i * kAcrossThreads + threadIdx.x;
+    if (c < chunks) {
+      const float4 wv = *reinterpret_cast<const float4*>(w + 4 * c);
+      float y[4] = {x[i][0] * r * wv.x, x[i][1] * r * wv.y, x[i][2] * r * wv.z,
+                    x[i][3] * r * wv.w};
+      if constexpr (kRope) {
+        const int j = (4 * c) % head_dim;  // feature of the head: pairs (j, j+1), (j+2, j+3)
+        const float4 cv = *reinterpret_cast<const float4*>(cos_t + static_cast<long long>(s) *
+                                                           head_dim + j);
+        const float4 sv = *reinterpret_cast<const float4*>(sin_t + static_cast<long long>(s) *
+                                                           head_dim + j);
+        const float a0 = y[0], b0 = y[1], a1 = y[2], b1 = y[3];
+        y[0] = a0 * cv.x - b0 * sv.x;
+        y[1] = b0 * cv.y + a0 * sv.y;
+        y[2] = a1 * cv.z - b1 * sv.z;
+        y[3] = b1 * cv.w + a1 * sv.w;
+      }
+      __nv_bfloat162 lo = __floats2bfloat162_rn(y[0] * mul, y[1] * mul);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(y[2] * mul, y[3] * mul);
+      uint2 out;
+      out.x = *reinterpret_cast<uint32_t*>(&lo);
+      out.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(dst + 4 * c) = out;
+    }
+  }
+}
+
+cudaError_t across_prep(const void* q, const void* k, const void* wq, const void* wk,
+                        const void* cos_t, const void* sin_t, void* qn, void* kn, int batch,
+                        int seq_q, int seq_k, int heads, int head_dim, long long q_sb,
+                        long long q_ss, long long k_sb, long long k_ss, float eps, float q_mul,
+                        cudaStream_t st) {
+  const int width = heads * head_dim;
+  if (head_dim % 4 != 0 || width > 4 * kAcrossThreads * kAcrossChunks) {
+    return cudaErrorInvalidValue;
+  }
+  const long long rows = static_cast<long long>(batch) * (seq_q + seq_k);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* wqf = static_cast<const float*>(wq);
+  const auto* wkf = static_cast<const float*>(wk);
+  auto* qo = static_cast<__nv_bfloat16*>(qn);
+  auto* ko = static_cast<__nv_bfloat16*>(kn);
+  if (cos_t != nullptr) {
+    norm_across_heads_kernel<true><<<static_cast<unsigned>(rows), kAcrossThreads, 0, st>>>(
+        qb, kb, wqf, wkf, static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+        qo, ko, batch, seq_q, seq_k, head_dim, width, q_sb, q_ss, k_sb, k_ss, eps, q_mul);
+  } else {
+    norm_across_heads_kernel<false><<<static_cast<unsigned>(rows), kAcrossThreads, 0, st>>>(
+        qb, kb, wqf, wkf, nullptr, nullptr, qo, ko, batch, seq_q, seq_k, head_dim, width, q_sb,
+        q_ss, k_sb, k_ss, eps, q_mul);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q: bf16 (B, seq_q, H, D), k: bf16 (B, seq_k, H, D), each with unit feature
+// stride and head stride D, their batch and sequence strides (elements,
+// multiples of 4) passed. wq, wk: fp32 (H*D,). cos_t, sin_t: fp32 (seq_q, D)
+// interleaved tables (seq_q == seq_k), or both null for no RoPE. qn, kn:
+// contiguous bf16 scratch of q's and k's shapes, written here (q' times
+// q_mul). Returns a cudaError_t.
+extern "C" int textflux_across_heads_prep(const void* q, const void* k, const void* wq,
+                                          const void* wk, const void* cos_t, const void* sin_t,
+                                          void* qn, void* kn, int batch, int seq_q, int seq_k,
+                                          int heads, int head_dim, long long q_sb,
+                                          long long q_ss, long long k_sb, long long k_ss,
+                                          float eps, float q_mul, void* stream) {
+  return static_cast<int>(across_prep(q, k, wq, wk, cos_t, sin_t, qn, kn, batch, seq_q, seq_k,
+                                      heads, head_dim, q_sb, q_ss, k_sb, k_ss, eps, q_mul,
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+// As textflux_across_heads_prep (q_mul = log2(e)/sqrt(D)), then the
+// attention over q', k' and v: v is bf16 (B, seq_k, H, D) with unit feature
+// stride, head stride D and batch / sequence strides that are multiples of 8
+// elements, 16-byte aligned (TMA reads it). With tables: self-attention
+// (seq_k == seq_q), flash_fwd_sm90_kernel; without: cross-attention,
+// flash_fwd_cross_sm90_kernel. out: contiguous bf16 (B, seq_q, H, D). Every
+// key is live. Returns a cudaError_t.
+extern "C" int textflux_across_heads_attention(
+    const void* q, const void* k, const void* v, const void* wq, const void* wk,
+    const void* cos_t, const void* sin_t, void* qn, void* kn, void* out, int batch, int seq_q,
+    int seq_k, int heads, int head_dim, long long q_sb, long long q_ss, long long k_sb,
+    long long k_ss, long long v_sb, long long v_ss, float eps, float q_mul, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool cross = cos_t == nullptr;
+  if (!cross && seq_k != seq_q) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = across_prep(q, k, wq, wk, cos_t, sin_t, qn, kn, batch, seq_q, seq_k, heads,
+                                head_dim, q_sb, q_ss, k_sb, k_ss, eps, q_mul, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long row = static_cast<long long>(heads) * head_dim;
+  const long long sd[6] = {seq_q * row, row, seq_k * row, row, v_sb, v_ss};
+  err = textflux::sm90::flash_fwd(qn, kn, v, out, nullptr, batch, seq_q, seq_k, heads, head_dim,
+                                  seq_k, nullptr, sd, 1.f, cross, st);
   return static_cast<int>(err);
 }

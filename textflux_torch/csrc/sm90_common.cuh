@@ -620,16 +620,18 @@ class SmemLimitOnce {
 // Launch flash_fwd_sm90_kernel (defined in flash_fwd_sm90.cu) on the
 // stream: out = softmax(score_mul * q k^T in log2 units) v over keys <
 // kv_len, and, when lse is not null, L = natural-log row LSE of the same
-// scores into lse, fp32 (B, H, S). q, k, v: bf16 (B, S, H, D) views with unit
-// feature stride and head stride D; sd = their (batch, sequence) strides in
-// elements, in the order q, k, v (multiples of 8: TMA wants 16-byte
-// strides). out: contiguous bf16 (B, S, H, D). head_dim is 64 or 128;
-// 1 <= kv_len <= seq. kv_lens: null, or a device array of B int32 key
-// lengths (each in [1, seq]) read by the kernel in kv_len's place. Returns
-// the launch's error (cudaSuccess when it ran).
+// scores into lse, fp32 (B, H, S). q: bf16 (B, S, H, D), k and v bf16
+// (B, seq_k, H, D), views with unit feature stride and head stride D; sd =
+// their (batch, sequence) strides in elements, in the order q, k, v
+// (multiples of 8: TMA wants 16-byte strides). out: contiguous bf16 (B, S,
+// H, D). head_dim is 64 or 128; 1 <= kv_len <= seq_k. kv_lens: null, or a
+// device array of B int32 key lengths (each in [1, seq_k]) read by the
+// kernel in kv_len's place. `cross` launches flash_fwd_cross_sm90_kernel
+// instead, the same mainloop under its own name (no L, no kv_lens).
+// Returns the launch's error (cudaSuccess when it ran).
 cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
-                      int batch, int seq, int heads, int head_dim, int kv_len,
-                      const int* kv_lens, const long long* sd, float score_mul,
+                      int batch, int seq, int seq_k, int heads, int head_dim, int kv_len,
+                      const int* kv_lens, const long long* sd, float score_mul, bool cross,
                       cudaStream_t st);
 
 }  // namespace sm90

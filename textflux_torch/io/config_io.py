@@ -9,7 +9,7 @@ import os
 from typing import Optional
 
 from textflux_torch.config import (CLIPTextConfig, FluxConfig, QwenImageConfig, QwenTextConfig,
-                                   T5Config, VAEConfig, WanVAEConfig)
+                                   T5Config, VAEConfig, WanVACEConfig, WanVAEConfig)
 
 
 def _load(path: str) -> Optional[dict]:
@@ -83,6 +83,8 @@ def t5_config_from(path: str) -> T5Config:
         num_heads=c.get("num_heads", 64),
         relative_attention_num_buckets=c.get("relative_attention_num_buckets", 32),
         relative_attention_max_distance=c.get("relative_attention_max_distance", 128),
+        # UMT5 gives every layer its own relative-position bias
+        shared_pos=c.get("model_type") != "umt5",
     )
 
 
@@ -147,4 +149,31 @@ def wan_vae_config_from(path: str) -> WanVAEConfig:
         num_res_blocks=c.get("num_res_blocks", 2),
         latents_mean=tuple(c.get("latents_mean", defaults.latents_mean)),
         latents_std=tuple(c.get("latents_std", defaults.latents_std)),
+    )
+
+
+def wan_vace_config_from(path: str) -> WanVACEConfig:
+    """diffusers ``WanVACETransformer3DModel`` config.json."""
+    c = _load(path)
+    if c is None:
+        return WanVACEConfig()
+    if c.get("qk_norm", "rms_norm_across_heads") != "rms_norm_across_heads":
+        raise ValueError(f"q/k norm {c['qk_norm']!r} is not supported: Wan's is "
+                         "'rms_norm_across_heads'")
+    if c.get("image_dim") or c.get("added_kv_proj_dim") or not c.get("cross_attn_norm", True):
+        raise ValueError("an image-conditioned Wan transformer, or one without the cross-"
+                         "attention norm, is not supported")
+    return WanVACEConfig(
+        in_channels=c.get("in_channels", 16),
+        out_channels=c.get("out_channels", 16),
+        vace_in_channels=c.get("vace_in_channels", 96),
+        num_layers=c.get("num_layers", 40),
+        vace_layers=tuple(c.get("vace_layers", (0, 5, 10, 15, 20, 25, 30, 35))),
+        num_heads=c.get("num_attention_heads", 40),
+        head_dim=c.get("attention_head_dim", 128),
+        ffn_dim=c.get("ffn_dim", 13824),
+        text_dim=c.get("text_dim", 4096),
+        patch_size=tuple(c.get("patch_size", (1, 2, 2))),
+        freq_dim=c.get("freq_dim", 256),
+        eps=c.get("eps", 1e-6),
     )

@@ -39,7 +39,7 @@ import torch
 from torch import nn
 
 from textflux_torch.config import (CLIPTextConfig, FluxConfig, QwenImageConfig, QwenTextConfig,
-                                   T5Config, VAEConfig, WanVAEConfig)
+                                   T5Config, VAEConfig, WanVACEConfig, WanVAEConfig)
 from textflux_torch.device import resolve_device
 from textflux_torch.io.quantize import QuantLinear, quantize_plan, quantize_tree
 from textflux_torch.io.safetensors import DTYPES, SafetensorsFile, read_header
@@ -249,15 +249,19 @@ def clip_key_map(model) -> KeyMap:
 
 
 def t5_key_map(model) -> KeyMap:
-    """transformers T5EncoderModel names -> T5Encoder parameters."""
+    """transformers T5EncoderModel (or UMT5EncoderModel, a relative-position
+    bias in every layer) names -> T5Encoder parameters."""
+    bias = "layer.0.SelfAttention.relative_attention_bias.weight"
     out: KeyMap = {
         "shared.weight": (model.embedding, None),
-        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
-            (model.rel_bias, None),
         "encoder.final_layer_norm.weight": (model.final_norm, None),
     }
+    if model.cfg.shared_pos:
+        out[f"encoder.block.0.{bias}"] = (model.rel_bias, None)
     for i, layer in enumerate(model.layers):
         lp = f"encoder.block.{i}"
+        if not model.cfg.shared_pos:
+            out[f"{lp}.{bias}"] = (layer.rel_bias, None)
         out[f"{lp}.layer.0.layer_norm.weight"] = (layer.attn_norm, None)
         for name in ("q", "k", "v", "o"):
             _lin(out, f"{lp}.layer.0.SelfAttention.{name}", getattr(layer, name))
@@ -373,6 +377,52 @@ def wan_vae_key_map(model) -> KeyMap:
     return out
 
 
+def wan_vace_key_map(model) -> KeyMap:
+    """diffusers WanVACETransformer3DModel names -> WanVACETransformer
+    parameters: q|k|v (self) and k|v (cross) fused as the port holds them,
+    each (1, n, D) modulation table into its (n, D) one; LayerNorms
+    without parameters hold nothing."""
+    d = model.cfg.hidden_dim
+    out: KeyMap = {}
+
+    def conv(name, p):
+        out[f"{name}.weight"] = (p.weight, None)
+        out[f"{name}.bias"] = (p.bias, None)
+
+    conv("patch_embedding", model.patch_embed)
+    conv("vace_patch_embedding", model.vace_patch_embed)
+    _lin(out, "condition_embedder.time_embedder.linear_1", model.time_in.fc1)
+    _lin(out, "condition_embedder.time_embedder.linear_2", model.time_in.fc2)
+    _lin(out, "condition_embedder.time_proj", model.time_proj)
+    _lin(out, "condition_embedder.text_embedder.linear_1", model.text_in.fc1)
+    _lin(out, "condition_embedder.text_embedder.linear_2", model.text_in.fc2)
+    out["scale_shift_table"] = (model.head_mod.view(1, 2, d), None)
+    _lin(out, "proj_out", model.head)
+    for stack, blocks in (("blocks", model.blocks), ("vace_blocks", model.vace_blocks)):
+        for i, blk in enumerate(blocks):
+            pre = f"{stack}.{i}"
+            out[f"{pre}.scale_shift_table"] = (blk.modulation.view(1, 6, d), None)
+            for proj, rows in _blocks(blk.self_qkv, (("to_q", d), ("to_k", d), ("to_v", d))):
+                _lin(out, f"{pre}.attn1.{proj}", blk.self_qkv, rows)
+            _lin(out, f"{pre}.attn1.to_out.0", blk.self_o)
+            out[f"{pre}.attn1.norm_q.weight"] = (blk.self_q_scale, None)
+            out[f"{pre}.attn1.norm_k.weight"] = (blk.self_k_scale, None)
+            out[f"{pre}.norm2.weight"] = (blk.cross_norm.weight, None)
+            out[f"{pre}.norm2.bias"] = (blk.cross_norm.bias, None)
+            _lin(out, f"{pre}.attn2.to_q", blk.cross_q)
+            for proj, rows in _blocks(blk.cross_kv, (("to_k", d), ("to_v", d))):
+                _lin(out, f"{pre}.attn2.{proj}", blk.cross_kv, rows)
+            _lin(out, f"{pre}.attn2.to_out.0", blk.cross_o)
+            out[f"{pre}.attn2.norm_q.weight"] = (blk.cross_q_scale, None)
+            out[f"{pre}.attn2.norm_k.weight"] = (blk.cross_k_scale, None)
+            _lin(out, f"{pre}.ffn.net.0.proj", blk.ffn.fc1)
+            _lin(out, f"{pre}.ffn.net.2", blk.ffn.fc2)
+            for name in ("proj_in", "proj_out"):
+                if hasattr(blk, name):
+                    _lin(out, f"{pre}.{name}", getattr(blk, name))
+    return out
+
+
 # checkpoint keys that name the same tensor as a mapped one (loaded only
 # when the mapped key is absent), and keys that hold no weight
 ALIASES = {"encoder.embed_tokens.weight": "shared.weight"}   # T5's tied embedding
@@ -391,8 +441,9 @@ def _modules():
     from textflux_torch.models.transformer import FluxTransformer
     from textflux_torch.models.vae import FluxVAE
     from textflux_torch.models.vae_wan import WanVAE
+    from textflux_torch.models.wan import WanVACETransformer
 
-    return {FluxConfig: (FluxTransformer, flux_key_map), VAEConfig: (FluxVAE, vae_key_map),
+    return {WanVACEConfig: (WanVACETransformer, wan_vace_key_map),FluxConfig: (FluxTransformer, flux_key_map), VAEConfig: (FluxVAE, vae_key_map),
             CLIPTextConfig: (CLIPTextModel, clip_key_map), T5Config: (T5Encoder, t5_key_map),
             QwenImageConfig: (QwenImageTransformer, qwen_image_key_map),
             QwenTextConfig: (QwenTextEncoder, qwen_text_key_map),

@@ -4,6 +4,10 @@ The port of ``textflux_tpu/models/t5.py``: pre-norm blocks with RMSNorm,
 bias-free projections, unscaled attention logits plus a learned
 relative-position bias (computed once, shared by all layers), and gated-GELU
 MLPs.
+
+UMT5 (Wan's text encoder) is the same encoder with one relative-position
+bias per layer (``T5Config.shared_pos`` False): each layer then holds its
+own ``rel_bias`` and adds its own bias to its logits.
 """
 
 from __future__ import annotations
@@ -32,6 +36,13 @@ class T5Layer(nn.Module):
         self.wi_0 = make_linear(d, cfg.d_ff, bias=False, **kw)
         self.wi_1 = make_linear(d, cfg.d_ff, bias=False, **kw)
         self.wo = make_linear(cfg.d_ff, d, bias=False, **kw)
+        if not cfg.shared_pos:
+            self.rel_bias = _rel_bias_param(cfg, **kw)
+
+
+def _rel_bias_param(cfg: T5Config, *, device, dtype, generator) -> nn.Parameter:
+    return nn.Parameter(torch.randn(cfg.relative_attention_num_buckets, cfg.num_heads,
+                                    generator=generator, device=device, dtype=dtype) * 0.02)
 
 
 class T5Encoder(nn.Module):
@@ -49,9 +60,8 @@ class T5Encoder(nn.Module):
         self.embedding = nn.Parameter(torch.randn(cfg.vocab_size, cfg.d_model,
                                                   generator=generator, device=device,
                                                   dtype=dtype))
-        self.rel_bias = nn.Parameter(
-            torch.randn(cfg.relative_attention_num_buckets, cfg.num_heads,
-                        generator=generator, device=device, dtype=dtype) * 0.02)
+        if cfg.shared_pos:
+            self.rel_bias = _rel_bias_param(cfg, **kw)
         self.layers = nn.ModuleList(T5Layer(cfg, **kw) for _ in range(cfg.num_layers))
         self.final_norm = ones_param(cfg.d_model, device=device, dtype=dtype)
 
@@ -84,12 +94,17 @@ def t5_encode(t5: T5Encoder, input_ids: torch.Tensor,
     h = t5.embedding[input_ids].to(dtype)
     buckets = relative_position_buckets(s, cfg.relative_attention_num_buckets,
                                         cfg.relative_attention_max_distance, h.device)
-    pos_bias = t5.rel_bias.float()[buckets].permute(2, 0, 1)[None]   # (1, H, S, S)
-    if attention_mask is not None:
-        keep = attention_mask[:, None, None, :].to(torch.bool)
-        pos_bias = torch.where(keep, pos_bias, torch.full_like(pos_bias, -1e9))
+    keep = None if attention_mask is None else attention_mask[:, None, None, :].to(torch.bool)
+
+    def bias_of(table):
+        bias = table.float()[buckets].permute(2, 0, 1)[None]   # (1, H, S, S)
+        return bias if keep is None else torch.where(keep, bias, torch.full_like(bias, -1e9))
+
+    pos_bias = bias_of(t5.rel_bias) if cfg.shared_pos else None
     nh = cfg.num_heads
     for p in t5.layers:
+        if not cfg.shared_pos:
+            pos_bias = bias_of(p.rel_bias)
         y = rms_norm(h, p.attn_norm, cfg.layer_norm_eps)
         q = dense(p.q, y).reshape(b, s, nh, -1)
         k = dense(p.k, y).reshape(b, s, nh, -1)

@@ -66,7 +66,8 @@ from textflux_torch.models.layers import (
 )
 from textflux_torch.ops.adaln import adaln_modulate, adaln_modulate_reference
 from textflux_torch.ops.attention import dot_product_attention
-from textflux_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS, flash_attention_qk_norm_rope
+from textflux_torch.ops.flash_attention import (SUPPORTED_HEAD_DIMS, attn_cross, attn_self,
+                                                flash_attention_qk_norm_rope)
 from textflux_torch.ops.rope import apply_rope_bshd, half_permutation, rope_tables, rope_tables_half
 from textflux_torch.parallel import partitioning as PT
 from textflux_torch.parallel.partitioning import LORA_KEYS
@@ -146,7 +147,8 @@ class FluxTransformer(nn.Module):
     (``init_flux_params``) from `generator` (default: seed 0 on `device`).
 
     ``rope_layout`` records the q/k feature order: "interleaved" as built or
-    loaded, "half" after ``half_permute_flux_params``. ``tp_layout`` is the
+    loaded, "half" after ``half_permute_flux_params``; ``fused_layout`` is
+    the order the fused attention reads, "half". ``tp_layout`` is the
     tensor-parallel degree the fused projections are permuted for (1: not
     permuted, ``tp_permute_flux_params``); ``tp_rank`` the rank whose shard
     the module holds (None: it is whole)."""
@@ -223,15 +225,17 @@ class FluxTransformer(nn.Module):
         return output_head(self, x[:, n_txt:], final)
 
 
-def dit_init(model: nn.Module, cfg, device, dtype, generator) -> dict:
+def dit_init(model: nn.Module, cfg, device, dtype, generator, *,
+             fused_layout: str = "half") -> dict:
     """Set what serving reads of a DiT as built (its config, the q/k layout
-    "interleaved", whole: tp_layout 1, tp_rank None; its forward's CUDA
-    graphs) and return its parameters' factory arguments (`generator`
-    default: seed 0 on `device`)."""
+    "interleaved", the layout its "fused" attention reads, whole: tp_layout
+    1, tp_rank None; its forward's CUDA graphs) and return its parameters'
+    factory arguments (`generator` default: seed 0 on `device`)."""
     device = resolve_device(device, allow_meta=True)
     if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     model.cfg, model.rope_layout, model.tp_layout, model.tp_rank = cfg, "interleaved", 1, None
+    model.fused_layout = fused_layout
     model.graphs = ForwardGraphs()
     return dict(device=device, dtype=dtype, generator=generator)
 
@@ -498,12 +502,44 @@ def resolve_attn_impl(attn_impl: str, head_dim: int, device: torch.device) -> st
     return attn_impl
 
 
+def _layout_for(model: nn.Module, attn_impl: str) -> str:
+    """The q/k layout `attn_impl` reads in `model`: the model's
+    ``fused_layout`` for "fused", else "interleaved"."""
+    return model.fused_layout if attn_impl == "fused" else "interleaved"
+
+
 def to_attn_layout(model: nn.Module, attn_impl: str) -> nn.Module:
-    """`model`, its q/k weights half-permuted in place for "fused" unless
-    they are (``half_permute_flux_params``)."""
-    if attn_impl == "fused" and model.rope_layout == "interleaved":
+    """`model`, its q/k weights half-permuted in place where `attn_impl`
+    reads the "half" layout and they are not in it yet
+    (``half_permute_flux_params``)."""
+    if _layout_for(model, attn_impl) == "half" and model.rope_layout == "interleaved":
         half_permute_flux_params(model)
     return model
+
+
+def wan_attention(q, k, v, q_scale, k_scale, attn_impl: str, *, rope=None,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Wan's two attention forms (``models.wan``) over BSHD q/k/v: q and k
+    RMS-normed across each token's heads with the (H*D,) scales, then the
+    self-attention's interleaved RoPE (`rope` = (cos, sin)) or, without
+    `rope`, the cross-attention's none (k and v the text's rows), softmax
+    over every key. "fused": ``attn_self`` / ``attn_cross`` (the Hopper
+    kernels on CUDA, their plain versions on the CPU), which read the
+    checkpoint's interleaved q/k order (a Wan model's ``fused_layout``);
+    "plain": the composition (``rms_norm`` over the whole
+    row, ``apply_rope_bshd``, ``plain_attention``)."""
+    if attn_impl == "fused":
+        if rope is None:
+            return attn_cross(q, k, v, q_scale, k_scale, eps=eps)
+        return attn_self(q, k, v, q_scale, k_scale, *rope, eps=eps)
+    if attn_impl != "plain":
+        raise ValueError(f"Wan's attention runs 'fused' or 'plain', not {attn_impl!r}")
+    h = q.shape[2]
+    q = rms_norm(q.flatten(2), q_scale, eps).unflatten(2, (h, -1))
+    k = rms_norm(k.flatten(2), k_scale, eps).unflatten(2, (h, -1))
+    if rope is not None:
+        q, k = apply_rope_bshd(q, *rope), apply_rope_bshd(k, *rope)
+    return dot_product_attention(q, k, v, impl="plain")
 
 
 def check_attn_layout(model: nn.Module, attn_impl: str) -> None:
@@ -511,7 +547,7 @@ def check_attn_layout(model: nn.Module, attn_impl: str) -> None:
     the layout it reads."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    want = "half" if attn_impl == "fused" else "interleaved"
+    want = _layout_for(model, attn_impl)
     if model.rope_layout != want:
         raise ValueError(f"attn_impl={attn_impl!r} needs q/k weights in the {want!r} "
                          f"layout, the model is {model.rope_layout!r} "

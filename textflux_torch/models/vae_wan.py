@@ -1,4 +1,5 @@
-"""The Wan-2.1 VAE (diffusers' ``AutoencoderKLQwenImage``) on single images.
+"""The Wan-2.1 VAE (diffusers' ``AutoencoderKLQwenImage`` / ``AutoencoderKLWan``) on
+single images and on clips.
 
 The published VAE is causal in time: every ``CausalConv3d`` pads two zero
 frames before the first, and a video's first chunk is one frame. An image
@@ -29,6 +30,18 @@ Layers (base 96, ``dim_mult`` (1, 2, 4, 4), 2 residual blocks a level):
 Latents are normalised per channel, (z - mean) / std, with the published
 vectors (``config.WAN_LATENTS_MEAN`` / ``WAN_LATENTS_STD``). Public
 functions take and give NHWC, as ``models.vae``'s.
+
+Clips (``wan_encode_video`` / ``wan_decode_video``, NTHWC) run the causal
+temporal path as the published VAE does, chunk by chunk: the encoder takes
+frame 0 alone and then 4 frames at a time, the decoder one latent frame at
+a time. Every causal 3-D convolution pads its input with the last
+``CACHE_T`` frames of its input in the chunks before (zeros before frame
+0), kept in a per-call cache; ``time_conv`` runs from the second chunk on:
+downsampling, a stride-2 convolution over the previous chunk's last frame
+and this chunk's; upsampling, a causal convolution to twice the channels
+whose halves become two frames each. So 1 + 4k frames encode to 1 + k
+latent frames and decode back. The single-image functions above are the
+first chunk without the temporal convolutions, and stay as they are.
 """
 
 from __future__ import annotations
@@ -255,3 +268,136 @@ def wan_decode(vae: WanVAE, latents: torch.Tensor) -> torch.Tensor:
             x = _resample(blk.up, x)
     x = _conv(p.conv_out, silu(_norm(p.norm_out, x)))
     return torch.clamp(x, -1.0, 1.0).permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# Clips: the causal temporal path (NCTHW inside), chunk by chunk
+# ---------------------------------------------------------------------------
+
+CACHE_T = 2     # input frames a causal 3-D convolution carries to the next chunk
+ENCODE_CHUNK = 4
+_REPEAT = "first chunk"   # an upsampling time_conv's state after the first chunk
+
+
+def _causal(p: nn.Module, x: torch.Tensor, prev: Optional[torch.Tensor], *,
+            stride: int = 1) -> torch.Tensor:
+    """A causal 3-D convolution on chunk x (B, C, T, H, W) after `prev`, the
+    earlier frames of its input it sees (None: zeros); front-padded in time
+    to the kernel's reach, 'same' zero padding in space."""
+    w = p.weight
+    kt, ph = w.shape[2], w.shape[3] // 2
+    full = x if prev is None else torch.cat([prev, x], 2)
+    pad_t = max(0, kt - 1 - (full.shape[2] - x.shape[2])) if stride == 1 else 0
+    full = F.pad(full, (ph, ph, ph, ph, pad_t, 0))
+    return F.conv3d(full, w.to(x.dtype), p.bias.to(x.dtype), stride=(stride, 1, 1))
+
+
+def _cconv(p: nn.Module, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    """``_causal`` with the frames `cache` kept for `p`, which then keeps
+    the last CACHE_T frames of this chunk's input (with those before it)."""
+    if p.weight.shape[2] == 1:
+        return _causal(p, x, None)
+    prev = cache.get(id(p))
+    out = _causal(p, x, prev)
+    cache[id(p)] = (x if prev is None else torch.cat([prev, x], 2))[:, :, -CACHE_T:]
+    return out
+
+
+def _frames(fn, x: torch.Tensor) -> torch.Tensor:
+    """`fn` (NCHW -> NCHW) on every frame of x (B, C, T, H, W)."""
+    b, c, t, h, w = x.shape
+    y = fn(x.transpose(1, 2).reshape(b * t, c, h, w))
+    return y.reshape(b, t, *y.shape[1:]).transpose(1, 2)
+
+
+def _norm3(p: RMSNorm, x: torch.Tensor) -> torch.Tensor:
+    xf = F.normalize(x.float(), dim=1) * math.sqrt(x.shape[1])
+    return (xf * p.scale.float()[:, None, None, None]).to(x.dtype)
+
+
+def _res3(p: ResBlock, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    h = _cconv(p.conv1, silu(_norm3(p.norm1, x)), cache)
+    h = _cconv(p.conv2, silu(_norm3(p.norm2, h)), cache)
+    return (x if p.shortcut is None else _causal(p.shortcut, x, None)) + h
+
+
+def _mid3(p: MidBlock, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    x = _frames(lambda f: _attn(p.attn, f), _res3(p.res1, x, cache))
+    return _res3(p.res2, x, cache)
+
+
+def _resample3(p: Resample, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    """A level's resampling of a chunk: in space frame by frame, in time by
+    ``time_conv`` from the second chunk on (module docstring)."""
+    if p.mode == "upsample3d":
+        prev = cache.get(id(p))
+        if prev is None:
+            cache[id(p)] = _REPEAT
+        else:
+            b, c, t, h, w = x.shape
+            keep = x[:, :, -CACHE_T:]
+            if keep.shape[2] < CACHE_T:
+                first = torch.zeros_like(keep) if prev is _REPEAT else prev[:, :, -1:]
+                keep = torch.cat([first, keep], 2)
+            y = _causal(p.time_conv, x, None if prev is _REPEAT else prev)
+            cache[id(p)] = keep
+            x = torch.stack(y.reshape(b, 2, c, t, h, w).unbind(1), 3).reshape(b, c, 2 * t, h, w)
+    x = _frames(lambda f: _resample(p, f), x)
+    if p.mode == "downsample3d":
+        prev = cache.get(id(p))
+        cache[id(p)] = x[:, :, -1:]
+        if prev is not None:
+            x = _causal(p.time_conv, x, prev, stride=2)
+    return x
+
+
+def _encode_chunk(vae: WanVAE, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    p = vae.encoder
+    x = _cconv(p.conv_in, x, cache)
+    for blk in p.down:
+        x = _resample3(blk, x, cache) if isinstance(blk, Resample) else _res3(blk, x, cache)
+    return _cconv(p.conv_out, silu(_norm3(p.norm_out, _mid3(p.mid, x, cache))), cache)
+
+
+def _decode_chunk(vae: WanVAE, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    p = vae.decoder
+    x = _mid3(p.mid, _cconv(p.conv_in, x, cache), cache)
+    for blk in p.up:
+        for r in blk.resnets:
+            x = _res3(r, x, cache)
+        if blk.up is not None:
+            x = _resample3(blk.up, x, cache)
+    return _cconv(p.conv_out, silu(_norm3(p.norm_out, x)), cache)
+
+
+def latent_frames(frames: int) -> int:
+    """Latent frames of a clip of 1 + 4k frames: 1 + k."""
+    if frames < 1 or (frames - 1) % ENCODE_CHUNK:
+        raise ValueError(f"a clip has 1 + {ENCODE_CHUNK}k frames, got {frames}")
+    return 1 + (frames - 1) // ENCODE_CHUNK
+
+
+def wan_encode_video(vae: WanVAE, video: torch.Tensor) -> torch.Tensor:
+    """NTHWC clips (B, 1 + 4k, H, W, 3) in [-1, 1] -> the posterior's mean,
+    normalised per channel: (B, 1 + k, H/8, W/8, 16) in the clips' dtype;
+    frame 0 alone, then 4 frames a chunk."""
+    t = video.shape[1]
+    latent_frames(t)
+    x = video.permute(0, 4, 1, 2, 3)
+    cache: dict = {}
+    bounds = [(0, 1)] + [(s, s + ENCODE_CHUNK) for s in range(1, t, ENCODE_CHUNK)]
+    mu = torch.cat([_encode_chunk(vae, x[:, :, a:b], cache) for a, b in bounds], 2)
+    mu = _causal(vae.quant_conv, mu, None)[:, :vae.cfg.z_dim].permute(0, 2, 3, 4, 1)
+    mean, std = _stats(vae, mu)
+    return ((mu.float() - mean) / std).to(video.dtype)
+
+
+def wan_decode_video(vae: WanVAE, latents: torch.Tensor) -> torch.Tensor:
+    """Normalised NTHWC latents (B, 1 + k, h, w, 16) -> NTHWC clips (B,
+    1 + 4k, 8h, 8w, 3) clamped to [-1, 1]; one latent frame a chunk."""
+    mean, std = _stats(vae, latents)
+    z = (latents.float() * std + mean).to(latents.dtype).permute(0, 4, 1, 2, 3)
+    x = _causal(vae.post_quant_conv, z, None)
+    cache: dict = {}
+    out = torch.cat([_decode_chunk(vae, x[:, :, i:i + 1], cache) for i in range(x.shape[2])], 2)
+    return torch.clamp(out, -1.0, 1.0).permute(0, 2, 3, 4, 1)

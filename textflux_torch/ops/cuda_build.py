@@ -129,6 +129,9 @@ def load_library() -> ctypes.CDLL:
         "textflux_flash_dkv": [ptr] * 8 + [i32] * 5 + [i64] * 8 + [f32, f32, ptr],
         "textflux_w8a16_gemm": [ptr] * 5 + [i32] * 5 + [ptr],
         "textflux_adaln_modulate": [ptr] * 4 + [i32] * 3 + [i64] * 4 + [f32, ptr],
+        "textflux_across_heads_prep": [ptr] * 8 + [i32] * 5 + [i64] * 4 + [f32, f32, ptr],
+        "textflux_across_heads_attention": ([ptr] * 10 + [i32] * 5 + [i64] * 6
+                                            + [f32, f32, ptr]),
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

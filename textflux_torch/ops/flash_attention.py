@@ -274,6 +274,157 @@ flash_attention_qk_norm_rope.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Wan's attention: q/k RMSNorm across heads, interleaved RoPE or none
+# ---------------------------------------------------------------------------
+
+def across_heads_prep_reference(x: torch.Tensor, weight: torch.Tensor,
+                                cos: Optional[torch.Tensor], sin: Optional[torch.Tensor], *,
+                                eps: float, mul: float, dtype) -> torch.Tensor:
+    """Plain version of the across-heads prep on (B, S, H, D): x times
+    rsqrt(mean of x^2 over the token's H*D features + eps) times `weight`
+    (H*D,), then the interleaved RoPE of the (S, D) tables when given,
+    times `mul`; float32 inside, rounded once to `dtype`, (B, S, H, D)."""
+    b, s, h, d = x.shape
+    xf = x.float().reshape(b, s, h * d)
+    xn = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+          * weight.float()).reshape(b, s, h, d)
+    if cos is not None:
+        pairs = xn.reshape(b, s, h, d // 2, 2)
+        rotated = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).reshape(b, s, h, d)
+        xn = xn * cos.float()[None, :, None] + rotated * sin.float()[None, :, None]
+    return (xn * mul).to(dtype)
+
+
+def across_heads_attention_reference(q, k, v, q_weight, k_weight, cos=None, sin=None, *,
+                                     eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of ``attn_self`` / ``attn_cross``: the prep of q (times
+    log2(e)/sqrt(D)) and of k rounded to v's dtype, then an exp2 softmax
+    with the max subtracted over every key, probabilities rounded to v's
+    dtype before P*V, fp32 accumulation; (B, Sq, H, D) in q's dtype. One
+    pass over all keys instead of the kernel's tiles."""
+    d = q.shape[-1]
+    qn = across_heads_prep_reference(q, q_weight, cos, sin, eps=eps, mul=LOG2_E / math.sqrt(d),
+                                     dtype=v.dtype)
+    kn = across_heads_prep_reference(k, k_weight, cos, sin, eps=eps, mul=1.0, dtype=v.dtype)
+    s = torch.matmul(qn.float().transpose(1, 2), kn.float().permute(0, 2, 3, 1))
+    p = torch.exp2(s - torch.amax(s, dim=-1, keepdim=True))
+    acc = torch.matmul(p.to(v.dtype).float(), _bhsd(v))
+    return _bshd(acc / torch.clamp(p.sum(-1, keepdim=True), min=1e-30), q.dtype)
+
+
+def _check_across(q, k, v, q_weight, k_weight, cos, sin) -> None:
+    """What the across-heads launches take: q, k read in 8-byte pieces by
+    the prep, v (when given) by TMA in 16-byte pieces, fp32 weights and
+    tables."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel supports head_dim in {SUPPORTED_HEAD_DIMS}, got {d}")
+    _check_bshd("q", q, (b, sq, h, d), d, 4)
+    _check_bshd("k", k, (b, sk, h, d), d, 4)
+    if v is not None:
+        _check_bshd("v", v, (b, sk, h, d), d, 8)
+    for name, t, shape in (("q_weight", q_weight, (h * d,)), ("k_weight", k_weight, (h * d,)),
+                           ("cos", cos, (sq, d)), ("sin", sin, (sq, d))):
+        if t is not None and (t.device != q.device or t.dtype != torch.float32
+                              or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {q.device}")
+    if (cos is None) != (sin is None) or (cos is not None and sk != sq):
+        raise ValueError("RoPE takes both tables, and keys as many as the queries")
+
+
+def _across_args(q, k, q_weight, k_weight, cos, sin):
+    return (q_weight.float().contiguous(), k_weight.float().contiguous(),
+            None if cos is None else cos.float().contiguous(),
+            None if sin is None else sin.float().contiguous())
+
+
+def across_heads_prep(q, k, q_weight, k_weight, cos=None, sin=None, *, eps: float = 1e-6):
+    """The across-heads prep alone (q' times log2(e)/sqrt(D), and k'), as
+    (B, S, H, D) in q's dtype: ``attn_self`` and ``attn_cross`` run it
+    inside their one call; this entry exists so that the pass can be timed
+    and checked on its own, and counts no launch. CPU tensors run the plain
+    version."""
+    d = q.shape[-1]
+    if q.device.type == "cpu":
+        return (across_heads_prep_reference(q, q_weight, cos, sin, eps=eps,
+                                            mul=LOG2_E / math.sqrt(d), dtype=q.dtype),
+                across_heads_prep_reference(k, k_weight, cos, sin, eps=eps, mul=1.0,
+                                            dtype=q.dtype))
+    from textflux_torch.ops.cuda_build import load_library
+
+    wq, wk, cos, sin = _across_args(q, k, q_weight, k_weight, cos, sin)
+    _check_across(q, k, None, wq, wk, cos, sin)
+    b, sq, h, _ = q.shape
+    qn, kn = torch.empty_like(q, memory_format=torch.contiguous_format), torch.empty(
+        (b, k.shape[1], h, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = load_library().textflux_across_heads_prep(
+            q.data_ptr(), k.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+            None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+            qn.data_ptr(), kn.data_ptr(), b, sq, k.shape[1], h, d, q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), float(eps), LOG2_E / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"across-heads prep launch failed: CUDA error {err}")
+    return qn, kn
+
+
+def _across_heads(q, k, v, q_weight, k_weight, cos, sin, eps: float) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return across_heads_attention_reference(q, k, v, q_weight, k_weight, cos, sin, eps=eps)
+    from textflux_torch.ops.cuda_build import load_library
+
+    wq, wk, cos, sin = _across_args(q, k, q_weight, k_weight, cos, sin)
+    _check_across(q, k, v, wq, wk, cos, sin)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qn, out = (torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device) for _ in range(2))
+    kn = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = load_library().textflux_across_heads_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+            None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+            qn.data_ptr(), kn.data_ptr(), out.data_ptr(), b, sq, sk, h, d,
+            *_strides(q, k, v), float(eps), LOG2_E / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"across-heads attention launch failed: CUDA error {err}")
+    return out
+
+
+def attn_self(q, k, v, q_weight, k_weight, cos, sin, *, eps: float = 1e-6) -> torch.Tensor:
+    """Wan's self-attention over BSHD q/k/v (raw q and k, from their
+    linears): q and k RMS-normed across each token's heads with the
+    (H*D,) weights, interleaved RoPE of the (S, D) tables, softmax
+    attention over every key; (B, S, H, D) in q's dtype. CUDA tensors run
+    the across-heads prep and the forward mainloop
+    (``flash_fwd_sm90_kernel``), counted in ``attn_self.launches``; CPU
+    tensors the plain version."""
+    with span("attn.self"):
+        out = _across_heads(q, k, v, q_weight, k_weight, cos, sin, eps)
+    if q.device.type == "cuda":
+        attn_self.launches += 1
+    return out
+
+
+def attn_cross(q, k, v, q_weight, k_weight, *, eps: float = 1e-6) -> torch.Tensor:
+    """Wan's cross-attention: q (B, Sq, H, D) from the video tokens, k and v
+    (B, Sk, H, D) from the text's; q and k RMS-normed across heads, no
+    RoPE, softmax attention over every key; (B, Sq, H, D) in q's dtype.
+    CUDA tensors run the prep and ``flash_fwd_cross_sm90_kernel``, counted
+    in ``attn_cross.launches``; CPU tensors the plain version."""
+    with span("attn.cross"):
+        out = _across_heads(q, k, v, q_weight, k_weight, None, None, eps)
+    if q.device.type == "cuda":
+        attn_cross.launches += 1
+    return out
+
+
+attn_self.launches = attn_cross.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Plain flash attention: the training forward and its three backward passes
 # ---------------------------------------------------------------------------
 

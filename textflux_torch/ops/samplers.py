@@ -91,6 +91,13 @@ def true_cfg(v_cond: torch.Tensor, v_uncond: torch.Tensor, scale: float) -> torc
     return v.to(v_cond.dtype)
 
 
+def cfg(v_cond: torch.Tensor, v_uncond: torch.Tensor, scale: float) -> torch.Tensor:
+    """Classifier-free guidance v_u + s (v_c - v_u) (Wan's), float32 inside,
+    out in v_cond's dtype."""
+    c, u = v_cond.float(), v_uncond.float()
+    return (u + scale * (c - u)).to(v_cond.dtype)
+
+
 def mask_blend(x: torch.Tensor, mask: torch.Tensor, z0: torch.Tensor, noise: torch.Tensor,
                sigma_next) -> torch.Tensor:
     """Inpainting by latent blending, after a step to sigma_next: the
