@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero:
      (``attn_self``, ``attn_cross``) at the Wan cell's 8,400 and 9,880
      video tokens, against themselves and 512 text keys, with their bound
      from h100_bench/flops_wan.py, one host launch and one prep and one
-     mainloop on the device a call;
+     mainloop on the device a call; beside every time of the forward
+     mainloop (FLUX's 1,408 joint tokens, the training forward's 4,224,
+     Wan's 8,400 and 9,880 and their 512 text keys) its share of the bound
+     and the registers and spills ptxas reported for its instantiation;
   4. main path: full-width FLUX.1-Fill-dev + CLIP-L + T5-XXL + FLUX VAE with
      random bf16 weights made on the card from a seed, driven through
      textflux_torch.cli.run_inference.run on resource/example (euler, then
@@ -290,6 +293,17 @@ def ptxas_report(text: str) -> dict:
     return dict(kernels=kernels, wgmma_warnings=warnings)
 
 
+# the build phase's ptxas_report()["kernels"], which the kernel phases print
+# beside the forward mainloop's times
+BUILD_KERNELS: dict = {}
+
+
+def _mainloop_ptxas(*names) -> dict:
+    """Registers and spills of the named forward mainloop instantiations
+    (ptxas_report's keys), from the build phase's report."""
+    return {n: BUILD_KERNELS.get(n) for n in names}
+
+
 def phase_build() -> dict:
     from textflux_torch.ops.cuda_build import build, load_library
 
@@ -303,6 +317,7 @@ def phase_build() -> dict:
     if not report["kernels"]:
         raise AssertionError(f"no ptxas report for {path.name}: delete it to rebuild")
     log("build kernels " + json.dumps(report))
+    BUILD_KERNELS.update(report["kernels"])
     spilled = [k for k, v in report["kernels"].items()
                if "sm90" in k and (v.get("spill_stores", 0) or v.get("spill_loads", 0))]
     if spilled or report["wgmma_warnings"]:
@@ -457,7 +472,8 @@ def phase_kernels() -> list:
                    tol=BF16_TOL, finite=finite, launches=launches, prep_err=prep_err,
                    kernel_ms=kernel_ms,
                    prep_ms=prep_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by, of_bound=bound_ms / kernel_ms,
+                   mainloop_ptxas=_mainloop_ptxas(f"flash_fwd_sm90_kernel<{d}>"))
         log("kernel case " + json.dumps(row))
         if not (finite and err <= BF16_TOL and prep_err <= BF16_TOL and launches == 1):
             failed.append(c["name"])
@@ -790,7 +806,10 @@ def phase_wan_attention_kernels() -> list:
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=("operations" if cost[0] / PEAK_BF16_FLOPS
                                  >= cost[1] / PEAK_BYTES else "bytes"),
-                       of_bound=bound_ms / kernel_ms, speedup=plain_ms / kernel_ms)
+                       of_bound=bound_ms / kernel_ms,
+                       mainloop_of_bound=bound_ms / max(kernel_ms - prep_ms, 1e-9),
+                       mainloop_ptxas=_mainloop_ptxas(f"{mainloop}<{WAN_HEAD_DIM}>"),
+                       speedup=plain_ms / kernel_ms)
             log("wan attention case " + json.dumps(row))
             want = {"norm_across_heads_kernel": 1, mainloop: 1, other: 0}
             if not (finite and rerun and prep_places <= 1.0 and max_places <= WAN_MAX_PLACES
@@ -946,6 +965,10 @@ def phase_flash_kernels() -> dict:
                 max_err=err, rel_err=rel, tol=tol, finite=finite,
                 kernel_ms=cuda_ms(kernel_fn), plain_ms=cuda_ms(plain_fn, iters=3, warmup=1),
                 bound_ms=bounds[kname][0], bound_by=bounds[kname][1])
+            per_kernel[kname]["of_bound"] = bounds[kname][0] / per_kernel[kname]["kernel_ms"]
+            if kname in ("flash_attention", "flash_attention_lse"):   # the forward mainloop
+                per_kernel[kname]["ptxas"] = _mainloop_ptxas(
+                    *(x for x in FLASH_FUNCTIONS[kname] if f"<{d}" in x))
             if not (finite and (err if kname == "flash_attention_lse" else rel) <= tol):
                 failed.append(f"{name}/{kname}")
         if not (bool(torch.isfinite(lse_fwd).all()) and lse_from_fwd_err <= LSE_TOL):

@@ -155,6 +155,10 @@ __device__ __forceinline__ void fence_async_shared() {
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+// arrive on barrier `id` (of `count` threads) without waiting for it
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 // four 8x8 b16 matrices from mma-fragment registers (thread g = lane / 4,
 // t = lane % 4 holds row g, columns 2t and 2t + 1 of each), stored
 // transposed: row i of matrix q lands at the address lane 8q + i gives
